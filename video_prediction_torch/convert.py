@@ -1,0 +1,74 @@
+"""Carry weights across: a flax params tree -> the port's ``state_dict``.
+
+Takes the JAX package's ``params`` (as from ``init_variables`` or a restored
+checkpoint) as nested dicts of numpy arrays — for example
+``jax.tree_util.tree_map(np.asarray, params)`` — and returns the
+``state_dict`` of ``models.base.VideoPredictionModel``. Imports no jax.
+
+Mapping:
+- the flax tree's module path becomes the torch module path: ``SAVPCell_0``
+  is ``cell``; the ``Conv_0`` wrapper level of ``Conv2D`` disappears;
+  ``Conv2D_0`` inside ``ConvPool2D``/``UpsampleConv2D`` is ``conv``;
+- conv kernels HWIO -> OIHW, dense kernels ``[in, out]`` -> ``[out, in]``;
+  biases and norm scales as they are. ``_SplitInputConv2D``'s single
+  ``[k,k,C1+C2,F]`` kernel under ``mask_head/Conv_0`` becomes one
+  ``[F,C1+C2,k,k]`` conv weight;
+- the five LayerNorms of a ConvLSTM cell (``ln_i``, ``ln_f``, ``ln_g``,
+  ``ln_o``, ``ln_c``) pack into its ``ln`` ``[10, C]``: scale then bias for
+  i, f, g, o, c — the rows kernel K2 reads.
+
+Any subtree converts the same way (one layer's or one cell's params give
+that module's ``state_dict``). A top-level ``discriminator`` subtree is
+skipped: the port has no discriminators yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+_RENAME = {"SAVPCell_0": "cell", "Conv2D_0": "conv"}
+_LN_GATES = ("ln_i", "ln_f", "ln_g", "ln_o", "ln_c")
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, prefix + (k,)))
+        else:
+            flat[prefix + (k,)] = np.asarray(v)
+    return flat
+
+
+def _key(modules, leaf: str) -> str:
+    return ".".join([_RENAME.get(m, m) for m in modules if m != "Conv_0"] + [leaf])
+
+
+def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    ln_rows: Dict[str, Dict[tuple, np.ndarray]] = {}
+    for path, arr in _flatten(params).items():
+        if path[0] == "discriminator":
+            continue
+        *modules, leaf = path
+        if modules and modules[-1] in _LN_GATES:
+            ln_rows.setdefault(_key(modules[:-1], "ln"), {})[(modules[-1], leaf)] = arr
+            continue
+        if leaf == "kernel":
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif arr.ndim == 2:
+                arr = arr.T  # [in, out] -> [out, in]
+            else:
+                raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {arr.ndim}")
+            leaf = "weight"
+        elif leaf not in ("bias", "scale"):
+            raise ValueError(f"unexpected parameter {'/'.join(path)}")
+        out[_key(modules, leaf)] = torch.from_numpy(np.ascontiguousarray(arr))
+    for key, rows in ln_rows.items():
+        packed = np.stack([rows[(g, leaf)] for g in _LN_GATES for leaf in ("scale", "bias")])
+        out[key] = torch.from_numpy(np.ascontiguousarray(packed))
+    return out
