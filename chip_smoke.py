@@ -8,18 +8,34 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 
 1. report the device (name and power limit from ``nvidia-smi``);
 2. build the CUDA kernels from ``video_prediction_torch/kernels/csrc``;
-3. compare each kernel with its plain PyTorch version on the card, at the
-   generation slice's shapes (batch 8), fp32 and bf16, and time both;
-4. drive ``video_prediction_torch.generate`` at the full ``ours_savp`` width
+3. compare each forward kernel with its plain PyTorch version on the card,
+   at the shapes of the generation rollout (batch 8) and of the train step's
+   rollout (the doubled batch 2 x 16), fp32 and bf16, and time both;
+4. compare each backward kernel with autograd of its plain version, at the
+   training step's shapes (the doubled batch 2 x 16) and at odd shapes, fp32
+   and bf16, and time both;
+5. drive ``video_prediction_torch.generate`` at the full ``ours_savp`` width
    (64x64, ngf=32, nz=8) from a run directory with seeded random weights, and
    check GIFs, finite outputs and the kernel launch counts per rollout;
-5. compare the GPU rollout (kernels) with the CPU rollout (plain versions)
+6. compare the GPU rollout (kernels) with the CPU rollout (plain versions)
    of the same weights, batch and z, with TF32 off;
-6. time the no-grad rollout at effective batch 8 and 64.
+7. time the no-grad rollout at effective batch 8 and 64;
+8. drive ``python -m video_prediction_torch.train``'s ``main`` at the full
+   ``ours_savp`` width, batch 16, for 3 steps, then ``--resume`` for one
+   more, and check finite losses, the forward and backward launch counts per
+   train step, the moved spectral u and the resumed step counter;
+9. compare one GPU train step (kernels) with the CPU train step (plain
+   versions) of the same weights, batch and noise at a small width, TF32
+   off: every loss term, gradient and parameter after the step;
+10. time the train step at batch 16, fp32 with TF32 off and with cuDNN's
+    default, with the peak device memory.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository beside it, the script exits non-zero and prints no result.
+The line before the last is ``{"kernels": [...]}``: launches from phase 8,
+errors and times at the train step's shapes (the forward kernels' at the
+generation shapes under ``"generation"``);
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the repository beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -36,17 +52,33 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 8
+TRAIN_BATCH = 16  # the flagship's batch; the train step's rollout runs on 2 x 16 (prior and posterior)
 # (tolerance on |kernel - plain|: atol + rtol * |plain|)
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
+# d kernels and d ln_params sum H*W*C = 12288 or R (up to 131072) terms in
+# another order than autograd: atol 1e-4 of the largest reference value
+REDUCTION_RTOL = 1e-4
 # K2 widths of one generator step at ngf=32, 64x64: encoder 64, 128, 256 at
 # 32, 16, 8 px; decoder 128, 64, 32 at 16, 32, 64 px
 LN_GATE_STEP = [(64, 32), (128, 16), (256, 8), (128, 16), (64, 32), (32, 64)]
 # kernel launches in one rollout of 11 generator steps (12 frames)
 LAUNCHES_PER_ROLLOUT = {"apply_cdna_kernels": 11, "fused_ln_gate": 66, "composite": 11}
+BACKWARD = {"apply_cdna_kernels_backward": "apply_cdna_kernels", "fused_ln_gate_backward": "fused_ln_gate",
+            "composite_backward": "composite"}
 # |GPU - CPU| on gen_images in [0, 1]: fp32 with TF32 off, but sums in
 # other orders through 11 recurrent steps; 1e-3 is a quarter of one 8-bit
 # gray level of the written GIFs
 ROLLOUT_TOL = 1e-3
+# GPU vs CPU train step at fp32 with TF32 off: losses through one doubled
+# rollout and the discriminators. Gradients: the median leaf within 1e-4 of
+# its max |g|; every leaf within 1e-2 of its max |g| plus 1e-5 of the model's
+# largest. Measured on an H100 at ngf=8: median 1e-5, worst 5.8e-3
+# (down1_norm.bias; the instance norm after the first downsampling
+# amplifies rounding, and PyTorch's own non-cuDNN convs give 2.6e-3 on other
+# leaves), and the conv biases in front of an instance norm have gradient 0
+# up to the floor.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL, TRAIN_GRAD_MEDIAN_TOL, TRAIN_GRAD_FLOOR = 1e-2, 1e-4, 1e-5
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 
@@ -91,31 +123,33 @@ def max_err(out, ref, dtype_name: str):
     return float(diff.max()), ok
 
 
-def kernel_phase(dev) -> list:
-    """Phase 3: every kernel against its plain version, fp32 and bf16."""
+def kernel_phase(dev, batch: int) -> list:
+    """Phase 3: every forward kernel against its plain version, fp32 and
+    bf16, at the shapes a rollout at ``batch`` gives it."""
     from video_prediction_torch import kernels as K
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(batch)
     rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)  # noqa: E731
     randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
     results = []
 
     # K1 ------------------------------------------------------------------
-    image = rand(BATCH, 64, 64, 3)
-    kern = torch.softmax(randn(BATCH, 25, 4), dim=1).reshape(BATCH, 5, 5, 4).contiguous()
+    image = rand(batch, 64, 64, 3)
+    kern = torch.softmax(randn(batch, 25, 4), dim=1).reshape(batch, 5, 5, 4).contiguous()
+    shapes = f"[{batch},64,64,3]x[{batch},5,5,4]"
     errs = {}
     for dt in ("float32", "bfloat16"):
         img = image.to(getattr(torch, dt))
         err, ok = max_err(K.apply_cdna_kernels(img, kern), K.apply_cdna_kernels_reference(img, kern), dt)
-        print(f"K1 apply_cdna_kernels {dt} [8,64,64,3]x[8,5,5,4]: max_abs_err {err:.3g} (tol {TOL[dt]})")
-        check(ok, f"K1 {dt} disagrees with its plain version: {err}")
+        print(f"K1 apply_cdna_kernels {dt} {shapes}: max_abs_err {err:.3g} (tol {TOL[dt]})")
+        check(ok, f"K1 {dt} {shapes} disagrees with its plain version: {err}")
         errs[dt] = err
     ms = cuda_ms(lambda: K.apply_cdna_kernels(image, kern))
     plain_ms = cuda_ms(lambda: K.apply_cdna_kernels_reference(image, kern))
-    print(f"K1 time per call (1 call per step), fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"K1 time per call (1 call per step), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results.append(dict(
         name="apply_cdna_kernels", route="cuda", source="video_prediction_torch/kernels/csrc/cdna.cu",
-        replaces="video_prediction_tpu/ops/pallas_kernels.py:82",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:82", shapes=shapes,
         max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
     ))
 
@@ -124,7 +158,7 @@ def kernel_phase(dev) -> list:
     ms = plain_ms = 0.0
     per_width = {}
     for cdim, px in sorted(set(LN_GATE_STEP)):
-        r = BATCH * px * px
+        r = batch * px * px
         z = randn(r, 4 * cdim) * 2.0
         c = randn(r, cdim)
         lnp = torch.cat([1.0 + 0.1 * randn(5, cdim), 0.1 * randn(5, cdim)], dim=0)
@@ -148,16 +182,18 @@ def kernel_phase(dev) -> list:
     for cdim, _ in LN_GATE_STEP:
         ms += per_width[cdim][0]
         plain_ms += per_width[cdim][1]
-    print(f"K2 time per generator step (6 calls), fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"K2 time per generator step (6 calls), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results.append(dict(
         name="fused_ln_gate", route="cuda", source="video_prediction_torch/kernels/csrc/ln_gate.cu",
         replaces="video_prediction_tpu/ops/pallas_kernels.py:145",
+        shapes=f"R={', '.join(str(batch * px * px) for _, px in sorted(set(LN_GATE_STEP)))} at "
+               f"C={', '.join(str(c) for c, _ in sorted(set(LN_GATE_STEP)))}, 6 calls a step",
         max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
     ))
 
     # K3 ------------------------------------------------------------------
-    cand = rand(BATCH, 7, 64, 64, 3)
-    logits = randn(BATCH, 64, 64, 7) * 3.0
+    cand = rand(batch, 7, 64, 64, 3)
+    logits = randn(batch, 64, 64, 7) * 3.0
     errs = {}
     for dt in ("float32", "bfloat16"):
         cd, lg = cand.to(getattr(torch, dt)), logits.to(getattr(torch, dt))
@@ -165,16 +201,146 @@ def kernel_phase(dev) -> list:
         ref, ref_masks = K.composite_reference(cd, lg, with_masks=True)
         e0, ok0 = max_err(out, ref, dt)
         e1, ok1 = max_err(masks, ref_masks, "float32")
-        print(f"K3 composite {dt} [8,7,64,64,3]: max_abs_err out {e0:.3g} masks {e1:.3g} (tol {TOL[dt]})")
+        print(f"K3 composite {dt} [{batch},7,64,64,3]: max_abs_err out {e0:.3g} masks {e1:.3g} (tol {TOL[dt]})")
         check(ok0 and ok1, f"K3 {dt} disagrees with its plain version: {e0}, {e1}")
         errs[dt] = max(e0, e1)
     ms = cuda_ms(lambda: K.composite(cand, logits))
     plain_ms = cuda_ms(lambda: K.composite_reference(cand, logits))
-    print(f"K3 time per call (1 call per step), fp32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"K3 time per call (1 call per step), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results.append(dict(
         name="composite", route="cuda", source="video_prediction_torch/kernels/csrc/composite.cu",
-        replaces="video_prediction_tpu/ops/pallas_kernels.py:198",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:198", shapes=f"[{batch},7,64,64,3], [{batch},64,64,7]",
         max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
+    ))
+    return results
+
+
+def plain_grads(reference, inputs, grads):
+    """Autograd of the plain version in fp32 on the inputs' values, rounded
+    once to the inputs' dtypes (for bf16 the plain version's own autograd
+    rounds each tap's or gate's gradient to bf16 at its ``.float()`` casts
+    before summing; the kernels sum in fp32)."""
+    from video_prediction_torch.kernels._lib import plain_vjp
+
+    out = plain_vjp(reference, [x.float() for x in inputs], [g.float() for g in grads])
+    return [o.to(x.dtype) for o, x in zip(out, inputs)]
+
+
+def reduction_err(out, ref):
+    """(max |out - ref|, ok) for a reduction output: atol REDUCTION_RTOL of max |ref|."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    tol = REDUCTION_RTOL * float(ref.abs().max()) + REDUCTION_RTOL * ref.abs()
+    return float(diff.max()), bool(((diff <= tol) & torch.isfinite(out)).all())
+
+
+def plain_backward_ms(reference, inputs, grads) -> float:
+    """Device time of the plain version's backward alone: autograd over one
+    recorded graph, kept for the repeats."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    outs = reference(*leaves)
+    return cuda_ms(lambda: torch.autograd.grad(outs, leaves, grads, retain_graph=True), iters=20)
+
+
+def backward_phase(dev) -> list:
+    """Phase 4: every backward kernel against autograd of its plain version,
+    fp32 and bf16, at the train step's shapes and at odd shapes."""
+    from video_prediction_torch import kernels as K
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)  # noqa: E731
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+    b2 = 2 * TRAIN_BATCH
+    results = []
+
+    def compare(name, outs, refs, kinds, dt, label):
+        errs = []
+        for out, ref, kind in zip(outs, refs, kinds):
+            err, ok = reduction_err(out, ref) if kind == "sum" else max_err(out, ref, dt)
+            check(ok, f"{name} {dt} {label}: output {len(errs)} disagrees with plain autograd: {err}")
+            errs.append(err)
+        print(f"{name} {dt} {label}: max_abs_err {', '.join(f'{e:.3g}' for e in errs)} "
+              f"(tol {TOL[dt]}; reductions {REDUCTION_RTOL} of max)")
+        return max(errs)
+
+    # K1 backward ---------------------------------------------------------
+    err32 = 0.0
+    for (b, h, w, c, k, n) in [(b2, 64, 64, 3, 5, 4), (3, 37, 23, 2, 3, 5)]:
+        image = rand(b, h, w, c)
+        kern = torch.softmax(randn(b, k * k, n), dim=1).reshape(b, k, k, n).contiguous()
+        grad = randn(b, n, h, w, c)
+        for dt in ("float32", "bfloat16"):
+            img, gr = image.to(getattr(torch, dt)), grad.to(getattr(torch, dt))
+            e = compare("K1 backward", K.apply_cdna_kernels_backward(img, kern, gr),
+                        plain_grads(K.apply_cdna_kernels_reference, (img, kern), (gr,)), ("elem", "sum"), dt,
+                        f"[{b},{h},{w},{c}]x[{b},{k},{k},{n}]")
+            if dt == "float32" and b == b2:
+                err32 = e
+    image, kern, grad = rand(b2, 64, 64, 3), torch.softmax(randn(b2, 25, 4), 1).reshape(b2, 5, 5, 4), randn(b2, 4, 64, 64, 3)
+    ms = cuda_ms(lambda: K.apply_cdna_kernels_backward(image, kern, grad))
+    plain_ms = plain_backward_ms(K.apply_cdna_kernels_reference, (image, kern), (grad,))
+    print(f"K1 backward time per call (1 call per step), fp32, batch {b2}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results.append(dict(
+        name="apply_cdna_kernels_backward", route="cuda", source="video_prediction_torch/kernels/csrc/cdna.cu",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:82", shapes=f"[{b2},64,64,3]x[{b2},5,5,4]",
+        max_abs_err=err32, ms=ms, plain_ms=plain_ms,
+    ))
+
+    # K2 backward ---------------------------------------------------------
+    def ln_inputs(r, cdim):
+        lnp = torch.cat([1.0 + 0.1 * randn(5, cdim), 0.1 * randn(5, cdim)], dim=0)
+        lnp = lnp.reshape(2, 5, cdim).transpose(0, 1).reshape(10, cdim).contiguous()
+        return randn(r, 4 * cdim) * 2.0, randn(r, cdim), lnp, randn(r, cdim), randn(r, cdim)
+
+    err32, per_width = 0.0, {}
+    train_shapes = {(cdim, b2 * px * px) for cdim, px in LN_GATE_STEP}
+    for cdim, r in sorted(train_shapes) + [(40, 77), (300, 1000)]:
+        z, c, lnp, dcn, dhn = ln_inputs(r, cdim)
+        for dt in ("float32", "bfloat16"):
+            zz, cc, d1, d2 = (x.to(getattr(torch, dt)) for x in (z, c, dcn, dhn))
+            e = compare("K2 backward", K.fused_ln_gate_backward(zz, cc, lnp, d1, d2),
+                        plain_grads(K.fused_ln_gate_reference, (zz, cc, lnp), (d1, d2)), ("elem", "elem", "sum"),
+                        dt, f"R={r} C={cdim}")
+            if dt == "float32" and (cdim, r) in train_shapes:
+                err32 = max(err32, e)
+        if (cdim, r) in train_shapes:
+            per_width[cdim] = (cuda_ms(lambda: K.fused_ln_gate_backward(z, c, lnp, dcn, dhn), iters=20),
+                               plain_backward_ms(K.fused_ln_gate_reference, (z, c, lnp), (dcn, dhn)))
+            print(f"K2 backward time per call C={cdim} R={r}, fp32: kernel {per_width[cdim][0]:.4f} ms, "
+                  f"plain {per_width[cdim][1]:.4f} ms")
+    ms = sum(per_width[cdim][0] for cdim, _ in LN_GATE_STEP)
+    plain_ms = sum(per_width[cdim][1] for cdim, _ in LN_GATE_STEP)
+    print(f"K2 backward time per generator step (6 calls), fp32, batch {b2}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    results.append(dict(
+        name="fused_ln_gate_backward", route="cuda", source="video_prediction_torch/kernels/csrc/ln_gate.cu",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:145",
+        shapes=f"R={', '.join(str(r) for _, r in sorted(train_shapes))} at "
+               f"C={', '.join(str(c) for c, _ in sorted(train_shapes))}, 6 calls a step",
+        max_abs_err=err32, ms=ms, plain_ms=plain_ms,
+    ))
+
+    # K3 backward ---------------------------------------------------------
+    def composite_image(a, m):
+        return K.composite_reference(a, m)[0]
+
+    err32 = 0.0
+    for (b, k, h, w, c) in [(b2, 7, 64, 64, 3), (3, 5, 17, 19, 1)]:
+        cand, logits, grad = rand(b, k, h, w, c), randn(b, h, w, k) * 3.0, randn(b, h, w, c)
+        for dt in ("float32", "bfloat16"):
+            cd, lg, gr = (x.to(getattr(torch, dt)) for x in (cand, logits, grad))
+            e = compare("K3 backward", K.composite_backward(cd, lg, gr),
+                        plain_grads(composite_image, (cd, lg), (gr,)), ("elem", "elem"), dt, f"[{b},{k},{h},{w},{c}]")
+            if dt == "float32" and b == b2:
+                err32 = e
+    cand, logits, grad = rand(b2, 7, 64, 64, 3), randn(b2, 64, 64, 7) * 3.0, randn(b2, 64, 64, 3)
+    ms = cuda_ms(lambda: K.composite_backward(cand, logits, grad))
+    plain_ms = plain_backward_ms(composite_image, (cand, logits), (grad,))
+    print(f"K3 backward time per call (1 call per step), fp32, batch {b2}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    results.append(dict(
+        name="composite_backward", route="cuda", source="video_prediction_torch/kernels/csrc/composite.cu",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:198", shapes=f"[{b2},7,64,64,3], [{b2},64,64,7]",
+        max_abs_err=err32, ms=ms, plain_ms=plain_ms,
     ))
     return results
 
@@ -233,6 +399,7 @@ def generate_phase():
     check(rollouts == 4 and summary["gifs"] == 32 and len(gifs) == 32, f"unexpected generate summary {summary}")
     check(summary["all_finite"], "generate produced non-finite values")
     want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})  # no-grad rollouts: no backward
     check(launches == want, f"kernel launches {launches}, want {want} ({rollouts} rollouts)")
     return model, launches
 
@@ -269,6 +436,145 @@ def timing_phase(gpu_model, dev, ident: str) -> None:
                   f"{frames / ms * 1e3:.0f} generated frames/s [{ident}]")
 
 
+def train_phase(init_seed: int = 0) -> dict:
+    """Phase 8: ``python -m video_prediction_torch.train``'s ``main`` at full
+    width, batch 16: 3 steps, then ``--resume`` for a 4th; returns the
+    launch counts of the 4 steps."""
+    import shutil
+
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    run_dir = os.path.join(WORK_DIR, "train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--dataset", "synthetic", "--model", "savp",
+            "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+            "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+            "--progress_freq", "1", "--save_freq", "1000", "--seed", str(init_seed)]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_main(argv + ["--max_steps", "3"])
+    resumed = train_main(argv + ["--max_steps", "4", "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    print(f"train: 3 steps then a resumed 4th, {wall:.2f} s wall (set-up, checkpoints and the first steps "
+          f"included); last losses {resumed['scalars']}; launches {launches}")
+    check(first["all_finite"] and resumed["all_finite"], "train produced non-finite losses")
+    check((first["start_step"], first["step"]) == (0, 3), f"unexpected first run {first}")
+    check((resumed["start_step"], resumed["step"]) == (3, 4), f"the resumed run did not continue at step 3: {resumed}")
+    steps = 4  # one doubled-batch rollout and its backward per step
+    want = {k: n * steps for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
+    check(launches == want, f"kernel launches {launches}, want {want} ({steps} train steps)")
+
+    from video_prediction_torch.models import get_model_class
+
+    trained = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)
+    init = get_model_class("savp")(slice_hparams(), image_shape=(64, 64, 3), action_dim=4)
+    init.init_weights(torch.Generator().manual_seed(init_seed))
+    start = init.state_dict()
+    for key in ("video", "video_vae"):
+        name = f"discriminator.{key}.sn_conv3d5.u"
+        moved = float((trained[name] - start[name]).abs().max())
+        print(f"spectral u {name}: moved by up to {moved:.3g} over 4 steps")
+        check(moved > 0.0, f"{name} did not move")
+    return launches
+
+
+def train_cpu_vs_gpu_phase(dev) -> None:
+    """Phase 9: one train step on the CPU (plain versions) and on the GPU
+    (kernels) from the same weights, batch and noise, fp32 with TF32 off, at
+    ngf=8 (64 px, 6 frames, batch 2)."""
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = slice_hparams().replace(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2)
+    cpu_model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    cpu_model.init_weights(torch.Generator().manual_seed(5))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = {k: v[:, :6] for k, v in synthetic_batch(2, seed=6, device="cpu").items()}
+    noise = cpu_model.draw_noise(2, 6, torch.Generator().manual_seed(7))
+    step = make_train_step(cpu_model)
+    states = [TrainState(m, *make_optimizers(m), 0, torch.Generator()) for m in (cpu_model, gpu_model)]
+    s_cpu = step(states[0], batch, noise)
+    s_gpu = step(states[1], {k: v.to(dev) for k, v in batch.items()},
+                 {k: v.to(dev) if torch.is_tensor(v) else v for k, v in noise.items()})
+    check(sorted(s_cpu) == sorted(s_gpu), f"loss terms differ: {sorted(s_cpu)} vs {sorted(s_gpu)}")
+    worst = 0.0
+    for k in s_cpu:
+        a, b = float(s_cpu[k]), float(s_gpu[k])
+        worst = max(worst, abs(a - b) / max(abs(a), 1e-12))
+        check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(a) + 1e-7, f"loss {k}: CPU {a} vs GPU {b}")
+    lr = cpu_model.hparams.lr
+    params = dict(gpu_model.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in cpu_model.parameters())
+    param_worst, rel = 0.0, []
+    for name, p in cpu_model.named_parameters():
+        g_cpu, g_gpu = p.grad, params[name].grad.cpu()
+        scale = float(g_cpu.abs().max())
+        err = float((g_gpu - g_cpu).abs().max())
+        if scale > TRAIN_GRAD_FLOOR * gmax:
+            rel.append(err / scale)
+        check(err <= TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * gmax, f"gradient of {name}: max |dg| {err:.3g}, "
+              f"max |g| {scale:.3g}")
+        # Adam's first step moves each weight by lr * g / (|g| + 1e-8), at
+        # most lr: where |g| is near the gradient tolerance the two sides may
+        # step apart by up to 2 lr; where |g| is ten times above it and above
+        # 1e-6 (eps then moves the step by under 1%) they step alike
+        settled = g_cpu.abs() > max(10.0 * (TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * gmax), 1e-6)
+        diff = (params[name].detach().cpu() - p.detach()).abs()
+        param_worst = max(param_worst, float(diff[settled].max()) if settled.any() else 0.0)
+        check(bool((diff[settled] <= 1e-6 + 0.01 * lr).all()) and bool((diff <= 2.0 * lr + 1e-6).all()),
+              f"parameter {name} after the step differs by {float(diff.max()):.3g}")
+    rel.sort()
+    check(rel[len(rel) // 2] <= TRAIN_GRAD_MEDIAN_TOL, f"median leaf gradient error {rel[len(rel) // 2]:.3g}")
+    for name, buf in cpu_model.named_buffers():
+        err = float((dict(gpu_model.named_buffers())[name].cpu() - buf).abs().max())
+        check(err <= 1e-5, f"spectral {name} differs by {err:.3g} after the step")
+    print(f"train step GPU vs CPU, ngf=8, batch 2, fp32 (TF32 off): {len(s_cpu)} loss terms within rel "
+          f"{worst:.3g} (tol {TRAIN_LOSS_RTOL}); gradient error over each leaf's max: median {rel[len(rel) // 2]:.3g}"
+          f" (tol {TRAIN_GRAD_MEDIAN_TOL}), worst {rel[-1]:.3g} (tol {TRAIN_GRAD_TOL} + {TRAIN_GRAD_FLOOR} of the "
+          f"largest); parameters after the step within {param_worst:.3g} where |g| is well above the tolerance")
+
+
+def train_timing_phase(dev, ident: str) -> None:
+    """Phase 10: ms per train step at batch 16 on a fixed device batch, CUDA
+    synchronised host clock over 5 steps after 2 warm-up steps, and the
+    peak device memory."""
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.state import create_train_state
+    from video_prediction_torch.train.step import make_train_step
+
+    hp = slice_hparams().replace(batch_size=TRAIN_BATCH)
+    model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    ts = create_train_state(model, 0, dev)
+    step = make_train_step(model)
+    data = synthetic_batch(TRAIN_BATCH, seed=8, device=dev)
+    frames = TRAIN_BATCH * (hp.sequence_length - hp.context_frames)
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step(ts, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 5
+        for _ in range(n):
+            scalars = step(ts, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(bool(torch.isfinite(v)) for v in scalars.values()), "timed train steps gave non-finite losses")
+        print(f"train step batch {TRAIN_BATCH}, {'TF32 convs' if tf32 else 'fp32 (TF32 off)'}: {ms:.2f} ms, "
+              f"{frames / ms * 1e3:.1f} frames/s, peak memory {peak:.2f} GiB [{ident}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is False; this script needs a CUDA GPU",
@@ -301,21 +607,39 @@ def main() -> int:
         _lib.load_library()
         print(f"build: {time.perf_counter() - t0:.2f} s -> {_lib.library_path().relative_to(ROOT)}")
 
-        # 3. kernels against their plain versions
-        kernel_results = kernel_phase(dev)
+        # 3. forward kernels against their plain versions, at the generation
+        # and at the train step's shapes
+        generation = kernel_phase(dev, BATCH)
+        kernel_results = kernel_phase(dev, 2 * TRAIN_BATCH)
+        for entry, gen in zip(kernel_results, generation):
+            entry["generation"] = {k: gen[k] for k in ("shapes", "max_abs_err", "ms", "plain_ms")}
         torch.cuda.synchronize()
 
-        # 4. the generation entry point at full width
-        model, launches = generate_phase()
-        for entry in kernel_results:
-            entry["launches"] = launches[entry["name"]]
+        # 4. backward kernels against autograd of their plain versions
+        kernel_results += backward_phase(dev)
+        torch.cuda.synchronize()
 
-        # 5. GPU rollout (kernels) against CPU rollout (plain versions)
+        # 5. the generation entry point at full width
+        model, _ = generate_phase()
+
+        # 6. GPU rollout (kernels) against CPU rollout (plain versions)
         gpu_model = copy.deepcopy(model).to(dev).eval()
         cpu_vs_gpu_phase(model, gpu_model, dev)
 
-        # 6. rollout time
+        # 7. rollout time
         timing_phase(gpu_model, dev, ident)
+        del gpu_model
+
+        # 8. the training entry point at full width, with a resume
+        launches = train_phase()
+        for entry in kernel_results:
+            entry["launches"] = launches[entry["name"]]
+
+        # 9. GPU train step (kernels) against CPU train step (plain versions)
+        train_cpu_vs_gpu_phase(dev)
+
+        # 10. train step time and peak memory
+        train_timing_phase(dev, ident)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -105,6 +105,9 @@ def test_port_never_imports_jax_or_flax():
             importlib.import_module(name)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "video_prediction_tpu"))
         assert len(names) > 20, names
+        training = ["losses", "ops.spectral", "train.schedules", "train.state", "train.step", "train.checkpoint",
+                    "train.__main__", "train.profile_step"]
+        assert not [m for m in training if "video_prediction_torch." + m not in names], names
         assert not leaked, leaked
         print(len(names))
         """

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain PyTorch versions,
-and a small GPU rollout against the CPU rollout. Every test needs a CUDA
+"""The port's CUDA kernels on the card, forward and backward, against their
+plain PyTorch versions (the backward against autograd of the plain
+version), and a small GPU rollout and train step against the CPU ones. Every test needs a CUDA
 device and skips without one. This file imports no jax, so that it runs on a
 GPU machine without jax:
 
@@ -13,11 +14,15 @@ import torch
 
 from video_prediction_torch import kernels as K
 from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
+from video_prediction_torch.kernels._lib import plain_vjp
 from video_prediction_torch.models import get_model_class
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # atol = rtol; bf16: one rounding of the output
+# d kernels and d ln_params sum up to H*W*C or R terms in another order than
+# autograd: tolerance relative to the largest value of the reference
+REDUCTION_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -75,6 +80,101 @@ def test_composite(dev, dtype, k):
     _close(masks, ref_masks, torch.float32)
 
 
+def _plain_grads(reference, inputs, grads):
+    """Autograd of the plain version, in fp32 on the inputs' values, rounded
+    once to the inputs' dtypes: for bf16 the plain version's own autograd
+    rounds every tap's or gate's gradient to bf16 at its ``.float()`` casts
+    before summing, while the kernels sum in fp32."""
+    f32 = [x.float() for x in inputs]
+    out = plain_vjp(reference, f32, [g.float() for g in grads])
+    return [o.to(x.dtype) for o, x in zip(out, inputs)]
+
+
+def _close_reduction(out, ref):
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out, ref, atol=REDUCTION_RTOL * scale, rtol=REDUCTION_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 64, 64, 3, 5, 4), (2, 13, 9, 2, 3, 2), (1, 200, 40, 1, 5, 7)])
+def test_cdna_backward(dev, dtype, shape):
+    b, h, w, c, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    image = torch.rand(b, h, w, c, device=dev, generator=g).to(dtype)
+    kernels = torch.softmax(torch.randn(b, k * k, n, device=dev, generator=g), 1).reshape(b, k, k, n)
+    grad = torch.randn(b, n, h, w, c, device=dev, generator=g).to(dtype)
+    d_image, d_kernels = K.apply_cdna_kernels_backward(image, kernels, grad)
+    ref_image, ref_kernels = _plain_grads(K.apply_cdna_kernels_reference, (image, kernels), (grad,))
+    assert d_image.dtype == dtype and d_kernels.dtype == torch.float32
+    _close(d_image, ref_image, dtype)
+    _close_reduction(d_kernels, ref_kernels)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cdim,rows", [(8, 77), (32, 5000), (40, 77), (64, 77), (128, 2048), (256, 77), (300, 77),
+                                       (512, 300)])
+def test_ln_gate_backward(dev, dtype, cdim, rows):
+    g = torch.Generator(device=dev).manual_seed(cdim)
+    z = (2.0 * torch.randn(rows, 4 * cdim, device=dev, generator=g)).to(dtype)
+    c = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
+    lnp = torch.rand(10, cdim, device=dev, generator=g) + 0.5
+    dcn = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
+    dhn = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
+    dz, dc, dln = K.fused_ln_gate_backward(z, c, lnp, dcn, dhn, forget_bias=0.5)
+    ref = _plain_grads(lambda a, b_, p: K.fused_ln_gate_reference(a, b_, p, 0.5), (z, c, lnp), (dcn, dhn))
+    assert dz.dtype == dtype and dc.dtype == dtype and dln.dtype == torch.float32
+    _close(dz, ref[0], dtype)
+    _close(dc, ref[1], dtype)
+    _close_reduction(dln, ref[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 7, 16])
+def test_composite_backward(dev, dtype, k):
+    g = torch.Generator(device=dev).manual_seed(k)
+    cand = torch.rand(2, k, 33, 31, 3, device=dev, generator=g).to(dtype)
+    logits = (3.0 * torch.randn(2, 33, 31, k, device=dev, generator=g)).to(dtype)
+    grad = torch.randn(2, 33, 31, 3, device=dev, generator=g).to(dtype)
+    d_cand, d_logits = K.composite_backward(cand, logits, grad)
+    ref = _plain_grads(lambda a, m: K.composite_reference(a, m)[0], (cand, logits), (grad,))
+    _close(d_cand, ref[0], dtype)
+    _close(d_logits, ref[1], dtype)
+
+
+def test_backward_through_each_wrapper_reaches_its_inputs(dev):
+    """``loss.backward()`` through a wrapper on CUDA tensors gives every input
+    the plain version's gradient (not silence), and launches the backward
+    kernel once."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = {
+        "apply_cdna_kernels": (K.apply_cdna_kernels_reference, (
+            torch.rand(2, 16, 16, 3, device=dev, generator=g),
+            torch.softmax(torch.randn(2, 25, 4, device=dev, generator=g), 1).reshape(2, 5, 5, 4))),
+        "fused_ln_gate": (K.fused_ln_gate_reference, (
+            torch.randn(50, 128, device=dev, generator=g), torch.randn(50, 32, device=dev, generator=g),
+            torch.rand(10, 32, device=dev, generator=g) + 0.5)),
+        "composite": (lambda a, m: K.composite_reference(a, m)[0], (
+            torch.rand(2, 7, 8, 8, 3, device=dev, generator=g), torch.randn(2, 8, 8, 7, device=dev, generator=g))),
+    }
+    for name, (reference, inputs) in cases.items():
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        K.reset_launch_counts()
+        out = K.WRAPPERS[name](*leaves)
+        out = out[0] if name == "composite" else torch.cat(out, dim=-1) if name == "fused_ln_gate" else out
+        weights = torch.randn(out.shape, device=dev, generator=g)
+        (out * weights).sum().backward()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        assert counts[name] == 1 and counts[name + "_backward"] == 1, counts
+        ref_leaves = [x.clone().requires_grad_() for x in inputs]
+        ref_out = reference(*ref_leaves)
+        ref_out = torch.cat(ref_out, dim=-1) if name == "fused_ln_gate" else ref_out
+        (ref_out * weights).sum().backward()
+        for leaf, ref_leaf in zip(leaves, ref_leaves):
+            assert leaf.grad is not None, name
+            torch.testing.assert_close(leaf.grad, ref_leaf.grad, atol=1e-4, rtol=1e-4)
+
+
 def test_inputs_the_kernels_do_not_take_raise(dev):
     with pytest.raises(ValueError, match="contiguous"):
         K.fused_ln_gate(torch.zeros(8, 128, device=dev), torch.zeros(8, 64, device=dev)[:, :32],
@@ -93,7 +193,9 @@ def test_launch_counter_counts_kernel_launches(dev):
     K.reset_launch_counts()
     for _ in range(3):
         K.composite(torch.rand(1, 3, 4, 4, 1, device=dev), torch.zeros(1, 4, 4, 3, device=dev))
-    assert K.launch_counts() == {"apply_cdna_kernels": 0, "fused_ln_gate": 0, "composite": 3}
+    assert K.launch_counts() == {"apply_cdna_kernels": 0, "fused_ln_gate": 0, "composite": 3,
+                                 "apply_cdna_kernels_backward": 0, "fused_ln_gate_backward": 0,
+                                 "composite_backward": 0}
 
 
 def test_small_rollout_gpu_matches_cpu(dev, no_tf32):
@@ -116,5 +218,7 @@ def test_small_rollout_gpu_matches_cpu(dev, no_tf32):
         K.reset_launch_counts()
         out = gpu({k: v.to(dev) for k, v in batch.items()}, zs_prior=z.to(dev))["gen_images"]
         torch.cuda.synchronize()
-    assert K.launch_counts() == {"apply_cdna_kernels": 5, "fused_ln_gate": 30, "composite": 5}
+    assert K.launch_counts() == {"apply_cdna_kernels": 5, "fused_ln_gate": 30, "composite": 5,
+                                 "apply_cdna_kernels_backward": 0, "fused_ln_gate_backward": 0,
+                                 "composite_backward": 0}
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)

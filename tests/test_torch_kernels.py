@@ -1,9 +1,12 @@
 """The port's kernels K1-K3 (``video_prediction_torch/kernels``) against the
 JAX package: each plain version against the XLA path and against the Pallas
-kernel in interpret mode (as ``tests/test_pallas.py`` runs it), on the same
-numpy-seeded inputs. On CPU tensors the wrappers run their plain versions;
-the CUDA kernels themselves are compared with the plain versions on the card
-(``tests/test_torch_gpu.py`` and ``chip_smoke.py``)."""
+kernel in interpret mode (as ``tests/test_pallas.py`` runs it), and each
+backward wrapper's CPU path (autograd of the plain version) against
+``jax.vjp`` of the XLA form JAX training differentiates (the Pallas kernels
+are forward only), on the same numpy-seeded inputs. On CPU tensors the
+wrappers run their plain versions; the CUDA kernels themselves are compared
+with the plain versions on the card (``tests/test_torch_gpu.py`` and
+``chip_smoke.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +15,12 @@ import pytest
 import torch
 
 from video_prediction_torch import kernels as K
+from video_prediction_torch.convert import flax_to_state_dict
 from video_prediction_torch.ops import cdna as t_cdna
+from video_prediction_torch.ops.rnn import ConvLSTMCell
 from video_prediction_tpu.ops import cdna as j_cdna
 from video_prediction_tpu.ops import pallas_kernels as pk
+from video_prediction_tpu.ops import rnn as jrnn
 
 torch.set_num_threads(1)
 
@@ -51,6 +57,18 @@ class TestCDNA:
     def test_ops_entry_point_is_the_wrapper(self):
         assert t_cdna.apply_cdna_kernels is K.apply_cdna_kernels
 
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 3, 5, 4), (1, 7, 5, 2, 3, 2)])
+    def test_backward_matches_jax_vjp(self, shape):
+        b, h, w, c, k, n = shape
+        image, _, kernels = _cdna_inputs(2, b, h, w, c, k, n)
+        g = np.random.RandomState(3).randn(b, n, h, w, c).astype(np.float32)
+        d_image, d_kernels = K.apply_cdna_kernels_backward(
+            torch.from_numpy(image), torch.from_numpy(kernels), torch.from_numpy(g))
+        _, vjp = jax.vjp(j_cdna.apply_cdna_kernels, jnp.asarray(image), jnp.asarray(kernels))
+        ref_image, ref_kernels = vjp(jnp.asarray(g))
+        np.testing.assert_allclose(d_image.numpy(), np.asarray(ref_image), atol=ATOL)
+        np.testing.assert_allclose(d_kernels.numpy(), np.asarray(ref_kernels), atol=ATOL * h * w * c)
+
 
 class TestLNGate:
     @pytest.mark.parametrize("cdim", [8, 32])
@@ -82,6 +100,48 @@ class TestLNGate:
         assert c_new.dtype == torch.bfloat16 and h_new.dtype == torch.bfloat16
 
 
+    def test_normed_conv_lstm_cell_gradients_match_jax(self):
+        """Through the cell, K2's plain version (and the gate convs) against
+        ``jax.grad`` of the flax cell's LayerNorm path: gradients of x, c, h
+        and every parameter, the five LayerNorms packed into ``ln``."""
+        rng = np.random.RandomState(5)
+        b, h, w, cin, f = 2, 6, 6, 5, 8
+        x, c0, h0 = (rng.randn(b, h, w, d).astype(np.float32) for d in (cin, f, f))
+        wc, wh = (rng.randn(b, h, w, f).astype(np.float32) for _ in range(2))
+        cell = jrnn.ConvLSTMCell(f, 5, use_norm=True, gate_conv="split")
+        params = cell.init(jax.random.PRNGKey(0), (jnp.asarray(c0), jnp.asarray(h0)), jnp.asarray(x))["params"]
+        params = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.3 * rng.randn(*a.shape).astype(np.float32),
+                                        params)
+
+        def loss(p, x_, c_, h_):
+            (c1, h1), _ = cell.apply({"params": p}, (c_, h_), x_)
+            return jnp.sum(c1 * wc) + jnp.sum(h1 * wh)
+
+        ref = jax.grad(loss, argnums=(0, 1, 2, 3))(params, jnp.asarray(x), jnp.asarray(c0), jnp.asarray(h0))
+        tcell = ConvLSTMCell(cin, f, use_norm=True, gate_conv="split")
+        tcell.load_state_dict(flax_to_state_dict(params))
+        xt, ct, ht = (torch.from_numpy(a).requires_grad_() for a in (x, c0, h0))
+        (c1, h1), _ = tcell((ct, ht), xt)
+        ((c1 * torch.from_numpy(wc)).sum() + (h1 * torch.from_numpy(wh)).sum()).backward()
+        for name, got, want in (("x", xt.grad, ref[1]), ("c", ct.grad, ref[2]), ("h", ht.grad, ref[3])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, err_msg=name)
+        ref_params = flax_to_state_dict(ref[0])
+        for name, p in tcell.named_parameters():
+            np.testing.assert_allclose(p.grad.numpy(), ref_params[name].numpy(), atol=1e-4, rtol=1e-5, err_msg=name)
+
+    def test_backward_wrapper_is_plain_autograd(self):
+        rng = np.random.RandomState(6)
+        z, c = rng.randn(12, 32).astype(np.float32), rng.randn(12, 8).astype(np.float32)
+        lnp = (rng.rand(10, 8) + 0.5).astype(np.float32)
+        dcn, dhn = rng.randn(12, 8).astype(np.float32), rng.randn(12, 8).astype(np.float32)
+        got = K.fused_ln_gate_backward(*map(torch.from_numpy, (z, c, lnp, dcn, dhn)), forget_bias=0.5)
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (z, c, lnp)]
+        c_new, h_new = K.fused_ln_gate(*leaves, forget_bias=0.5)
+        ((c_new * torch.from_numpy(dcn)).sum() + (h_new * torch.from_numpy(dhn)).sum()).backward()
+        for a, leaf in zip(got, leaves):
+            np.testing.assert_allclose(a.numpy(), leaf.grad.numpy(), atol=1e-6)
+
+
 class TestComposite:
     def test_matches_pallas_and_einsum(self):
         rng = np.random.RandomState(0)
@@ -98,6 +158,22 @@ class TestComposite:
         np.testing.assert_allclose(out.numpy(), einsum, atol=ATOL)
         np.testing.assert_allclose(masks.numpy(), np.asarray(jmasks), atol=1e-6)
 
+    def test_backward_matches_jax_vjp(self):
+        rng = np.random.RandomState(4)
+        b, k, h, w, c = 2, 7, 8, 8, 3
+        cand = rng.rand(b, k, h, w, c).astype(np.float32)
+        logits = (3.0 * rng.randn(b, h, w, k)).astype(np.float32)
+        g = rng.randn(b, h, w, c).astype(np.float32)
+
+        def xla(cand_, logits_):  # models/savp.py:381-390, the einsum form
+            return jnp.einsum("bhwck,bhwk->bhwc", jnp.moveaxis(cand_, 1, -1), jax.nn.softmax(logits_, axis=-1))
+
+        _, vjp = jax.vjp(xla, jnp.asarray(cand), jnp.asarray(logits))
+        ref_cand, ref_logits = vjp(jnp.asarray(g))
+        d_cand, d_logits = K.composite_backward(torch.from_numpy(cand), torch.from_numpy(logits), torch.from_numpy(g))
+        np.testing.assert_allclose(d_cand.numpy(), np.asarray(ref_cand), atol=ATOL)
+        np.testing.assert_allclose(d_logits.numpy(), np.asarray(ref_logits), atol=ATOL)
+
     def test_masks_only_on_request(self):
         out, masks = K.composite(torch.rand(1, 3, 4, 4, 1), torch.zeros(1, 4, 4, 3))
         assert masks is None and out.shape == (1, 4, 4, 1)
@@ -113,14 +189,25 @@ class TestDispatch:
         K.apply_cdna_kernels(torch.from_numpy(image), torch.from_numpy(kernels))
         K.fused_ln_gate(torch.zeros(4, 32), torch.zeros(4, 8), torch.ones(10, 8))
         K.composite(torch.rand(1, 3, 4, 4, 1), torch.zeros(1, 4, 4, 3))
-        assert K.launch_counts() == {"apply_cdna_kernels": 0, "fused_ln_gate": 0, "composite": 0}
+        K.apply_cdna_kernels_backward(torch.from_numpy(image), torch.from_numpy(kernels), torch.zeros(2, 4, 8, 8, 3))
+        K.fused_ln_gate_backward(torch.zeros(4, 32), torch.zeros(4, 8), torch.ones(10, 8), torch.ones(4, 8),
+                                 torch.ones(4, 8))
+        K.composite_backward(torch.rand(1, 3, 4, 4, 1), torch.zeros(1, 4, 4, 3), torch.ones(1, 4, 4, 1))
+        assert K.launch_counts() == {name: 0 for name in K.WRAPPERS} and len(K.WRAPPERS) == 6
 
-    @pytest.mark.parametrize("name", ["apply_cdna_kernels", "fused_ln_gate", "composite"])
+    @pytest.mark.parametrize("name", ["apply_cdna_kernels", "fused_ln_gate", "composite",
+                                      "apply_cdna_kernels_backward", "fused_ln_gate_backward",
+                                      "composite_backward"])
     def test_non_cpu_device_without_kernel_raises(self, name):
         args = {
             "apply_cdna_kernels": (torch.zeros(1, 4, 4, 3), torch.zeros(1, 3, 3, 2)),
             "fused_ln_gate": (torch.zeros(4, 32), torch.zeros(4, 8), torch.ones(10, 8)),
             "composite": (torch.zeros(1, 3, 4, 4, 1), torch.zeros(1, 4, 4, 3)),
+            "apply_cdna_kernels_backward": (torch.zeros(1, 4, 4, 3), torch.zeros(1, 3, 3, 2),
+                                            torch.zeros(1, 2, 4, 4, 3)),
+            "fused_ln_gate_backward": (torch.zeros(4, 32), torch.zeros(4, 8), torch.ones(10, 8),
+                                       torch.zeros(4, 8), torch.zeros(4, 8)),
+            "composite_backward": (torch.zeros(1, 3, 4, 4, 1), torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 1)),
         }[name]
         with pytest.raises(ValueError, match="CPU or CUDA"):
             K.WRAPPERS[name](*(a.to("meta") for a in args))

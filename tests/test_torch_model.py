@@ -50,7 +50,7 @@ def _rollouts(output_aux=False, **extra):
     batch = _batch()
     jmodel = j_get_model_class("savp")(jh, mode="test")
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    params, _ = jmodel.init_variables(jax.random.PRNGKey(0), jbatch)
+    params, state = jmodel.init_variables(jax.random.PRNGKey(0), jbatch)
     rng = np.random.RandomState(0)
     # every leaf off its init value, so LN scales/biases and the mask-head
     # bias carry information through the comparison
@@ -65,7 +65,9 @@ def _rollouts(output_aux=False, **extra):
     jout = forward(params, jbatch, jax.random.PRNGKey(1))
 
     tmodel = t_get_model_class("savp")(th, image_shape=(32, 32, 3), action_dim=4)
-    tmodel.load_state_dict(flax_to_state_dict(params))
+    # the discriminators (and their spectral u) are not on this path, but
+    # convert with the rest of the tree
+    tmodel.load_state_dict(flax_to_state_dict(params, {"discriminator": state.get("spectral", {})}))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     zs = jout.get("zs_sampled_prior")
     with torch.no_grad():
@@ -122,9 +124,33 @@ def test_unported_options_raise():
                   dict(compute_dtype="bfloat16"), dict(use_states=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
-    model = t_get_model_class("savp")(_hparams(thp), image_shape=(32, 32, 3), action_dim=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model({"images": torch.zeros(1, 6, 32, 32, 3)}, train=True)
+    # unported loss weights: the model builds and rolls out; its losses raise
+    batch = {"images": torch.rand(1, 6, 32, 32, 3)}
+    for extra in (dict(image_sn_gan_weight=0.1), dict(acvideo_sn_vae_gan_weight=0.1), dict(z_l1_weight=1.0),
+                  dict(vgg_cdist_weight=1.0)):
+        model = t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
+        with torch.no_grad():
+            assert model(batch)["gen_images"].shape == (1, 5, 32, 32, 3)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model.compute_losses(batch)
+
+
+def test_clip_start_tensor_equals_int_start():
+    """The train step draws the clip start on the device; the clip is the
+    slice from it, clamped into range, from a tensor or an int, and routes
+    its gradient as the slice does."""
+    model = t_get_model_class("savp")(_hparams(thp, clip_length=3), image_shape=(32, 32, 3))
+    frames = torch.rand(2, 5, 4, 4, 3, requires_grad=True)
+    weights = torch.rand(2, 3, 4, 4, 3)
+    for start in range(-1, 5):
+        s = min(max(start, 0), 2)
+        want = frames[:, s : s + 3]
+        g_want, = torch.autograd.grad((want * weights).sum(), frames)
+        for given in (start, torch.tensor(start)):
+            clip = model._clip(frames, given)
+            assert torch.equal(clip, want)
+            g, = torch.autograd.grad((clip * weights).sum(), frames)
+            assert torch.equal(g, g_want)
 
 
 def test_init_weights_is_flax_like():

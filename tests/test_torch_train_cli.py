@@ -1,0 +1,105 @@
+"""The port's training CLI (``python -m video_prediction_torch.train``) end to
+end on the CPU at a small width: 2 steps, then ``--resume`` to 3, equal to
+an unbroken 3-step run (parameters, spectral u, both Adam states, the noise
+generator and the step); the losses it reports; the run directory it writes
+is one ``generate`` reads; a params file without discriminators still loads
+for generation."""
+
+import json
+import os
+from pathlib import Path
+
+import pytest
+import torch
+
+from video_prediction_torch import generate
+from video_prediction_torch.configs.hparams import ModelHparams, apply_overrides
+from video_prediction_torch.models import get_model_class
+from video_prediction_torch.train.__main__ import main as train_main
+from video_prediction_torch.train.checkpoint import PARAMS_FILE, TRAIN_STATE_FILE, load_params
+
+torch.set_num_threads(1)
+
+ZOO = Path(__file__).resolve().parent.parent / "hparams" / "bair_action_free" / "ours_savp" / "model_hparams.json"
+SMALL = "ngf=4,nef=8,ndf=4,nz=4,sequence_length=5,clip_length=4,schedule_sampling_k=2.0,kl_anneal_steps=[0, 2]"
+SEED = 3
+
+
+def _train(run_dir, steps, resume=False):
+    argv = ["--dataset", "synthetic", "--model", "savp", "--model_hparams_dict", str(ZOO), "--model_hparams", SMALL,
+            "--output_dir", str(run_dir), "--max_steps", str(steps), "--batch_size", "2", "--device", "cpu",
+            "--progress_freq", "1", "--save_freq", "2", "--seed", str(SEED)]
+    return train_main(argv + (["--resume"] if resume else []))
+
+
+def _model(run_dir):
+    with open(os.path.join(run_dir, "model_hparams.json")) as f:
+        hp = apply_overrides(ModelHparams(), json.load(f))
+    return get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)  # the synthetic dataset's shapes
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train")
+    first = _train(root / "resumed", 2)
+    resumed = _train(root / "resumed", 3, resume=True)
+    whole = _train(root / "whole", 3)
+    return root, first, resumed, whole
+
+
+def test_resume_equals_an_unbroken_run(runs):
+    root, first, resumed, whole = runs
+    assert (first["start_step"], first["step"]) == (0, 2)
+    assert (resumed["start_step"], resumed["step"]) == (2, 3)
+    assert whole["step"] == 3 and resumed["all_finite"] and whole["all_finite"]
+    assert resumed["scalars"] == whole["scalars"]
+    a = torch.load(root / "resumed" / TRAIN_STATE_FILE, weights_only=True)
+    b = torch.load(root / "whole" / TRAIN_STATE_FILE, weights_only=True)
+    assert a["step"] == b["step"] == 3
+    assert sorted(a["model"]) == sorted(b["model"])
+    for k in b["model"]:
+        assert torch.equal(a["model"][k], b["model"][k]), k
+    for opt in ("opt_g", "opt_d"):
+        assert sorted(a[opt]["state"]) == sorted(b[opt]["state"]) and b[opt]["state"]
+        for i, slots in b[opt]["state"].items():
+            for name, v in slots.items():
+                assert torch.equal(a[opt]["state"][i][name], v), (opt, i, name)
+    assert torch.equal(a["rng"], b["rng"])
+
+
+def test_losses_reported_and_spectral_u_moved(runs):
+    root, _, _, whole = runs
+    assert set(whole["scalars"]) == {
+        "g_loss", "d_loss", "g/l1", "g/kl", "g/video_gan", "g/video_vae_gan", "g/video_vae_gan_feat",
+        "d/video_gan_real", "d/video_gan_fake", "d/video_vae_gan_real", "d/video_vae_gan_fake",
+    }
+    init = _model(root / "whole")
+    init.init_weights(torch.Generator().manual_seed(SEED))  # what the run started from
+    trained = torch.load(root / "whole" / PARAMS_FILE, weights_only=True)
+    for key in ("video", "video_vae"):
+        for layer in ("sn_conv3d0", "sn_conv3d5"):  # sn_fc has one output: its u is 1
+            name = f"discriminator.{key}.{layer}.u"
+            assert not torch.allclose(trained[name], init.state_dict()[name]), name
+            assert abs(float(trained[name].norm()) - 1.0) < 1e-5
+
+
+def test_generate_reads_the_training_run_dir(runs, tmp_path):
+    summary = generate.main(["--checkpoint", str(runs[0] / "whole"), "--results_dir", str(tmp_path),
+                             "--device", "cpu", "--batch_size", "2", "--num_samples", "2"])
+    assert summary["gifs"] == 2 and summary["all_finite"]
+
+
+def test_params_without_discriminators_load_for_generation(runs, tmp_path):
+    state = torch.load(runs[0] / "whole" / PARAMS_FILE, weights_only=True)
+    old = tmp_path / PARAMS_FILE
+    old.parent.mkdir(parents=True)
+    torch.save({k: v for k, v in state.items() if not k.startswith("discriminator.")}, old)
+    model = _model(runs[0] / "whole")
+    load_params(str(tmp_path), model)
+    assert torch.equal(model.generator.cell.stem.weight, state["generator.cell.stem.weight"])
+    torch.save({k: v for k, v in state.items() if not k.startswith("generator.cell.stem")}, old)
+    with pytest.raises(RuntimeError, match="missing"):
+        load_params(str(tmp_path), model)
+    torch.save({**state, "bogus": torch.zeros(1)}, old)
+    with pytest.raises(RuntimeError, match="unexpected"):
+        load_params(str(tmp_path), model)

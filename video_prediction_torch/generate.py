@@ -48,8 +48,15 @@ def parse_args(argv=None):
 
 def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """Host batch -> device tensors. Images stay uint8 across the copy and
-    are normalized on the device (``models.base.normalize_batch``)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    are normalized on the device (``models.base.normalize_batch``). To a
+    CUDA device the copy goes from pinned memory and does not wait for the
+    work already queued."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+    return out
 
 
 def main(argv=None) -> Dict[str, object]:

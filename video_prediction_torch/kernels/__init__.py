@@ -1,33 +1,46 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), one per Pallas kernel of
-``video_prediction_tpu/ops/pallas_kernels.py``.
+``video_prediction_tpu/ops/pallas_kernels.py``, each with a backward kernel.
 
-Each wrapper runs its plain PyTorch version on CPU tensors and launches its
-CUDA kernel on CUDA tensors, raising on any input the kernel does not take.
-There is no fallback from a CUDA tensor to the plain version. Each wrapper
-carries a ``launches`` counter, incremented once per kernel launch.
+Each forward wrapper runs its plain PyTorch version on CPU tensors and, on
+CUDA tensors, a ``torch.autograd.Function`` that launches the forward CUDA
+kernel and whose backward launches the backward CUDA kernel (through the
+``*_backward`` wrappers), raising on any input the kernels do not take.
+There is no fallback from a CUDA tensor to the plain version. Each of the
+six wrappers carries a ``launches`` counter, incremented once per launch of
+its kernel.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from video_prediction_torch.kernels.cdna import apply_cdna_kernels, apply_cdna_kernels_reference
-from video_prediction_torch.kernels.composite import composite, composite_reference
-from video_prediction_torch.kernels.ln_gate import fused_ln_gate, fused_ln_gate_reference
+from video_prediction_torch.kernels.cdna import (
+    apply_cdna_kernels,
+    apply_cdna_kernels_backward,
+    apply_cdna_kernels_reference,
+)
+from video_prediction_torch.kernels.composite import composite, composite_backward, composite_reference
+from video_prediction_torch.kernels.ln_gate import fused_ln_gate, fused_ln_gate_backward, fused_ln_gate_reference
 
 WRAPPERS = {
     "apply_cdna_kernels": apply_cdna_kernels,
     "fused_ln_gate": fused_ln_gate,
     "composite": composite,
+    "apply_cdna_kernels_backward": apply_cdna_kernels_backward,
+    "fused_ln_gate_backward": fused_ln_gate_backward,
+    "composite_backward": composite_backward,
 }
 
 __all__ = [
     "WRAPPERS",
     "apply_cdna_kernels",
+    "apply_cdna_kernels_backward",
     "apply_cdna_kernels_reference",
     "composite",
+    "composite_backward",
     "composite_reference",
     "fused_ln_gate",
+    "fused_ln_gate_backward",
     "fused_ln_gate_reference",
     "launch_counts",
     "reset_launch_counts",

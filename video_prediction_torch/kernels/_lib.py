@@ -38,6 +38,11 @@ _SIGNATURES = {
     "vp_cdna_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vp_ln_gate_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
     "vp_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vp_cdna_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vp_cdna_backward_tiles": [_I, _I, _I, _I, _I, _I],
+    "vp_ln_gate_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    "vp_ln_gate_backward_blocks": [_I, _I],
+    "vp_composite_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -116,6 +121,19 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def plain_vjp(fn, inputs, grads):
+    """Gradients of plain version ``fn`` at ``inputs`` for upstream ``grads``,
+    by autograd: what a backward wrapper returns for CPU tensors."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, grads)
+
+
+def query(name: str, *args) -> int:
+    """Call size helper ``name`` (no launch, no stream) and return its int."""
+    return getattr(load_library(), name)(*args)
 
 
 def launch(name: str, *args, device: torch.device) -> None:

@@ -1,18 +1,21 @@
-"""Latent encoders.
+"""Latent encoder and video discriminator.
 
 Port of ``video_prediction_tpu/models/networks.py#PosteriorEncoder``
-(reference ``savp_model.py#create_encoder``). ``LearnedPrior`` and the SN-GAN
-discriminators are still to be ported (ROADMAP.md).
+(reference ``savp_model.py#create_encoder``) and ``#VideoSNDiscriminator``
+(reference ``networks.py#video_sn_discriminator``). ``LearnedPrior`` and the
+image and action-conditioned discriminators are still to be ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn as nn
 
 from video_prediction_torch.ops.layers import Conv2D, InstanceNorm, lrelu
+from video_prediction_torch.ops.spectral import SpectralConv3D, SpectralDense
 
 
 class PosteriorEncoder(nn.Module):
@@ -51,3 +54,45 @@ class PosteriorEncoder(nn.Module):
         mu = self.mu(x).reshape(b, t - 1, self.nz)
         logvar = self.logvar(x).reshape(b, t - 1, self.nz)
         return mu, logvar
+
+
+class VideoSNDiscriminator(nn.Module):
+    """Clip-level SN-GAN discriminator with 3-D convs.
+
+    ``clips [B,T,H,W,C] -> (logits [B,1], features, new_u)``: six
+    spectrally normalized conv3ds, each followed by leaky ReLU 0.1 and kept
+    as a feature map (``NTHWC``) for the feature-matching loss, then a
+    spectrally normalized dense layer on the ``NTHWC``-flattened last map.
+    ``new_u`` maps each layer's name to its advanced power-iteration vector
+    (the caller stores it or drops it). ``clip_shape`` (T, H, W) fixes the
+    dense layer's input width, as the first clip does for flax's lazy init.
+    """
+
+    # (features as a multiple of ndf, kernel (T, H, W), strides), as in the JAX package
+    SPEC = [
+        (1, (1, 3, 3), (1, 1, 1)),
+        (1, (3, 4, 4), (1, 2, 2)),
+        (2, (3, 3, 3), (1, 1, 1)),
+        (2, (3, 4, 4), (2, 2, 2)),
+        (4, (3, 3, 3), (1, 1, 1)),
+        (4, (3, 4, 4), (2, 2, 2)),
+    ]
+
+    def __init__(self, in_channels: int, clip_shape: Tuple[int, int, int], ndf: int = 64):
+        super().__init__()
+        f_in, shape = in_channels, list(clip_shape)
+        for i, (mult, k, s) in enumerate(self.SPEC):
+            self.add_module(f"sn_conv3d{i}", SpectralConv3D(f_in, ndf * mult, k, s))
+            f_in = ndf * mult
+            shape = [-(-n // st) for n, st in zip(shape, s)]  # SAME: ceil(n / stride)
+        self.sn_fc = SpectralDense(f_in * shape[0] * shape[1] * shape[2], 1)
+
+    def forward(self, clips: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, torch.Tensor]]:
+        x, feats, new_u = clips, [], {}
+        for i in range(len(self.SPEC)):
+            name = f"sn_conv3d{i}"
+            x, new_u[name] = getattr(self, name)(x)
+            x = lrelu(x, 0.1)
+            feats.append(x)
+        logits, new_u["sn_fc"] = self.sn_fc(x.reshape(x.shape[0], -1))
+        return logits, feats, new_u

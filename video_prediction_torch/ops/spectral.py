@@ -1,0 +1,100 @@
+"""Spectral normalization (SN-GAN, Miyato et al. 2018).
+
+Port of ``video_prediction_tpu/ops/spectral.py`` (``spectral_normalize``,
+``SpectralConv3D``, ``SpectralDense``). Written here rather than taken from
+``torch.nn.utils.spectral_norm``, which runs its power iteration under
+``no_grad``: as in the JAX package the gradient flows through the power
+iteration and only the stored ``u`` is cut.
+
+The persistent left-singular estimate ``u`` is a module buffer. A forward
+never writes it: it returns the advanced ``u`` beside its output, and the
+train step stores it after the optimizer update, as the JAX package threads
+its ``"spectral"`` collection through the step. The discriminator's
+generator-side call reads the same old ``u`` and drops the advanced one.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+SN_EPS = 1e-12
+
+
+def l2_normalize(v: torch.Tensor) -> torch.Tensor:
+    return v * torch.rsqrt(v.square().sum() + SN_EPS)
+
+
+def spectral_normalize(w_mat: torch.Tensor, u: torch.Tensor, n_iters: int = 1
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Power iteration(s) on ``w_mat [prod(leading), out]`` from ``u [out]``.
+
+    Returns ``(w_mat / sigma, new_u, sigma)``; ``new_u`` is detached. The
+    rows of the matrix may come in any order: sigma and ``new_u`` do not
+    depend on it.
+    """
+    w32 = w_mat.float()
+    u32 = u.detach().float()
+    for _ in range(n_iters):
+        v = l2_normalize(w32 @ u32)
+        u32 = l2_normalize(w32.t() @ v)
+    sigma = torch.einsum("i,ij,j->", v, w32, u32)
+    return w_mat / sigma.to(w_mat.dtype), u32.detach().to(u.dtype), sigma
+
+
+class SpectralLayer(nn.Module):
+    """A weight ``[out, ...]`` (PyTorch layout), a bias and the buffer ``u [out]``."""
+
+    def __init__(self, weight_shape: Sequence[int], use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(tuple(weight_shape)))
+        self.bias = nn.Parameter(torch.zeros(weight_shape[0])) if use_bias else None
+        self.register_buffer("u", l2_normalize(torch.randn(weight_shape[0])))
+
+    def normalized_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(weight / sigma, advanced u)``; the matrix is ``weight`` with its
+        output axis last (rows in PyTorch's order of the other axes)."""
+        _, u_new, sigma = spectral_normalize(self.weight.reshape(self.weight.shape[0], -1).t(), self.u)
+        return self.weight / sigma, u_new
+
+
+class SpectralDense(SpectralLayer):
+    """Dense layer with a spectrally normalized ``[out, in]`` weight."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+        super().__init__((features, in_features), use_bias)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        w, u_new = self.normalized_weight()
+        return F.linear(x, w, self.bias), u_new
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of TF/XLA ``SAME``: pad = max((out-1)*s + k - in, 0), before = pad // 2."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class SpectralConv3D(SpectralLayer):
+    """3-D convolution over ``NTHWC`` clips with a spectrally normalized
+    ``[O, I, T, H, W]`` weight, TF ``SAME`` padding (asymmetric where the
+    stride asks for it, so ``F.pad`` and no ``padding=``), output ``NTHWC``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int] = (3, 3, 3),
+                 strides: Sequence[int] = (1, 1, 1), use_bias: bool = True):
+        super().__init__((features, in_features, *kernel_size), use_bias)
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        w, u_new = self.normalized_weight()
+        pads = []
+        for size, k, s in reversed(list(zip(x.shape[1:4], self.kernel_size, self.strides))):
+            pads.extend(same_pads(size, k, s))  # F.pad wants the last axis (W) first
+        xc = F.pad(x.permute(0, 4, 1, 2, 3), pads)
+        y = F.conv3d(xc, w, self.bias, stride=self.strides)
+        return y.permute(0, 2, 3, 4, 1), u_new

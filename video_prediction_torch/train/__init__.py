@@ -1,2 +1,3 @@
-"""Schedules and the params checkpoint. The train step is still to be ported
-(ROADMAP.md)."""
+"""Training: schedules, the train state (two Adams), the train step, run
+directories and checkpoints, and the CLI (``python -m
+video_prediction_torch.train``, in ``__main__.py``)."""

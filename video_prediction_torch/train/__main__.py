@@ -1,0 +1,138 @@
+"""Training CLI.
+
+    python -m video_prediction_torch.train --dataset synthetic --model savp \\
+        --model_hparams_dict hparams/bair_action_free/ours_savp/model_hparams.json \\
+        --output_dir RUN_DIR [--max_steps N] [--batch_size B] [--resume] [--device cuda]
+
+Port of ``scripts/train.py`` with the same flag shape, plus ``--device``:
+resolves the hparams as it does (model-class defaults, then
+``--model_hparams_dict``, then ``--model_hparams``; the dataset's sequence
+structure fills what neither set), writes the run directory's option files,
+builds the model and its train state from ``--seed``, restores
+``checkpoints/train_state.pt`` with ``--resume`` (and draws the data stream
+up to the restored step, so that a resumed run equals an unbroken one), then
+runs the train step until ``max_steps``. Every ``--progress_freq`` steps it prints ``step N:
+g_loss= d_loss= steps/s= frames/s=`` (frames per step = batch x (T -
+context)); every ``--save_freq`` steps, and at the end, it writes the train
+state and ``checkpoints/params.pt`` (what ``generate`` reads). TensorBoard,
+GIF and eval summaries wait for the eval path (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import time
+from typing import Dict
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--input_dir", default="", help="directory of train data (unused for synthetic)")
+    p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--dataset_hparams", default="", help="comma-separated k=v overrides")
+    p.add_argument("--model", default="savp")
+    p.add_argument("--model_hparams", default="", help="comma-separated k=v overrides")
+    p.add_argument("--model_hparams_dict", default="", help="JSON file of model hparams")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--resume", action="store_true", help="resume from the train state in output_dir")
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--batch_size", type=int, default=0, help="0 -> hparams.batch_size")
+    p.add_argument("--max_steps", type=int, default=0, help="0 -> hparams.max_steps")
+    p.add_argument("--progress_freq", type=int, default=100)
+    p.add_argument("--save_freq", type=int, default=5000)
+    p.add_argument("--device", default="cuda", help="torch device to run on, e.g. cuda, cuda:1 or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> Dict[str, object]:
+    """Run the CLI. Returns a summary: the ``start_step`` and final ``step``,
+    the last step's ``scalars`` (floats), and whether every loss printed or
+    returned was finite (``all_finite``)."""
+    args = parse_args(argv)
+
+    from video_prediction_torch.configs.hparams import apply_overrides, load_hparams_json, parse_overrides
+    from video_prediction_torch.data import get_dataset_class
+    from video_prediction_torch.generate import batch_to_device
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.checkpoint import (
+        has_train_state,
+        load_train_state,
+        save_train_state,
+        write_options,
+    )
+    from video_prediction_torch.train.state import create_train_state, param_count, split_params
+    from video_prediction_torch.train.step import make_train_step
+
+    device = torch.device(args.device)
+
+    # ---- hparams, resolved as scripts/train.py resolves them ----
+    dataset_cls = get_dataset_class(args.dataset)
+    dhp = dataset_cls.default_hparams
+    if args.dataset_hparams:
+        dhp = apply_overrides(dhp, parse_overrides(args.dataset_hparams))
+    model_cls = get_model_class(args.model)
+    hp = model_cls.default_hparams()
+    explicit = set()
+    for overrides in (load_hparams_json(args.model_hparams_dict) if args.model_hparams_dict else {},
+                      parse_overrides(args.model_hparams) if args.model_hparams else {}):
+        hp = apply_overrides(hp, overrides)
+        explicit |= set(overrides)
+    backfill = {k: getattr(dhp, k) for k in ("context_frames", "sequence_length") if k not in explicit}
+    if backfill:
+        hp = hp.replace(**backfill)
+    dhp = dhp.replace(context_frames=hp.context_frames, sequence_length=hp.sequence_length)
+    if args.batch_size:
+        hp = hp.replace(batch_size=args.batch_size)
+    if args.max_steps:
+        hp = hp.replace(max_steps=args.max_steps)
+    write_options(args.output_dir, args.model, args.dataset, hp, dhp, args.seed)
+
+    # ---- data, model, train state ----
+    train_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
+    batch = next(train_iter)
+    actions = batch.get("actions")
+    # the first batch fixes the parameter shapes, as in the JAX package's init
+    model = model_cls(hp, image_shape=batch["images"].shape[2:], action_dim=0 if actions is None else actions.shape[-1])
+    ts = create_train_state(model, args.seed, device)
+    g_params, d_params = split_params(model)
+    print(f"device: {device}; generator params: {param_count(g_params):,}; "
+          f"discriminator params: {param_count(d_params):,}")
+    if args.resume and has_train_state(args.output_dir):
+        load_train_state(args.output_dir, ts)
+        print(f"resumed from step {ts.step}")
+        for _ in range(ts.step):  # replay the data stream up to the step, so a resumed run sees what an unbroken one does
+            batch = next(train_iter)
+    train_step = make_train_step(model)
+
+    # ---- loop ----
+    start_step = ts.step
+    frames_per_step = hp.batch_size * (hp.sequence_length - hp.context_frames)
+    t_last, last_timed_step = time.perf_counter(), start_step
+    scalars: Dict[str, torch.Tensor] = {}
+    all_finite = True
+    try:
+        while ts.step < hp.max_steps:
+            scalars = train_step(ts, batch_to_device(batch, device))
+            batch = next(train_iter)
+            if args.progress_freq and ts.step % args.progress_freq == 0:
+                g_loss, d_loss = float(scalars["g_loss"]), float(scalars["d_loss"])  # waits for the step
+                all_finite &= math.isfinite(g_loss) and math.isfinite(d_loss)
+                sps = (ts.step - last_timed_step) / (time.perf_counter() - t_last)
+                print(f"step {ts.step}: g_loss={g_loss:.4f} d_loss={d_loss:.4f} "
+                      f"steps/s={sps:.2f} frames/s={sps * frames_per_step:.0f}", flush=True)
+                t_last, last_timed_step = time.perf_counter(), ts.step
+            if args.save_freq and ts.step % args.save_freq == 0:
+                save_train_state(args.output_dir, ts)
+    finally:
+        save_train_state(args.output_dir, ts)
+    final = {k: float(v) for k, v in scalars.items()}
+    all_finite &= all(math.isfinite(v) for v in final.values())
+    print(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
+    return {"start_step": start_step, "step": ts.step, "scalars": final, "all_finite": all_finite}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,18 @@
-"""Run directories and the params checkpoint.
+"""Run directories, the params checkpoint and the full train-state checkpoint.
 
 A run directory holds ``options.json`` (model, dataset, seed),
 ``model_hparams.json``, ``dataset_hparams.json`` — the files the JAX
-package's ``scripts/train.py`` writes — and the port's own params file,
-``checkpoints/params.pt``: the model's ``state_dict`` saved with
-``torch.save``. (The JAX package's orbax checkpoints cannot be read without
-jax; ``convert.py`` maps a flax params tree to this ``state_dict``.) Full
-train-state checkpoints are still to be ported (ROADMAP.md).
+package's ``scripts/train.py`` writes — and the port's own checkpoints:
+
+- ``checkpoints/params.pt``: the model's ``state_dict`` (parameters and
+  spectral ``u`` buffers), what ``generate`` reads;
+- ``checkpoints/train_state.pt``: the full train state for ``--resume``
+  (the counterpart of the JAX package's orbax ``TrainState``, in
+  ``torch.save`` form): the step, the model's ``state_dict``, both Adam
+  states and the step-noise generator's state.
+
+(The JAX package's orbax checkpoints cannot be read without jax;
+``convert.py`` maps a flax params tree to the ``state_dict``.)
 """
 
 from __future__ import annotations
@@ -21,26 +27,41 @@ import torch.nn as nn
 from video_prediction_torch.configs.hparams import DatasetHparams, ModelHparams
 
 PARAMS_FILE = os.path.join("checkpoints", "params.pt")
+TRAIN_STATE_FILE = os.path.join("checkpoints", "train_state.pt")
+
+
+def _save(obj, path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)  # atomic: a reader never sees a partial file
+
+
+def _cpu_state_dict(model: nn.Module):
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
 def save_params(run_dir: str, model: nn.Module) -> None:
-    path = os.path.join(run_dir, PARAMS_FILE)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, tmp)
-    os.replace(tmp, path)
+    _save(_cpu_state_dict(model), os.path.join(run_dir, PARAMS_FILE))
 
 
 def load_params(run_dir: str, model: nn.Module, device: Optional[torch.device] = None) -> None:
-    """Load ``checkpoints/params.pt`` into ``model`` (strict: every key and shape)."""
+    """Load ``checkpoints/params.pt`` into ``model``: every key and shape, except
+    that a params file without discriminators (written before the port had
+    them) still loads into a model with them, for generation."""
     path = os.path.join(run_dir, PARAMS_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no params checkpoint at {path}")
-    model.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    missing, unexpected = model.load_state_dict(torch.load(path, map_location=device, weights_only=True),
+                                                strict=False)
+    missing = [k for k in missing if not k.startswith("discriminator.")]
+    if missing or unexpected:
+        raise RuntimeError(f"params checkpoint {path} does not fit the model: missing {missing}, "
+                           f"unexpected {unexpected}")
 
 
-def write_run_dir(run_dir: str, model_name: str, dataset_name: str, hparams: ModelHparams,
-                  dataset_hparams: DatasetHparams, model: nn.Module, seed: int = 0) -> None:
+def write_options(run_dir: str, model_name: str, dataset_name: str, hparams: ModelHparams,
+                  dataset_hparams: DatasetHparams, seed: int = 0) -> None:
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "options.json"), "w") as f:
         json.dump({"model": model_name, "dataset": dataset_name, "seed": seed}, f, indent=2)
@@ -48,4 +69,41 @@ def write_run_dir(run_dir: str, model_name: str, dataset_name: str, hparams: Mod
         json.dump(hparams.to_dict(), f, indent=2)
     with open(os.path.join(run_dir, "dataset_hparams.json"), "w") as f:
         json.dump(dataset_hparams.to_dict(), f, indent=2)
+
+
+def write_run_dir(run_dir: str, model_name: str, dataset_name: str, hparams: ModelHparams,
+                  dataset_hparams: DatasetHparams, model: nn.Module, seed: int = 0) -> None:
+    write_options(run_dir, model_name, dataset_name, hparams, dataset_hparams, seed)
     save_params(run_dir, model)
+
+
+def save_train_state(run_dir: str, ts) -> None:
+    """Write ``checkpoints/train_state.pt`` and ``checkpoints/params.pt`` for
+    the train state ``ts`` (``train.state.TrainState``)."""
+    _save({
+        "step": ts.step,
+        "model": _cpu_state_dict(ts.model),
+        "opt_g": ts.opt_g.state_dict() if ts.opt_g is not None else None,
+        "opt_d": ts.opt_d.state_dict() if ts.opt_d is not None else None,
+        "rng": ts.rng.get_state(),
+    }, os.path.join(run_dir, TRAIN_STATE_FILE))
+    save_params(run_dir, ts.model)
+
+
+def has_train_state(run_dir: str) -> bool:
+    return os.path.exists(os.path.join(run_dir, TRAIN_STATE_FILE))
+
+
+def load_train_state(run_dir: str, ts) -> None:
+    """Restore ``ts`` in place from ``checkpoints/train_state.pt`` (strict:
+    every parameter, buffer and optimizer slot)."""
+    path = os.path.join(run_dir, TRAIN_STATE_FILE)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    ts.model.load_state_dict(saved["model"])
+    for opt, key in ((ts.opt_g, "opt_g"), (ts.opt_d, "opt_d")):
+        if (opt is None) != (saved[key] is None):
+            raise RuntimeError(f"train state {path}: {key} does not fit the model")
+        if opt is not None:
+            opt.load_state_dict(saved[key])  # moves each slot to its parameter's device
+    ts.rng.set_state(saved["rng"])
+    ts.step = int(saved["step"])

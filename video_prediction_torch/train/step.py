@@ -1,0 +1,55 @@
+"""The train step: one backward pass, then the G and D Adam updates and the
+spectral ``u`` update.
+
+Port of ``video_prediction_tpu/train/step.py#make_train_step`` for one
+device and one step per call. ``compute_losses`` places the detaches so
+that one backward of ``g_loss + d_loss`` gives each side its own gradients,
+as the reference's joint ``sess.run`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from video_prediction_torch.train import schedules
+from video_prediction_torch.train.state import TrainState
+
+
+def make_train_step(model) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``train_step(ts, batch, noise=None) -> scalars`` for ``model``: updates
+    ``ts`` in place and returns the 0-d loss tensors ``g_loss``, ``d_loss``,
+    ``g/<term>`` and ``d/<term>`` of the step it took. ``noise`` as
+    ``model.draw_noise`` gives it; drawn from ``ts.rng`` when None."""
+    hp = model.hparams
+
+    def train_step(ts: TrainState, batch: Dict[str, torch.Tensor],
+                   noise: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+        total, aux = ts.model.compute_losses(batch, ts.step, noise=noise, generator=ts.rng)
+        optimizers = [opt for opt in (ts.opt_g, ts.opt_d) if opt is not None]
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
+        total.backward()
+        lr = schedules.learning_rate(ts.step, hp)  # optax reads the count before it increments
+        for opt in optimizers:
+            for group in opt.param_groups:
+                group["lr"] = lr
+                for p in group["params"]:
+                    if p.grad is None:  # optax updates every leaf, with a zero gradient if need be
+                        p.grad = torch.zeros_like(p)
+            opt.step()
+        with torch.no_grad():
+            for key, layers in aux["new_state"].get("spectral", {}).items():
+                disc = ts.model.discriminator[key]
+                for layer, u in layers.items():
+                    getattr(disc, layer).u.copy_(u)
+        ts.step += 1
+        return {
+            "g_loss": aux["g_loss"].detach(),
+            "d_loss": aux["d_loss"].detach(),
+            **{f"g/{k}": v.detach() for k, v in aux["g_losses"].items()},
+            **{f"d/{k}": v.detach() for k, v in aux["d_losses"].items()},
+        }
+
+    return train_step
