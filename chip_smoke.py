@@ -9,8 +9,10 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 1. report the device (name and power limit from ``nvidia-smi``);
 2. build the CUDA kernels from ``video_prediction_torch/kernels/csrc``;
 3. compare each forward kernel with its plain PyTorch version on the card,
-   at the shapes of the generation rollout (batch 8) and of the train step's
-   rollout (the doubled batch 2 x 16), fp32 and bf16, and time both;
+   at the shapes of the generation rollout (batch 8), of the train step's
+   rollout (the doubled batch 2 x 16) and of the evaluate rollout (8
+   examples x 8 samples = 64; K3 also at SV2P's 6 candidates), fp32 and
+   bf16, and time both;
 4. compare each backward kernel with autograd of its plain version, at the
    training step's shapes (the doubled batch 2 x 16) and at odd shapes, fp32
    and bf16, and time both;
@@ -28,14 +30,27 @@ and ``nvidia-smi``. Phases, each fatal on failure:
    versions) of the same weights, batch and noise at a small width, TF32
    off: every loss term, gradient and parameter after the step;
 10. time the train step at batch 16, fp32 with TF32 off and with cuDNN's
-    default, with the peak device memory.
+    default, with the peak device memory;
+11. drive ``video_prediction_torch.evaluate``'s ``main`` on phase 5's run
+    directory: 16 examples, best of 8 samples in one rollout of 64, VGG and
+    LPIPS from seeded ``.npz`` weights; check the metric files, the gallery
+    and the launch counts per rollout; then the ``ground_truth`` (PSNR inf,
+    SSIM 1) and ``repeat`` baselines without a checkpoint;
+12. ``sv2p`` at full width from a run directory with seeded weights:
+    ``evaluate`` with best of 2 and its launch counts, and its GPU rollout
+    against its CPU rollout with TF32 off;
+13. PSNR and SSIM on the card against the CPU with cuDNN's TF32 left on, VGG
+    and LPIPS with it off (and how far TF32 moves them);
+14. time one evaluate batch at the defaults, split into the rollout and the
+    metrics, with PSNR/SSIM alone and with VGG and LPIPS.
 
 The line before the last is ``{"kernels": [...]}``: launches from phase 8,
 errors and times at the train step's shapes (the forward kernels' at the
-generation shapes under ``"generation"``);
-the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or without the repository beside it, the script exits non-zero and prints no
-result.
+generation shapes under ``"generation"``, and at the evaluate shapes, with
+phase 11's launches, under ``"evaluate"``); the line before it is the
+``nvidia-smi`` identity, and the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or without the repository beside it, the
+script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 BATCH = 8
+EVAL_BATCH = 64  # evaluate's defaults: 8 examples x 8 stochastic samples in one rollout
 TRAIN_BATCH = 16  # the flagship's batch; the train step's rollout runs on 2 x 16 (prior and posterior)
 # (tolerance on |kernel - plain|: atol + rtol * |plain|)
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
@@ -65,6 +81,9 @@ LN_GATE_STEP = [(64, 32), (128, 16), (256, 8), (128, 16), (64, 32), (32, 64)]
 LAUNCHES_PER_ROLLOUT = {"apply_cdna_kernels": 11, "fused_ln_gate": 66, "composite": 11}
 BACKWARD = {"apply_cdna_kernels_backward": "apply_cdna_kernels", "fused_ln_gate_backward": "fused_ln_gate",
             "composite_backward": "composite"}
+# |GPU - CPU| of the metrics on the same frames: PSNR in dB (TF32 on: the
+# SSIM filter is fp32 regardless), SSIM; VGG cosine and LPIPS with TF32 off
+METRIC_TOL = {"psnr": 1e-4, "ssim": 1e-5, "perceptual": 1e-5}
 # |GPU - CPU| on gen_images in [0, 1]: fp32 with TF32 off, but sums in
 # other orders through 11 recurrent steps; 1e-3 is a quarter of one 8-bit
 # gray level of the written GIFs
@@ -123,9 +142,10 @@ def max_err(out, ref, dtype_name: str):
     return float(diff.max()), ok
 
 
-def kernel_phase(dev, batch: int) -> list:
+def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
     """Phase 3: every forward kernel against its plain version, fp32 and
-    bf16, at the shapes a rollout at ``batch`` gives it."""
+    bf16, at the shapes a rollout at ``batch`` gives it (K3 with each
+    candidate count of ``composite_ks``: 7 for ``ours_savp``, 6 for ``sv2p``)."""
     from video_prediction_torch import kernels as K
 
     g = torch.Generator(device=dev).manual_seed(batch)
@@ -192,24 +212,28 @@ def kernel_phase(dev, batch: int) -> list:
     ))
 
     # K3 ------------------------------------------------------------------
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for k in composite_ks:
+        cand = rand(batch, k, 64, 64, 3)
+        logits = randn(batch, 64, 64, k) * 3.0
+        for dt in ("float32", "bfloat16"):
+            cd, lg = cand.to(getattr(torch, dt)), logits.to(getattr(torch, dt))
+            out, masks = K.composite(cd, lg, with_masks=True)
+            ref, ref_masks = K.composite_reference(cd, lg, with_masks=True)
+            e0, ok0 = max_err(out, ref, dt)
+            e1, ok1 = max_err(masks, ref_masks, "float32")
+            print(f"K3 composite {dt} [{batch},{k},64,64,3]: max_abs_err out {e0:.3g} masks {e1:.3g} (tol {TOL[dt]})")
+            check(ok0 and ok1, f"K3 {dt} with {k} candidates disagrees with its plain version: {e0}, {e1}")
+            errs[dt] = max(errs[dt], e0, e1)
     cand = rand(batch, 7, 64, 64, 3)
     logits = randn(batch, 64, 64, 7) * 3.0
-    errs = {}
-    for dt in ("float32", "bfloat16"):
-        cd, lg = cand.to(getattr(torch, dt)), logits.to(getattr(torch, dt))
-        out, masks = K.composite(cd, lg, with_masks=True)
-        ref, ref_masks = K.composite_reference(cd, lg, with_masks=True)
-        e0, ok0 = max_err(out, ref, dt)
-        e1, ok1 = max_err(masks, ref_masks, "float32")
-        print(f"K3 composite {dt} [{batch},7,64,64,3]: max_abs_err out {e0:.3g} masks {e1:.3g} (tol {TOL[dt]})")
-        check(ok0 and ok1, f"K3 {dt} disagrees with its plain version: {e0}, {e1}")
-        errs[dt] = max(e0, e1)
     ms = cuda_ms(lambda: K.composite(cand, logits))
     plain_ms = cuda_ms(lambda: K.composite_reference(cand, logits))
     print(f"K3 time per call (1 call per step), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results.append(dict(
         name="composite", route="cuda", source="video_prediction_torch/kernels/csrc/composite.cu",
-        replaces="video_prediction_tpu/ops/pallas_kernels.py:198", shapes=f"[{batch},7,64,64,3], [{batch},64,64,7]",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:198",
+        shapes=" and ".join(f"[{batch},{k},64,64,3]" for k in composite_ks) + " (timed at 7)",
         max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
     ))
     return results
@@ -575,6 +599,224 @@ def train_timing_phase(dev, ident: str) -> None:
               f"{frames / ms * 1e3:.1f} frames/s, peak memory {peak:.2f} GiB [{ident}]")
 
 
+def write_perceptual_weights(seed: int = 0):
+    """Seeded random VGG16 and LPIPS weights in the ``.npz`` layout both
+    packages read (``conv{b}_{i}/kernel`` HWIO, ``lin{i}/weight``), under
+    ``build/chip_smoke/``: no real weights ship with the repository."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    vgg, c_in = {}, 3
+    for block, n_convs, ch in [(1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512)]:
+        for i in range(1, n_convs + 1):
+            std = np.sqrt(2.0 / (9 * c_in))  # He init keeps the relu taps away from 0 through 13 layers
+            vgg[f"conv{block}_{i}/kernel"] = (std * rng.randn(3, 3, c_in, ch)).astype(np.float32)
+            vgg[f"conv{block}_{i}/bias"] = (0.01 * rng.randn(ch)).astype(np.float32)
+            c_in = ch
+    os.makedirs(WORK_DIR, exist_ok=True)
+    vgg_path, lin_path = os.path.join(WORK_DIR, "vgg16.npz"), os.path.join(WORK_DIR, "lpips_lin.npz")
+    np.savez(vgg_path, **vgg)
+    np.savez(lin_path, **{f"lin{i}/weight": rng.rand(c).astype(np.float32) / c
+                          for i, c in enumerate([64, 128, 256, 512, 512])})
+    return vgg_path, lin_path
+
+
+def read_metric(out_dir: str, stem: str, shape):
+    import numpy as np
+
+    arr = np.loadtxt(os.path.join(out_dir, f"{stem}.txt"))
+    check(arr.shape == shape, f"{stem}.txt has shape {arr.shape}, want {shape}")
+    return arr
+
+
+def evaluate_phase(vgg_path: str, lin_path: str) -> dict:
+    """Phase 11: ``video_prediction_torch.evaluate`` at full width on the run
+    directory of phase 5: 16 examples in batches of 8, best of 8 samples in
+    one rollout of 64, with VGG and LPIPS; then both baselines without a
+    checkpoint. Returns the launch counts of the ``ours_savp`` run."""
+    import numpy as np
+
+    from video_prediction_torch import evaluate
+    from video_prediction_torch import kernels as K
+
+    set_tf32_default()
+    results = os.path.join(WORK_DIR, "eval")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = evaluate.main([
+        "--checkpoint", os.path.join(WORK_DIR, "run"), "--results_dir", results, "--device", "cuda",
+        "--batch_size", "8", "--num_samples", "16", "--num_stochastic_samples", "8", "--samples_per_rollout", "8",
+        "--vgg_weights_path", vgg_path, "--lpips_weights_path", lin_path,
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    out = summary["results_dir"]
+    rollouts = summary["rollouts"]
+    print(f"evaluate ours_savp: {rollouts} rollouts of 64, {wall:.2f} s wall (restore, VGG/LPIPS set-up, GIFs "
+          f"included), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"means {summary['metrics']}; launches {launches}")
+    check(rollouts == 2, f"unexpected evaluate summary {summary}")
+    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(launches == want, f"evaluate kernel launches {launches}, want {want} ({rollouts} rollouts)")
+    for name in ("psnr", "ssim", "vgg_csim", "lpips"):
+        best, mean = read_metric(out, f"{name}_max", (16, 10)), read_metric(out, f"{name}_avg", (16, 10))
+        check(bool(np.isfinite(best).all() and np.isfinite(mean).all()), f"{name}: non-finite values")
+        if name == "lpips":  # a distance: the best sample is the smallest
+            check(bool((best <= mean + 1e-6).all()), "lpips: max above avg")
+        else:
+            check(bool((best >= mean - 1e-6).all()), f"{name}: max below avg")
+    gifs = [f for f in os.listdir(os.path.join(out, "images")) if f.endswith(".gif")]
+    check(os.path.exists(os.path.join(out, "index.html")) and len(gifs) == 32, f"{len(gifs)} GIFs, want 32")
+
+    for name in ("ground_truth", "repeat"):
+        K.reset_launch_counts()
+        summary = evaluate.main(["--model", name, "--dataset", "synthetic", "--results_dir", results,
+                                 "--device", "cuda", "--batch_size", "8", "--num_samples", "16"])
+        psnr, ssim = read_metric(summary["results_dir"], "psnr", (16, 10)), read_metric(summary["results_dir"],
+                                                                                      "ssim", (16, 10))
+        print(f"evaluate {name}: PSNR mean {psnr.mean():.4f}, SSIM mean {ssim.mean():.6f}, "
+              f"SSIM max |1 - x| {np.abs(1.0 - ssim).max():.3g}")
+        check(sum(K.launch_counts().values()) == 0, f"{name} launched kernels")
+        if name == "ground_truth":
+            check(bool(np.isposinf(psnr).all()), "ground_truth PSNR is not inf")
+            check(bool((np.abs(ssim - 1.0) <= 1e-6).all()), "ground_truth SSIM is not 1")
+        else:
+            check(bool(np.isfinite(psnr).all() and np.isfinite(ssim).all()), "repeat gave non-finite metrics")
+    return launches
+
+
+def sv2p_phase(dev) -> None:
+    """Phase 12: ``sv2p`` (one z per sequence, 6 candidates) at full width from
+    a run directory with seeded random weights: ``evaluate`` with best of 2,
+    then its GPU rollout against its CPU rollout, TF32 off."""
+    import numpy as np
+
+    from video_prediction_torch import evaluate
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import DatasetHparams, resolve_model_hparams, zoo_dir
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.checkpoint import write_run_dir
+
+    set_tf32_default()
+    cls = get_model_class("sv2p")
+    hp = resolve_model_hparams(cls.default_hparams(), str(zoo_dir() / "bair_action_free" / "sv2p" / "model_hparams.json"))
+    check((hp.ngf, hp.nz, hp.latent_time_invariant, hp.where_add) == (32, 8, True, "middle"), f"unexpected sv2p {hp}")
+    model = cls(hp, image_shape=(64, 64, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(3))
+    check(model.generator.cell.num_masks == 6, "sv2p should composite 6 candidates")
+    run_dir = os.path.join(WORK_DIR, "sv2p_run")
+    write_run_dir(run_dir, "sv2p", "synthetic", hp, DatasetHparams(context_frames=2, sequence_length=12), model)
+    K.reset_launch_counts()
+    summary = evaluate.main(["--checkpoint", run_dir, "--results_dir", os.path.join(WORK_DIR, "eval"),
+                             "--device", "cuda", "--batch_size", "8", "--num_samples", "8",
+                             "--num_stochastic_samples", "2", "--only_metrics"])
+    torch.cuda.synchronize()
+    launches, rollouts = K.launch_counts(), summary["rollouts"]
+    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    print(f"evaluate sv2p: {rollouts} rollout of 16, means {summary['metrics']}; launches {launches}")
+    check(rollouts == 1 and launches == want, f"sv2p evaluate: {rollouts} rollouts, launches {launches}, want {want}")
+    for stem in ("psnr_max", "psnr_avg", "ssim_max", "ssim_avg"):
+        check(bool(np.isfinite(read_metric(summary["results_dir"], stem, (8, 10))).all()), f"sv2p {stem} not finite")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = synthetic_batch(2, seed=4, device="cpu")
+    z = torch.randn(2, 1, 8, generator=torch.Generator().manual_seed(4))
+    gpu_model = copy.deepcopy(model).to(dev).eval()
+    with torch.inference_mode():
+        ref = model.eval()(batch, zs_prior=z)["gen_images"]
+        out = gpu_model({k: v.to(dev) for k, v in batch.items()}, zs_prior=z.to(dev))["gen_images"].cpu()
+    err = float((out - ref).abs().max())
+    print(f"sv2p rollout GPU vs CPU, batch 2, fp32 (TF32 off): max_abs_err {err:.3g} (tol {ROLLOUT_TOL})")
+    check(bool(torch.isfinite(out).all()) and err <= ROLLOUT_TOL, f"sv2p GPU rollout differs from the CPU by {err}")
+    set_tf32_default()
+
+
+def metrics_phase(dev, vgg_path: str, lin_path: str) -> None:
+    """Phase 13: the same ``[8,10,64,64,3]`` target and prediction through
+    ``metrics.py``, ``VGGMetric`` and ``LPIPSMetric`` on the card and on the
+    CPU: PSNR and SSIM with cuDNN's default TF32 left on (SSIM's filter runs in
+    fp32 all the same), VGG and LPIPS with TF32 off, and their TF32 shift."""
+    from video_prediction_torch import metrics as M
+    from video_prediction_torch.models.lpips import LPIPSMetric
+    from video_prediction_torch.models.vgg import VGGMetric
+
+    g = torch.Generator().manual_seed(13)
+    target = torch.rand(8, 10, 64, 64, 3, generator=g)
+    pred = (target + 0.1 * torch.randn(target.shape, generator=g)).clamp(0.0, 1.0)
+    td, pd = target.to(dev), pred.to(dev)
+    set_tf32_default()
+    check(torch.backends.cudnn.allow_tf32, "cuDNN's TF32 default is off on this build")
+    for name, fn, tol in (("psnr", M.peak_signal_to_noise_ratio, METRIC_TOL["psnr"]),
+                          ("ssim", M.structural_similarity, METRIC_TOL["ssim"])):
+        err = float((fn(td, pd).cpu() - fn(target, pred)).abs().max())
+        print(f"metric {name} GPU (TF32 on) vs CPU: max_abs_err {err:.3g} (tol {tol})")
+        check(err <= tol, f"{name} on the card differs from the CPU by {err}")
+    check(torch.backends.cudnn.allow_tf32, "SSIM left cuDNN's TF32 off")
+    metrics = {"vgg_csim": (VGGMetric(vgg_path, device=dev), VGGMetric(vgg_path)),
+               "lpips": (LPIPSMetric(vgg_path, lin_path, device=dev), LPIPSMetric(vgg_path, lin_path))}
+    for name, (on_gpu, on_cpu) in metrics.items():
+        ref = on_cpu(target, pred)
+        torch.backends.cudnn.allow_tf32 = False
+        err = float((on_gpu(td, pd).cpu() - ref).abs().max())
+        torch.backends.cudnn.allow_tf32 = True
+        err_tf32 = float((on_gpu(td, pd).cpu() - ref).abs().max())
+        print(f"metric {name} GPU vs CPU: max_abs_err {err:.3g} with TF32 off (tol {METRIC_TOL['perceptual']}), "
+              f"{err_tf32:.3g} with TF32 on; CPU mean {float(ref.mean()):.6f}")
+        check(err <= METRIC_TOL["perceptual"], f"{name} on the card differs from the CPU by {err}")
+    set_tf32_default()
+
+
+def eval_timing_phase(model, dev, ident: str, vgg_path: str, lin_path: str) -> None:
+    """Phase 14: one evaluate batch at the defaults (8 examples x 8 samples in
+    one rollout of 64), cuDNN's default TF32, as the CLI runs it: tile and
+    roll out, the metrics of the chunk with the running best-of-N, and the
+    copies to the host; with PSNR/SSIM alone and with VGG and LPIPS added.
+    CUDA events at the part boundaries of each of 10 batches after 3
+    warm-up batches, so that the parts add up to the batch."""
+    from video_prediction_torch.evaluate import BestOfN, metric_fns, sample_chunks
+
+    set_tf32_default()
+    batch = synthetic_batch(8, seed=14, device=dev)
+    target = batch["images"][:, 2:].float() / 255.0
+    rng = torch.Generator(device=dev).manual_seed(14)
+    iters, warmup = 10, 3
+    with torch.inference_mode():
+        for label, fns in (("PSNR/SSIM", metric_fns(dev)), ("PSNR/SSIM/VGG/LPIPS", metric_fns(dev, vgg_path, lin_path))):
+            parts = []  # (rollout, metrics, whole batch) ms
+            torch.cuda.reset_peak_memory_stats()
+            for i in range(warmup + iters):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+                chunk = next(sample_chunks(model, batch, 8, 8, rng))  # one chunk at the defaults
+                ev[1].record()
+                red = BestOfN(fns, target, 2, keep_best=True)
+                red.update(chunk)
+                ev[2].record()
+                for v in list(red.best.values()) + list(red.mean().values()) + [red.best_gen]:
+                    v.cpu()
+                ev[3].record()
+                ev[3].synchronize()
+                if i >= warmup:
+                    parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), ev[0].elapsed_time(ev[3])))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rollout_ms, metrics_ms, batch_ms = (sum(p[j] for p in parts) / iters for j in range(3))
+            spread = max(p[2] for p in parts) - min(p[2] for p in parts)
+            print(f"evaluate batch 8 x 8 samples, {label}, TF32 convs: rollout {rollout_ms:.2f} ms, metrics "
+                  f"{metrics_ms:.2f} ms, whole batch {batch_ms:.2f} ms (max - min over {iters}: {spread:.2f} ms), "
+                  f"{8e3 / batch_ms:.1f} evaluated examples/s; peak memory {peak:.2f} GiB [{ident}]")
+
+
+def set_tf32_default() -> None:
+    """cuDNN's default (TF32 convs) and PyTorch's (no TF32 matmuls), which the CLIs run under."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is False; this script needs a CUDA GPU",
@@ -611,8 +853,10 @@ def main() -> int:
         # and at the train step's shapes
         generation = kernel_phase(dev, BATCH)
         kernel_results = kernel_phase(dev, 2 * TRAIN_BATCH)
-        for entry, gen in zip(kernel_results, generation):
+        evaluation = kernel_phase(dev, EVAL_BATCH, composite_ks=(7, 6))
+        for entry, gen, ev in zip(kernel_results, generation, evaluation):
             entry["generation"] = {k: gen[k] for k in ("shapes", "max_abs_err", "ms", "plain_ms")}
+            entry["evaluate"] = {k: ev[k] for k in ("shapes", "max_abs_err", "ms", "plain_ms")}
         torch.cuda.synchronize()
 
         # 4. backward kernels against autograd of their plain versions
@@ -640,12 +884,30 @@ def main() -> int:
 
         # 10. train step time and peak memory
         train_timing_phase(dev, ident)
+
+        # 11. the evaluation entry point at full width, best of 8, VGG and LPIPS; the baselines
+        vgg_path, lin_path = write_perceptual_weights()
+        launches = evaluate_phase(vgg_path, lin_path)
+        for entry in kernel_results:
+            if entry["name"] in launches and "evaluate" in entry:
+                entry["evaluate"]["launches"] = launches[entry["name"]]
+
+        # 12. SV2P at full width: evaluate, and its GPU rollout against the CPU
+        sv2p_phase(dev)
+
+        # 13. the metrics on the card against the CPU
+        metrics_phase(dev, vgg_path, lin_path)
+
+        # 14. evaluate batch time: rollout and metrics
+        gpu_model = copy.deepcopy(model).to(dev).eval()
+        eval_timing_phase(gpu_model, dev, ident, vgg_path, lin_path)
+        del gpu_model
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": kernel_results}))
     print(ident)
+    print(json.dumps({"kernels": kernel_results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

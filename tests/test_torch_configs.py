@@ -3,6 +3,8 @@ to the originals (they are copied, not imported, because importing the JAX
 package imports jax), and the port never imports jax or flax."""
 
 import dataclasses
+import inspect
+import os
 import subprocess
 import sys
 import textwrap
@@ -15,10 +17,13 @@ import torch
 from video_prediction_torch.configs import hparams as thp
 from video_prediction_torch.data import get_dataset_class
 from video_prediction_torch.data.synthetic import SyntheticVideoDataset as TSynthetic
+from video_prediction_torch.models import get_model_class
 from video_prediction_torch.utils import gif as tgif
+from video_prediction_torch.utils import html as thtml
 from video_prediction_tpu.configs import hparams as jhp
 from video_prediction_tpu.data.synthetic import SyntheticVideoDataset as JSynthetic
 from video_prediction_tpu.utils import gif as jgif
+from video_prediction_tpu.utils import html as jhtml
 
 torch.set_num_threads(1)
 
@@ -94,6 +99,29 @@ def test_gif_encoding_equal():
     np.testing.assert_array_equal(tgif.tile_image_grid(grid, 2), jgif.tile_image_grid(grid, 2))
 
 
+def test_html_gallery_equal(tmp_path):
+    assert inspect.getsource(thtml.HTML) == inspect.getsource(jhtml.HTML)
+    pages = []
+    for mod, sub in ((thtml, "port"), (jhtml, "jax")):
+        page = mod.HTML(str(tmp_path / sub), title="synthetic/savp", refresh=5)
+        page.add_header("example 0")
+        page.add_text("best of 8")
+        page.add_images(["images/gt_00000.gif", "images/gen_00000.gif"], ["ground truth", "savp"], height=128)
+        pages.append(open(page.save(), "rb").read())
+        assert os.path.isdir(page.get_image_dir())
+    assert pages[0] == pages[1]
+
+
+def test_model_registry():
+    from video_prediction_torch.models import _MODELS
+
+    assert sorted(_MODELS) == ["ground_truth", "repeat", "savp", "sv2p"]
+    assert get_model_class("sv2p").default_hparams().latent_time_invariant
+    assert not get_model_class("repeat").trainable and get_model_class("savp").trainable
+    with pytest.raises(ValueError, match="available"):
+        get_model_class("dna")
+
+
 def test_port_never_imports_jax_or_flax():
     """Import the package and every submodule in a fresh interpreter."""
     code = textwrap.dedent(
@@ -107,7 +135,8 @@ def test_port_never_imports_jax_or_flax():
         assert len(names) > 20, names
         training = ["losses", "ops.spectral", "train.schedules", "train.state", "train.step", "train.checkpoint",
                     "train.__main__", "train.profile_step"]
-        assert not [m for m in training if "video_prediction_torch." + m not in names], names
+        evaluation = ["metrics", "evaluate", "models.vgg", "models.lpips", "utils.html"]
+        assert not [m for m in training + evaluation if "video_prediction_torch." + m not in names], names
         assert not leaked, leaked
         print(len(names))
         """

@@ -61,3 +61,15 @@ def test_missing_params_raise(tmp_path):
     os.remove(os.path.join(run_dir, PARAMS_FILE))
     with pytest.raises(FileNotFoundError, match="params"):
         load_params(run_dir, model)
+
+
+def test_generate_at_another_length_restores_a_model_with_discriminators(tmp_path):
+    """A run with discriminators (their dense width follows the trained
+    length) generates at a longer length: the model keeps the trained length
+    for its parameter shapes, and the generator takes the data's."""
+    run_dir, model = _run_dir(tmp_path)
+    assert "video" in model.discriminator  # ours_savp: clip of min(10, 4 - 1) frames
+    summary = generate.main(["--checkpoint", run_dir, "--results_dir", str(tmp_path / "results"), "--device", "cpu",
+                             "--batch_size", "1", "--num_samples", "1", "--sequence_length", "7", "--save_png"])
+    assert summary["all_finite"] and summary["gifs"] == 1
+    assert len(list((tmp_path / "results" / "synthetic" / "savp" / "generated").glob("*.png"))) == 6  # T-1 frames

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, forward and backward, against their
 plain PyTorch versions (the backward against autograd of the plain
-version), and a small GPU rollout and train step against the CPU ones. Every test needs a CUDA
+version), also at the evaluate path's shapes (8 examples x 8 samples, and
+SV2P's 6 candidates), a small GPU rollout and train step against the CPU
+ones, and SSIM on the card against the CPU. Every test needs a CUDA
 device and skips without one. This file imports no jax, so that it runs on a
 GPU machine without jax:
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from video_prediction_torch import kernels as K
+from video_prediction_torch import metrics as M
 from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
 from video_prediction_torch.kernels._lib import plain_vjp
 from video_prediction_torch.models import get_model_class
@@ -78,6 +81,53 @@ def test_composite(dev, dtype, k):
     ref, ref_masks = K.composite_reference(cand, logits, with_masks=True)
     _close(out, ref, dtype)
     _close(masks, ref_masks, torch.float32)
+
+
+EVAL_BATCH = 64  # evaluate's defaults: batch 8 x 8 stochastic samples in one rollout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernels_at_the_eval_shapes(dev, dtype):
+    """K1 ``[64,64,64,3] x [64,5,5,4]``; K2 at the six widths of a generator
+    step (up to 262144 rows at C=32); K3 with 7 candidates (``ours_savp``) and
+    6 (``sv2p``: 4 CDNA, prev, scratch)."""
+    b = EVAL_BATCH
+    g = torch.Generator(device=dev).manual_seed(64)
+    image = torch.rand(b, 64, 64, 3, device=dev, generator=g).to(dtype)
+    kernels = torch.softmax(torch.randn(b, 25, 4, device=dev, generator=g), 1).reshape(b, 5, 5, 4)
+    _close(K.apply_cdna_kernels(image, kernels), K.apply_cdna_kernels_reference(image, kernels), dtype)
+    for cdim, px in [(32, 64), (64, 32), (128, 16), (256, 8)]:
+        rows = b * px * px
+        z = (2.0 * torch.randn(rows, 4 * cdim, device=dev, generator=g)).to(dtype)
+        c = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
+        lnp = torch.rand(10, cdim, device=dev, generator=g) + 0.5
+        for out, ref in zip(K.fused_ln_gate(z, c, lnp), K.fused_ln_gate_reference(z, c, lnp)):
+            _close(out, ref, dtype)
+    for k in (7, 6):
+        cand = torch.rand(b, k, 64, 64, 3, device=dev, generator=g).to(dtype)
+        logits = (3.0 * torch.randn(b, 64, 64, k, device=dev, generator=g)).to(dtype)
+        out, masks = K.composite(cand, logits, with_masks=True)
+        ref, ref_masks = K.composite_reference(cand, logits, with_masks=True)
+        _close(out, ref, dtype)
+        _close(masks, ref_masks, torch.float32)
+
+
+def test_ssim_on_the_card_is_fp32_with_tf32_on(dev):
+    """cuDNN's TF32 left at its default (on): SSIM's Gaussian filter still
+    runs in fp32 and matches the CPU, and the setting is restored."""
+    g = torch.Generator().manual_seed(8)
+    target = torch.rand(8, 10, 64, 64, 3, generator=g)
+    pred = (target + 0.1 * torch.randn(target.shape, generator=g)).clamp(0, 1)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        ssim = M.structural_similarity(target.to(dev), pred.to(dev)).cpu()
+        psnr = M.peak_signal_to_noise_ratio(target.to(dev), pred.to(dev)).cpu()
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    torch.testing.assert_close(ssim, M.structural_similarity(target, pred), atol=1e-5, rtol=0)
+    torch.testing.assert_close(psnr, M.peak_signal_to_noise_ratio(target, pred), atol=1e-4, rtol=0)
 
 
 def _plain_grads(reference, inputs, grads):

@@ -2,7 +2,8 @@
 against the JAX package's, from converted weights, the same batch (images
 and actions) and the same prior z (taken from the JAX run and passed in), at
 a small size: 32 px (2 scales, so the U-Net skips are exercised), ngf=4,
-nef=8, nz=4, 6 frames, on the ``ours_savp`` hparams."""
+nef=8, nz=4, 6 frames, on the ``ours_savp`` hparams, and on ``sv2p`` (the
+time-invariant posterior, one z per sequence)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,13 +30,14 @@ LATENT_ATOL = 1e-5  # one fp32 encoder pass
 SMALL = dict(ngf=4, nef=8, nz=4, sequence_length=6)
 
 
-def _hparams(module, **extra):
-    """``ours_savp`` over the savp class defaults, as ``scripts/train.py``
-    resolves it, from the JAX (``jhp``) or the port's (``thp``) copy."""
+def _hparams(module, config="ours_savp", model="savp", **extra):
+    """The zoo file ``config`` over the ``model`` class defaults, as
+    ``scripts/train.py`` resolves it, from the JAX (``jhp``) or the port's
+    (``thp``) copy."""
     get_model_class = j_get_model_class if module is jhp else t_get_model_class
-    zoo = module.zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"
+    zoo = module.zoo_dir() / "bair_action_free" / config / "model_hparams.json"
     return module.resolve_model_hparams(
-        get_model_class("savp").default_hparams(), str(zoo), extra={**SMALL, **extra}
+        get_model_class(model).default_hparams(), str(zoo), extra={**SMALL, **extra}
     )
 
 
@@ -45,10 +47,10 @@ def _batch():
     return {"images": raw["images"][:, :6], "actions": raw["actions"][:, :6]}
 
 
-def _rollouts(output_aux=False, **extra):
-    jh, th = _hparams(jhp, **extra), _hparams(thp, **extra)
+def _rollouts(output_aux=False, config="ours_savp", model="savp", **extra):
+    jh, th = _hparams(jhp, config, model, **extra), _hparams(thp, config, model, **extra)
     batch = _batch()
-    jmodel = j_get_model_class("savp")(jh, mode="test")
+    jmodel = j_get_model_class(model)(jh, mode="test")
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     params, state = jmodel.init_variables(jax.random.PRNGKey(0), jbatch)
     rng = np.random.RandomState(0)
@@ -64,7 +66,7 @@ def _rollouts(output_aux=False, **extra):
     )
     jout = forward(params, jbatch, jax.random.PRNGKey(1))
 
-    tmodel = t_get_model_class("savp")(th, image_shape=(32, 32, 3), action_dim=4)
+    tmodel = t_get_model_class(model)(th, image_shape=(32, 32, 3), action_dim=4)
     # the discriminators (and their spectral u) are not on this path, but
     # convert with the rest of the tree
     tmodel.load_state_dict(flax_to_state_dict(params, {"discriminator": state.get("spectral", {})}))
@@ -86,6 +88,40 @@ def test_prior_rollout_matches_jax():
     assert tout["masks"].shape == (2, 5, 32, 32, 7) and tout["kernels"].shape == (2, 5, 5, 5, 4)
     np.testing.assert_allclose(tout["masks"].numpy(), np.asarray(jout["masks"]), atol=ROLLOUT_ATOL)
     np.testing.assert_allclose(tout["kernels"].numpy(), np.asarray(jout["kernels"]), atol=ROLLOUT_ATOL)
+
+
+def test_sv2p_rollout_matches_jax():
+    """One z per sequence: the posterior averages its pooled pair features
+    over time (``[B,1,nz]``), and the one prior draw drives every step."""
+    jout, tout = _rollouts(config="sv2p", model="sv2p")
+    assert tout["zs_mu"].shape == tout["zs_sampled_prior"].shape == (2, 1, 4)
+    np.testing.assert_allclose(tout["zs_mu"].numpy(), np.asarray(jout["zs_mu"]), atol=LATENT_ATOL)
+    np.testing.assert_allclose(tout["zs_logvar"].numpy(), np.asarray(jout["zs_logvar"]), atol=LATENT_ATOL)
+    np.testing.assert_allclose(tout["gen_images"].numpy(), np.asarray(jout["gen_images"]), atol=ROLLOUT_ATOL)
+
+
+def test_time_invariant_posterior_matches_jax():
+    from video_prediction_torch.models.networks import PosteriorEncoder as TPosterior
+    from video_prediction_tpu.models.networks import PosteriorEncoder as JPosterior
+
+    images = np.random.RandomState(2).rand(3, 6, 32, 32, 3).astype(np.float32)
+    jenc = JPosterior(nz=4, nef=8, time_invariant=True)
+    params = jenc.init(jax.random.PRNGKey(3), jnp.asarray(images))["params"]
+    mu, logvar = jenc.apply({"params": params}, jnp.asarray(images))
+    tenc = TPosterior(3, nz=4, nef=8, time_invariant=True)
+    tenc.load_state_dict(flax_to_state_dict(params))  # the same parameters as the per-step encoder's
+    with torch.no_grad():
+        tmu, tlogvar = tenc(torch.from_numpy(images))
+    assert tmu.shape == (3, 1, 4)
+    np.testing.assert_allclose(tmu.numpy(), np.asarray(mu), atol=LATENT_ATOL)
+    np.testing.assert_allclose(tlogvar.numpy(), np.asarray(logvar), atol=LATENT_ATOL)
+
+
+def test_time_invariant_latent_refuses_learn_prior():
+    with pytest.raises(ValueError, match="learn_prior"):
+        t_get_model_class("sv2p")(_hparams(thp, "sv2p", "sv2p", learn_prior=True), image_shape=(32, 32, 3))
+    with pytest.raises(ValueError, match="learn_prior"):
+        j_get_model_class("sv2p")(_hparams(jhp, "sv2p", "sv2p", learn_prior=True))
 
 
 @pytest.mark.parametrize(

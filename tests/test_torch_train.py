@@ -6,7 +6,9 @@ chain: ``fold_in(rng, step)``, ``split`` into fwd/clip, ``split(fwd, 3)``
 into ss/q/p; ``models/base.py:259, 428, 479``). Small shapes: 32 px, ngf=4,
 nef=8, ndf=4, nz=4, 6 frames, clip_length 4; ``kl_anneal_steps=(0, 2)`` and
 ``schedule_sampling_k=2`` so that the KL term and the sampled mask both act
-within the 5 steps."""
+within the 5 steps. Three configurations: the flagship VAE-GAN, the VAE
+without discriminators, and SV2P (one z per sequence, l2 and KL, no
+adversary)."""
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,7 @@ torch.set_num_threads(1)
 
 SMALL = dict(ngf=4, nef=8, ndf=4, nz=4, sequence_length=6, clip_length=4, kl_anneal_steps=(0, 2),
              schedule_sampling_k=2.0, batch_size=2)
-CONFIGS = ["ours_savp", "ours_vae_l1"]  # the flagship VAE-GAN, and the VAE without discriminators
+CONFIGS = ["ours_savp", "ours_vae_l1", "sv2p"]
 STEPS = 5
 LOSS_RTOL = 1e-5  # one fp32 rollout through convs, norms and kernels
 # max |g_port - g_jax| over a leaf: 1e-4 of max |g_jax| of the leaf, plus 1e-5
@@ -39,10 +41,14 @@ GRAD_TOL, GRAD_FLOOR = 1e-4, 1e-5
 TRAJ_RTOL = 1e-4  # five Adam steps
 
 
+def _model_name(config):
+    return "sv2p" if config == "sv2p" else "savp"
+
+
 def _hparams(module, config):
     get_model_class = j_get_model_class if module is jhp else t_get_model_class
     zoo = module.zoo_dir() / "bair_action_free" / config / "model_hparams.json"
-    return module.resolve_model_hparams(get_model_class("savp").default_hparams(), str(zoo), extra=SMALL)
+    return module.resolve_model_hparams(get_model_class(_model_name(config)).default_hparams(), str(zoo), extra=SMALL)
 
 
 def _batches():
@@ -56,10 +62,11 @@ def _noise(rng, step, b, t, hp):
     rng_fwd, rng_clip = jax.random.split(jax.random.fold_in(rng, step))
     rng_ss, rng_q, rng_p = jax.random.split(rng_fwd, 3)
     clip_len = min(hp.clip_length, t - 1)
+    tz = 1 if hp.latent_time_invariant else t - 1  # the posterior's shape: one z per sequence, or per step
     noise = {
         "use_gt_u": torch.from_numpy(np.array(jax.random.uniform(rng_ss, (t - 1, b)))),
-        "eps_q": torch.from_numpy(np.array(jax.random.normal(rng_q, (b, t - 1, hp.nz)))),
-        "z_p": torch.from_numpy(np.array(jax.random.normal(rng_p, (b, t - 1, hp.nz)))),
+        "eps_q": torch.from_numpy(np.array(jax.random.normal(rng_q, (b, tz, hp.nz)))),
+        "z_p": torch.from_numpy(np.array(jax.random.normal(rng_p, (b, tz, hp.nz)))),
         "clip_start": int(jax.random.randint(rng_clip, (), 0, t - 1 - clip_len + 1)),
     }
     return noise
@@ -71,8 +78,9 @@ class _Run:
 
     def __init__(self, config):
         jh, self.th = _hparams(jhp, config), _hparams(thp, config)
+        self.model_name = _model_name(config)
         self.batches = _batches()
-        jmodel = j_get_model_class("savp")(jh, mode="train")
+        jmodel = j_get_model_class(self.model_name)(jh, mode="train")
         jbatch0 = {k: jnp.asarray(v) for k, v in self.batches[0].items()}
         ts = j_create_train_state(jmodel, jax.random.PRNGKey(0), jbatch0)
         rng = np.random.RandomState(0)
@@ -105,7 +113,7 @@ class _Run:
             self.trajectory.append((float(scalars["g_loss"]), float(scalars["d_loss"])))
 
     def port_state(self):
-        model = t_get_model_class("savp")(self.th, image_shape=(32, 32, 3), action_dim=4)
+        model = t_get_model_class(self.model_name)(self.th, image_shape=(32, 32, 3), action_dim=4)
         model.load_state_dict(flax_to_state_dict(self.params0, {"discriminator": self.spectral0}))
         opt_g, opt_d = make_optimizers(model)
         return TrainState(model=model, opt_g=opt_g, opt_d=opt_d, step=0, rng=torch.Generator())

@@ -7,10 +7,11 @@ Pallas kernels. It imports ``torch`` and never ``jax``: the JAX package is the
 reference the port is tested against, not a dependency.
 
 Ported so far: the SAVP prior-rollout generation path
-(``python -m video_prediction_torch.generate``) and the SAVP VAE-GAN training
+(``python -m video_prediction_torch.generate``), the SAVP VAE-GAN training
 step with its video SN discriminators (``python -m
-video_prediction_torch.train``). See ``ROADMAP.md`` for what is still to
-come.
+video_prediction_torch.train``) and the evaluation path with its metrics,
+the baselines and SV2P (``python -m video_prediction_torch.evaluate``). See
+``ROADMAP.md`` for what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -96,7 +96,7 @@ def main(argv=None) -> Dict[str, object]:
 
     gen_len = args.sequence_length or (dhp.long_sequence_length if args.long else 0)
     if gen_len:
-        hp = hp.replace(sequence_length=gen_len)
+        # the data only: the model keeps the trained length (see evaluate.py)
         dhp = dhp.replace(sequence_length=gen_len)
 
     dataset = get_dataset_class(dataset_name)(args.input_dir, mode=args.mode, hparams=dhp, seed=args.seed)

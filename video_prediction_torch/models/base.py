@@ -2,14 +2,16 @@
 
 Port of ``video_prediction_tpu/models/base.py`` (reference
 ``models/base_model.py``): ``images_to_float``, ``normalize_batch``,
-``VideoPredictionModel`` with the generator, the posterior encoder and the
-video SN discriminators, ``forward`` (eval prior rollout, and the training
-rollouts: posterior only, or prior and posterior as one doubled batch),
-``_clip``, ``apply_discriminator`` and ``compute_losses``. ``metrics_fn``,
-the image and action-conditioned discriminators, ``learn_prior``,
-``z_l1_weight`` and ``vgg_cdist_weight`` are still to be ported
-(ROADMAP.md); ``compute_losses`` raises for their loss weights, and the
-generator serves such a run all the same.
+``VideoPredictionModel`` with the generator, the posterior encoder (per step,
+or one z per sequence with ``latent_time_invariant``) and the video SN
+discriminators, ``forward`` (eval prior rollout, and the training rollouts:
+posterior only, or prior and posterior as one doubled batch), ``_clip``,
+``apply_discriminator``, ``compute_losses`` and ``metrics_fn``; and the
+parameter-free baselines ``GroundTruthVideoPredictionModel`` and
+``RepeatVideoPredictionModel``. The image and action-conditioned
+discriminators, ``learn_prior``, ``z_l1_weight`` and ``vgg_cdist_weight``
+are still to be ported (ROADMAP.md); ``compute_losses`` raises for their loss
+weights, and the generator serves such a run all the same.
 
 Conventions as in the JAX package: ``batch`` holds ``images [B,T,H,W,C]``
 (uint8, or float in [0,1]) and optionally ``actions [B,T or T-1,na]``;
@@ -28,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from video_prediction_torch import losses as L
+from video_prediction_torch import metrics as M
 from video_prediction_torch.configs.hparams import ModelHparams
 from video_prediction_torch.models.networks import PosteriorEncoder, VideoSNDiscriminator
 from video_prediction_torch.models.savp import SAVPGenerator
@@ -79,12 +82,19 @@ class VideoPredictionModel(nn.Module):
     hparams, as in the JAX package.
     """
 
+    trainable = True
+
     def __init__(self, hparams: ModelHparams, *, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0):
         super().__init__()
         hp = self.hparams = hparams
+        if hp.latent_time_invariant and hp.learn_prior:
+            raise ValueError("latent_time_invariant (one z per sequence, SV2P) is incompatible with learn_prior "
+                             "(the in-cell prior is per-step by construction)")
         self.generator = SAVPGenerator(hparams, image_shape, action_dim)
         self.posterior = (
-            PosteriorEncoder(image_shape[-1], nz=hparams.nz, nef=hparams.nef) if hparams.nz > 0 else None
+            PosteriorEncoder(image_shape[-1], nz=hparams.nz, nef=hparams.nef,
+                             time_invariant=hparams.latent_time_invariant)
+            if hparams.nz > 0 else None
         )
         self.discriminator = nn.ModuleDict()
         clip_shape = (min(hp.clip_length, hp.sequence_length - 1), image_shape[0], image_shape[1])
@@ -92,6 +102,11 @@ class VideoPredictionModel(nn.Module):
             self.discriminator["video"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf)
         if hp.video_sn_vae_gan_weight:
             self.discriminator["video_vae"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf)
+
+    @classmethod
+    def default_hparams(cls) -> ModelHparams:
+        """The base-model defaults; the zoo classes override them."""
+        return ModelHparams()
 
     @property
     def has_vae(self) -> bool:
@@ -131,13 +146,14 @@ class VideoPredictionModel(nn.Module):
         """The noise of one training step, from ``generator`` (on ``device``):
         the teacher-forcing mask's uniforms ``use_gt_u [T-1,B]``, the
         posterior's reparameterization noise ``eps_q`` and the prior draws
-        ``z_p`` (each ``[B,T-1,nz]``, when stochastic) and the start of the
+        ``z_p`` (each ``[B,T-1,nz]``, or ``[B,1,nz]`` with
+        ``latent_time_invariant``, when stochastic) and the start of the
         discriminator clip ``clip_start`` (a 0-d long tensor on ``device``,
         never read on the host, so the step queues without a sync)."""
         hp = self.hparams
         noise: Dict[str, Any] = {"use_gt_u": torch.rand((seq_len - 1, batch), generator=generator, device=device)}
         if self.has_vae:
-            shape = (batch, seq_len - 1, hp.nz)
+            shape = (batch, 1 if hp.latent_time_invariant else seq_len - 1, hp.nz)
             noise["eps_q"] = torch.randn(shape, generator=generator, device=device)
             noise["z_p"] = torch.randn(shape, generator=generator, device=device)
         clip_len = min(hp.clip_length, seq_len - 1)
@@ -159,8 +175,11 @@ class VideoPredictionModel(nn.Module):
         Eval (``train=False``): returns ``gen_images`` of the prior rollout
         and, when stochastic, ``zs_mu``/``zs_logvar`` from the posterior and
         the unit-Gaussian prior draws ``zs_sampled_prior`` that drove it.
-        ``zs_prior`` ``[B,T-1,nz]`` is used as given; otherwise it is drawn
-        from ``generator`` (a ``torch.Generator`` on the batch's device).
+        ``zs_prior`` ``[B,T-1,nz]`` (``[B,1,nz]`` with
+        ``latent_time_invariant``: one z per sequence, broadcast over the
+        rollout) is used as given; otherwise it is drawn from ``generator`` (a
+        ``torch.Generator`` on the batch's device). The latent statistics stay
+        un-broadcast, so the KL sees the sequence-level quantities.
 
         Train: the teacher-forcing mask is sampled at ``step`` from
         ``noise["use_gt_u"]`` and the posterior z is ``mu + exp(logvar/2) *
@@ -189,13 +208,17 @@ class VideoPredictionModel(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         mu_q, logvar_q = self.posterior(images)
         out["zs_mu"], out["zs_logvar"] = mu_q, logvar_q
+
+        def bz(z: torch.Tensor) -> torch.Tensor:  # a sequence-level z over every rollout step
+            return z.expand(z.shape[0], t - 1, hp.nz)
+
         if not train:
             if zs_prior is None:
                 zs_prior = torch.randn(mu_q.shape, generator=generator, device=images.device)
             elif tuple(zs_prior.shape) != tuple(mu_q.shape):
                 raise ValueError(f"zs_prior must be {tuple(mu_q.shape)}, got {tuple(zs_prior.shape)}")
             out["zs_sampled_prior"] = zs_prior
-            out.update(self.generator(images, use_gt, zs=zs_prior, output_aux=output_aux, **gen_kwargs))
+            out.update(self.generator(images, use_gt, zs=bz(zs_prior), output_aux=output_aux, **gen_kwargs))
             return out
 
         z_q = mu_q + torch.exp(0.5 * logvar_q) * noise["eps_q"]
@@ -204,13 +227,13 @@ class VideoPredictionModel(nn.Module):
         if "video" in self.discriminator:
             # the prior and posterior rollouts as one doubled batch
             gout = self.generator(
-                torch.cat([images, images]), torch.cat([use_gt, use_gt], dim=1), zs=torch.cat([z_p, z_q]),
+                torch.cat([images, images]), torch.cat([use_gt, use_gt], dim=1), zs=torch.cat([bz(z_p), bz(z_q)]),
                 output_aux=output_aux, **{k: torch.cat([v, v]) for k, v in gen_kwargs.items()},
             )
             for k, v in gout.items():
                 out[k], out[k + "_enc"] = v[:b], v[b:]
         else:
-            gout = self.generator(images, use_gt, zs=z_q, output_aux=output_aux, **gen_kwargs)
+            gout = self.generator(images, use_gt, zs=bz(z_q), output_aux=output_aux, **gen_kwargs)
             out.update({k + "_enc": v for k, v in gout.items()})
             out["gen_images"] = gout["gen_images"]  # the posterior rollout doubles as the main output
         return out
@@ -323,3 +346,64 @@ class VideoPredictionModel(nn.Module):
             "new_state": {"spectral": new_spectral} if new_spectral else {},
         }
         return g_total + d_total, aux
+
+    # ------------------------------------------------------------------ #
+    # metrics
+    # ------------------------------------------------------------------ #
+    def metrics_fn(self, outputs: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Per-frame eval metrics on the prediction span (frames
+        ``context..T-1``): the means of PSNR, SSIM and MSE, and the PSNR and
+        SSIM curves ``[T - context]`` averaged over the batch."""
+        ctx = self.hparams.context_frames
+        target = normalize_batch(batch)["images"][:, ctx:]
+        pred = outputs["gen_images"][:, ctx - 1:]
+        psnr = M.peak_signal_to_noise_ratio(target, pred)  # [B, Tp]
+        ssim = M.structural_similarity(target, pred)
+        mse = M.mean_squared_error(target, pred)
+        return {
+            "psnr": psnr.mean(),
+            "ssim": ssim.mean(),
+            "mse": mse.mean(),
+            "psnr_per_frame": psnr.mean(dim=0),
+            "ssim_per_frame": ssim.mean(dim=0),
+        }
+
+
+class NonTrainableVideoPredictionModel(VideoPredictionModel):
+    """Baselines with no parameters (reference ``non_trainable_model.py``).
+    Built and called as the trainable model is for evaluation; ``forward``
+    ignores ``train`` and the noise arguments. Nothing trains them, so they
+    have no losses."""
+
+    trainable = False
+
+    def __init__(self, hparams: ModelHparams, *, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0):
+        nn.Module.__init__(self)
+        self.hparams = hparams
+        self.generator = None
+        self.posterior = None
+        self.discriminator = nn.ModuleDict()
+
+
+class GroundTruthVideoPredictionModel(NonTrainableVideoPredictionModel):
+    """Outputs the ground-truth future (reference ``GroundTruthVideoPredictionModel``)."""
+
+    name = "ground_truth"
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False, **kw) -> Dict[str, torch.Tensor]:
+        return {"gen_images": images_to_float(batch["images"][:, 1:])}
+
+
+class RepeatVideoPredictionModel(NonTrainableVideoPredictionModel):
+    """Repeats the last context frame (reference ``RepeatVideoPredictionModel``):
+    frames 1..context-1 are the shifted ground-truth context, frames
+    context..T-1 the last context frame."""
+
+    name = "repeat"
+
+    def forward(self, batch: Dict[str, torch.Tensor], train: bool = False, **kw) -> Dict[str, torch.Tensor]:
+        ctx = self.hparams.context_frames
+        images = images_to_float(batch["images"])
+        t = images.shape[1]
+        rep = images[:, ctx - 1 : ctx].expand(-1, t - ctx, *images.shape[2:])
+        return {"gen_images": torch.cat([images[:, 1:ctx], rep], dim=1)}

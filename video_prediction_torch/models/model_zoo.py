@@ -1,7 +1,8 @@
 """Concrete model classes of the reference zoo.
 
-Port of ``video_prediction_tpu/models/model_zoo.py``. The port has ``savp``;
-``dna``, ``sna`` and ``sv2p`` are still to be ported (ROADMAP.md).
+Port of ``video_prediction_tpu/models/model_zoo.py``. The port has ``savp``
+and ``sv2p``; ``dna`` and ``sna`` need the ``dna`` transformation and the
+state head, which are still to be ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +33,39 @@ class SAVPVideoPredictionModel(VideoPredictionModel):
             prev_image_background=True,
             generate_scratch_image=True,
             dependent_mask=True,
+            schedule_sampling="inverse_sigmoid",
+            schedule_sampling_k=900.0,
+        )
+
+
+class SV2PVideoPredictionModel(VideoPredictionModel):
+    """Babaeizadeh et al. 2018 stochastic variational video prediction.
+
+    Reference: ``models/sv2p_model.py#SV2PVideoPredictionModel``: the CDNA
+    generator with a time-invariant latent posterior (one z per sequence,
+    encoded from the whole clip, ``latent_time_invariant=True``), a
+    KL-annealed ELBO and no adversary.
+    """
+
+    name = "sv2p"
+
+    @classmethod
+    def default_hparams(cls) -> ModelHparams:
+        return ModelHparams(
+            l1_weight=0.0,
+            l2_weight=1.0,
+            nz=8,
+            latent_time_invariant=True,
+            kl_weight=1e-3,
+            kl_anneal="linear",
+            kl_anneal_steps=(100000, 200000),
+            transformation="cdna",
+            num_transformed_images=4,
+            first_image_background=False,
+            prev_image_background=True,
+            generate_scratch_image=True,
+            dependent_mask=False,
+            where_add="middle",
             schedule_sampling="inverse_sigmoid",
             schedule_sampling_k=900.0,
         )

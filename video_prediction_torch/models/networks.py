@@ -1,7 +1,8 @@
 """Latent encoder and video discriminator.
 
 Port of ``video_prediction_tpu/models/networks.py#PosteriorEncoder``
-(reference ``savp_model.py#create_encoder``) and ``#VideoSNDiscriminator``
+(reference ``savp_model.py#create_encoder``; per step, or time-invariant
+for SV2P) and ``#VideoSNDiscriminator``
 (reference ``networks.py#video_sn_discriminator``). ``LearnedPrior`` and the
 image and action-conditioned discriminators are still to be ported
 (ROADMAP.md).
@@ -19,19 +20,24 @@ from video_prediction_torch.ops.spectral import SpectralConv3D, SpectralDense
 
 
 class PosteriorEncoder(nn.Module):
-    """Frame-pair latent posterior q(z_t | x_t, x_{t+1}).
+    """Frame-pair latent posterior q(z_t | x_t, x_{t+1}), or with
+    ``time_invariant`` one latent per sequence (SV2P).
 
-    ``images [B,T,H,W,C] -> (mu, logvar)``, each ``[B,T-1,nz]`` fp32. All T-1
-    adjacent pairs run as one folded batch: 4x4 stride-2 SAME convs (64 and
-    32 px inputs pad (1, 1)), instance norm (eps 1e-6) after every conv but
-    the first, leaky ReLU 0.2, global average pool, dense mu / logvar heads.
+    ``images [B,T,H,W,C] -> (mu, logvar)``, each ``[B,T-1,nz]`` fp32 (``[B,1,nz]``
+    when ``time_invariant``). All T-1 adjacent pairs run as one folded batch:
+    4x4 stride-2 SAME convs (64 and 32 px inputs pad (1, 1)), instance norm
+    (eps 1e-6) after every conv but the first, leaky ReLU 0.2, global average
+    pool, dense mu / logvar heads. ``time_invariant`` averages the pooled pair
+    features over time before the heads, so both forms have the same
+    parameters.
     """
 
     n_layers = 3
 
-    def __init__(self, in_channels: int, nz: int = 8, nef: int = 64):
+    def __init__(self, in_channels: int, nz: int = 8, nef: int = 64, time_invariant: bool = False):
         super().__init__()
         self.nz = nz
+        self.time_invariant = time_invariant
         # submodule names follow the flax tree (conv0.., norm1..) for convert.py
         f_in = 2 * in_channels
         for i in range(self.n_layers):
@@ -51,8 +57,12 @@ class PosteriorEncoder(nn.Module):
         for i in range(1, self.n_layers):
             x = lrelu(getattr(self, f"norm{i}")(getattr(self, f"conv{i}")(x)), 0.2)
         x = x.mean(dim=(1, 2))
-        mu = self.mu(x).reshape(b, t - 1, self.nz)
-        logvar = self.logvar(x).reshape(b, t - 1, self.nz)
+        tz = t - 1
+        if self.time_invariant:
+            x = x.reshape(b, t - 1, -1).mean(dim=1)  # whole-clip features
+            tz = 1
+        mu = self.mu(x).reshape(b, tz, self.nz)
+        logvar = self.logvar(x).reshape(b, tz, self.nz)
         return mu, logvar
 
 

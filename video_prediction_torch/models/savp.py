@@ -66,7 +66,6 @@ def check_supported(hp: ModelHparams) -> None:
         "learn_prior": hp.learn_prior,
         "use_states": hp.use_states,
         "learn_initial_state": hp.learn_initial_state,
-        "latent_time_invariant": hp.latent_time_invariant,
         "context_images_background": hp.context_images_background,
         "conv_rnn": hp.conv_rnn != "lstm",
         "compute_dtype": hp.compute_dtype != "float32",

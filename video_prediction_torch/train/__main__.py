@@ -13,9 +13,17 @@ builds the model and its train state from ``--seed``, restores
 up to the restored step, so that a resumed run equals an unbroken one), then
 runs the train step until ``max_steps``. Every ``--progress_freq`` steps it prints ``step N:
 g_loss= d_loss= steps/s= frames/s=`` (frames per step = batch x (T -
-context)); every ``--save_freq`` steps, and at the end, it writes the train
-state and ``checkpoints/params.pt`` (what ``generate`` reads). TensorBoard,
-GIF and eval summaries wait for the eval path (ROADMAP.md).
+context)); every ``--summary_freq`` steps the loss terms and the schedule
+scalars (``lr``, ``schedule_sampling_prob``, ``kl_weight``) at the step the
+losses were taken; every ``--eval_summary_freq`` and
+``--accum_eval_summary_freq`` steps the eval metrics (``eval/*`` and
+``accum_eval/*``: the prior rollout's PSNR, SSIM and MSE) averaged over 8
+and 64 validation batches, drawn from one ``val`` iterator that walks on
+from firing to firing; every ``--save_freq`` steps, and at the end, it
+writes the train state and ``checkpoints/params.pt`` (what ``generate`` and
+``evaluate`` read). The summaries are printed and returned by ``main``, not
+written to TensorBoard event files (ROADMAP.md); GIF summaries are not
+ported.
 """
 
 from __future__ import annotations
@@ -41,6 +49,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--batch_size", type=int, default=0, help="0 -> hparams.batch_size")
     p.add_argument("--max_steps", type=int, default=0, help="0 -> hparams.max_steps")
+    p.add_argument("--summary_freq", type=int, default=1000)
+    p.add_argument("--eval_summary_freq", type=int, default=25000)
+    p.add_argument("--accum_eval_summary_freq", type=int, default=100000,
+                   help="eval metrics accumulated over 64 validation batches")
     p.add_argument("--progress_freq", type=int, default=100)
     p.add_argument("--save_freq", type=int, default=5000)
     p.add_argument("--device", default="cuda", help="torch device to run on, e.g. cuda, cuda:1 or cpu")
@@ -49,7 +61,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Dict[str, object]:
     """Run the CLI. Returns a summary: the ``start_step`` and final ``step``,
-    the last step's ``scalars`` (floats), and whether every loss printed or
+    the last step's ``scalars`` (floats), the last ``summaries`` of each
+    kind (``--summary_freq``'s scalars, and the ``eval/*`` and
+    ``accum_eval/*`` means, floats by tag), and whether every loss printed or
     returned was finite (``all_finite``)."""
     args = parse_args(argv)
 
@@ -57,6 +71,7 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.data import get_dataset_class
     from video_prediction_torch.generate import batch_to_device
     from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train import schedules
     from video_prediction_torch.train.checkpoint import (
         has_train_state,
         load_train_state,
@@ -64,7 +79,7 @@ def main(argv=None) -> Dict[str, object]:
         write_options,
     )
     from video_prediction_torch.train.state import create_train_state, param_count, split_params
-    from video_prediction_torch.train.step import make_train_step
+    from video_prediction_torch.train.step import make_eval_step, make_train_step
 
     device = torch.device(args.device)
 
@@ -106,17 +121,44 @@ def main(argv=None) -> Dict[str, object]:
         for _ in range(ts.step):  # replay the data stream up to the step, so a resumed run sees what an unbroken one does
             batch = next(train_iter)
     train_step = make_train_step(model)
+    eval_step = make_eval_step(model)
+    # one persistent val iterator: successive eval firings walk on through the
+    # validation set, as in the JAX CLI
+    val_iter = dataset_cls(args.input_dir, mode="val", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
 
     # ---- loop ----
     start_step = ts.step
     frames_per_step = hp.batch_size * (hp.sequence_length - hp.context_frames)
     t_last, last_timed_step = time.perf_counter(), start_step
     scalars: Dict[str, torch.Tensor] = {}
+    summaries: Dict[str, float] = {}
     all_finite = True
     try:
         while ts.step < hp.max_steps:
             scalars = train_step(ts, batch_to_device(batch, device))
             batch = next(train_iter)
+            if args.summary_freq and ts.step % args.summary_freq == 0:
+                prev = ts.step - 1  # the step the losses were taken at
+                vals = {k: float(v) for k, v in scalars.items()}
+                vals["lr"] = schedules.learning_rate(prev, hp)
+                vals["schedule_sampling_prob"] = schedules.ground_truth_prob(prev, hp)
+                if hp.kl_weight:
+                    vals["kl_weight"] = hp.kl_weight * schedules.kl_weight(prev, hp)
+                summaries.update(vals)
+                print(f"summary step {ts.step}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
+            for freq, n_eval, prefix in ((args.eval_summary_freq, 8, "eval"),
+                                         (args.accum_eval_summary_freq, 64, "accum_eval")):
+                if freq and ts.step % freq == 0:
+                    rng = torch.Generator(device=device).manual_seed(args.seed + ts.step)
+                    accum: Dict[str, torch.Tensor] = {}
+                    for _ in range(n_eval):
+                        _, metrics = eval_step(batch_to_device(next(val_iter), device), generator=rng)
+                        for k, v in metrics.items():
+                            if v.ndim == 0:
+                                accum[k] = accum[k] + v if k in accum else v
+                    vals = {f"{prefix}/{k}": float(v) / n_eval for k, v in accum.items()}
+                    summaries.update(vals)
+                    print(f"{prefix} step {ts.step}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
             if args.progress_freq and ts.step % args.progress_freq == 0:
                 g_loss, d_loss = float(scalars["g_loss"]), float(scalars["d_loss"])  # waits for the step
                 all_finite &= math.isfinite(g_loss) and math.isfinite(d_loss)
@@ -131,7 +173,8 @@ def main(argv=None) -> Dict[str, object]:
     final = {k: float(v) for k, v in scalars.items()}
     all_finite &= all(math.isfinite(v) for v in final.values())
     print(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
-    return {"start_step": start_step, "step": ts.step, "scalars": final, "all_finite": all_finite}
+    return {"start_step": start_step, "step": ts.step, "scalars": final, "summaries": summaries,
+            "all_finite": all_finite}
 
 
 if __name__ == "__main__":

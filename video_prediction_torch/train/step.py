@@ -1,15 +1,15 @@
-"""The train step: one backward pass, then the G and D Adam updates and the
-spectral ``u`` update.
+"""The train step (one backward pass, then the G and D Adam updates and the
+spectral ``u`` update) and the eval step (the prior rollout and its metrics).
 
-Port of ``video_prediction_tpu/train/step.py#make_train_step`` for one
-device and one step per call. ``compute_losses`` places the detaches so
+Port of ``video_prediction_tpu/train/step.py#make_train_step`` and
+``#make_eval_step`` for one device and one step per call. ``compute_losses`` places the detaches so
 that one backward of ``g_loss + d_loss`` gives each side its own gradients,
 as the reference's joint ``sess.run`` does.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -53,3 +53,19 @@ def make_train_step(model) -> Callable[..., Dict[str, torch.Tensor]]:
         }
 
     return train_step
+
+
+def make_eval_step(model) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+    """``eval_step(batch, zs_prior=None, generator=None) -> (gen_images,
+    metrics)`` for ``model``: the prior rollout of ``forward(train=False)``
+    and ``model.metrics_fn`` of it, under ``torch.inference_mode()``. The
+    prior z is ``zs_prior`` when given, else drawn from ``generator`` (a
+    ``torch.Generator`` on the batch's device)."""
+
+    def eval_step(batch: Dict[str, torch.Tensor], zs_prior: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        with torch.inference_mode():
+            out = model(batch, train=False, zs_prior=zs_prior, generator=generator)
+            return out["gen_images"], model.metrics_fn(out, batch)
+
+    return eval_step

@@ -1,1 +1,1 @@
-"""Host-side utilities (GIF encoding)."""
+"""Host-side utilities (GIF encoding, HTML galleries)."""
