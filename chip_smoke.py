@@ -7,15 +7,19 @@ Run from a checkout of the repository on a machine with a CUDA GPU, ``nvcc``
 and ``nvidia-smi``. Phases, each fatal on failure:
 
 1. report the device (name and power limit from ``nvidia-smi``);
-2. build the CUDA kernels from ``video_prediction_torch/kernels/csrc``;
+2. build the CUDA kernels from ``video_prediction_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all at once) and print ptxas's registers and spills
+   of every kernel instantiation; K1's must not spill;
 3. compare each forward kernel with its plain PyTorch version on the card,
    at the shapes of the generation rollout (batch 8), of the train step's
    rollout (the doubled batch 2 x 16) and of the evaluate rollout (8
    examples x 8 samples = 64; K3 also at SV2P's 6 candidates), fp32 and
-   bf16, and time both;
+   bf16, and time it; K1 also against its library yardstick, one grouped
+   ``F.conv2d`` (TF32 off), checked equal to K1 before it is timed;
 4. compare each backward kernel with autograd of its plain version, at the
    training step's shapes (the doubled batch 2 x 16) and at odd shapes, fp32
-   and bf16, and time both;
+   and bf16, and time it (K1 against one ``convolution_backward`` of the
+   grouped conv, checked first; K1 and K2 run twice to equal bits);
 5. drive ``video_prediction_torch.generate`` at the full ``ours_savp`` width
    (64x64, ngf=32, nz=8) from a run directory with seeded random weights, and
    check GIFs, finite outputs and the kernel launch counts per rollout;
@@ -44,13 +48,36 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 14. time one evaluate batch at the defaults, split into the rollout and the
     metrics, with PSNR/SSIM alone and with VGG and LPIPS.
 
-The line before the last is ``{"kernels": [...]}``: launches from phase 8,
-errors and times at the train step's shapes (the forward kernels' at the
-generation shapes under ``"generation"``, and at the evaluate shapes, with
-phase 11's launches, under ``"evaluate"``); the line before it is the
-``nvidia-smi`` identity, and the last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or without the repository beside it, the
-script exits non-zero and prints no result.
+The line before the last is ``{"kernels": [...]}``, one entry per kernel
+at the train step's shapes (the forward kernels' at the generation shapes
+under ``"generation"``, and at the evaluate shapes, with phase 11's
+launches, under ``"evaluate"``); K2's times are per generator step of six
+calls. Its fields:
+
+- ``launches``: launches in phase 8's four train steps; ``launches_per_train_step``
+  and ``launches_per_rollout`` (a no-grad rollout of 11 generator steps);
+- ``max_abs_err``: fp32 kernel against plain version;
+- ``device_ms``: the kernel's own device time per call (K2: per step), the
+  durations of its device events (the backward with its reduce kernel) from
+  ``torch.profiler`` with device activity only, over 20 calls after warm-up
+  (a session that lost device records is run again, up to five in all; if
+  none is whole, CUDA events around 20 calls queued behind a sleep kernel;
+  a line before the ``nvidia-smi`` line lists both);
+- ``ms`` and ``plain_ms``: CUDA events around back-to-back Python calls of
+  the kernel's wrapper and of its plain version, so paced by the host for the
+  smaller kernels;
+- ``bytes``, ``bound_ms``, ``bound_by``, ``share_of_bound``: each input read
+  once and each output written once, over 3.35e12 B/s (or the operations over
+  the fp32 rate, whichever is larger; ``kernels/roofline.py``), and
+  ``bound_ms / device_ms``;
+- ``library_ms``: the device time of the one PyTorch call that computes the
+  same function on the same inputs, where there is one (K1: a grouped
+  ``F.conv2d`` and its ``convolution_backward``, TF32 off, inputs laid out
+  beforehand), else null.
+
+The line before it is the ``nvidia-smi`` identity, and the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+repository beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -74,9 +101,6 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1e-2)}
 # d kernels and d ln_params sum H*W*C = 12288 or R (up to 131072) terms in
 # another order than autograd: atol 1e-4 of the largest reference value
 REDUCTION_RTOL = 1e-4
-# K2 widths of one generator step at ngf=32, 64x64: encoder 64, 128, 256 at
-# 32, 16, 8 px; decoder 128, 64, 32 at 16, 32, 64 px
-LN_GATE_STEP = [(64, 32), (128, 16), (256, 8), (128, 16), (64, 32), (32, 64)]
 # kernel launches in one rollout of 11 generator steps (12 frames)
 LAUNCHES_PER_ROLLOUT = {"apply_cdna_kernels": 11, "fused_ln_gate": 66, "composite": 11}
 BACKWARD = {"apply_cdna_kernels_backward": "apply_cdna_kernels", "fused_ln_gate_backward": "fused_ln_gate",
@@ -99,6 +123,7 @@ ROLLOUT_TOL = 1e-3
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL, TRAIN_GRAD_MEDIAN_TOL, TRAIN_GRAD_FLOOR = 1e-2, 1e-4, 1e-5
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
+TRAIN_STEPS = 4  # phase 8: 3 steps, then a resumed 4th
 
 
 class SmokeFailure(Exception):
@@ -133,6 +158,57 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def roofline(entry: dict, bytes_and_ops) -> dict:
+    """Add the bytes, the bound and what sets it (``kernels/roofline.py``),
+    and the device time's share of the bound, to a kernel entry."""
+    from video_prediction_torch.kernels import roofline as RL
+
+    nbytes, ops = bytes_and_ops
+    entry.update(bytes=nbytes, bound_ms=RL.bound_ms(nbytes, ops), bound_by=RL.bound_by(nbytes, ops))
+    entry["share_of_bound"] = entry["bound_ms"] / entry["device_ms"]
+    return entry
+
+
+def timing_line(label: str, e: dict) -> str:
+    lib = f", library {e['library_ms']:.4f}" if e.get("library_ms") is not None else ""
+    return (f"{label}: device {e['device_ms']:.4f} ms (bound {e['bound_ms']:.4f} ms by {e['bound_by']}, "
+            f"{100 * e['share_of_bound']:.1f}% of it){lib}; host-paced kernel {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms")
+
+
+class NoTF32:
+    """cuDNN's and cuBLAS's TF32 off inside, restored after."""
+
+    def __enter__(self):
+        self.flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.flags
+
+
+def cdna_as_grouped_conv(image, kern):
+    """K1's inputs laid out for one grouped ``F.conv2d`` (the library
+    yardstick): x ``[1, B*C, H, W]`` and w ``[B*C*N, 1, kh, kw]``, each
+    sample's N kernels repeated over its C channels."""
+    b, h, w, c = image.shape
+    _, kh, kw, n = kern.shape
+    x = image.permute(0, 3, 1, 2).reshape(1, b * c, h, w).contiguous()
+    wt = kern.permute(0, 3, 1, 2)[:, None].expand(b, c, n, kh, kw).reshape(b * c * n, 1, kh, kw).contiguous()
+    return x, wt
+
+
+def cdna_library_forward(x, wt, groups: int):
+    return torch.nn.functional.conv2d(x, wt, padding=(wt.shape[2] - 1) // 2, groups=groups)
+
+
+def cdna_library_backward(go, x, wt, groups: int):
+    """d x and d w of the grouped conv: one ``convolution_backward`` call."""
+    pad = [(wt.shape[2] - 1) // 2, (wt.shape[3] - 1) // 2]
+    return torch.ops.aten.convolution_backward(go, x, wt, None, [1, 1], pad, [1, 1], False, [0, 0], groups,
+                                               [True, True, False])[:2]
+
+
 def max_err(out, ref, dtype_name: str):
     """(max |out - ref|, whether every element is within the tolerance)."""
     atol, rtol = TOL[dtype_name]
@@ -147,6 +223,8 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
     bf16, at the shapes a rollout at ``batch`` gives it (K3 with each
     candidate count of ``composite_ks``: 7 for ``ours_savp``, 6 for ``sv2p``)."""
     from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import device_ms, ln_inputs
 
     g = torch.Generator(device=dev).manual_seed(batch)
     rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)  # noqa: E731
@@ -164,25 +242,30 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
         print(f"K1 apply_cdna_kernels {dt} {shapes}: max_abs_err {err:.3g} (tol {TOL[dt]})")
         check(ok, f"K1 {dt} {shapes} disagrees with its plain version: {err}")
         errs[dt] = err
-    ms = cuda_ms(lambda: K.apply_cdna_kernels(image, kern))
-    plain_ms = cuda_ms(lambda: K.apply_cdna_kernels_reference(image, kern))
-    print(f"K1 time per call (1 call per step), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(
+    entry = dict(
         name="apply_cdna_kernels", route="cuda", source="video_prediction_torch/kernels/csrc/cdna.cu",
-        replaces="video_prediction_tpu/ops/pallas_kernels.py:82", shapes=shapes,
-        max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
-    ))
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:82", shapes=shapes, max_abs_err=errs["float32"],
+        ms=cuda_ms(lambda: K.apply_cdna_kernels(image, kern)),
+        plain_ms=cuda_ms(lambda: K.apply_cdna_kernels_reference(image, kern)),
+        device_ms=device_ms(lambda: K.apply_cdna_kernels(image, kern), "K1"),
+    )
+    # the yardstick: one grouped conv (TF32 off), checked to be the same function first
+    x, wt = cdna_as_grouped_conv(image, kern)
+    with NoTF32():
+        lib = cdna_library_forward(x, wt, batch * 3).view(batch, 3, 4, 64, 64).permute(0, 2, 3, 4, 1)
+        err, ok = max_err(lib, K.apply_cdna_kernels(image, kern), "float32")
+        print(f"K1 yardstick F.conv2d(groups={batch * 3}) vs the kernel, fp32: max_abs_err {err:.3g}")
+        check(ok, f"K1's grouped-conv yardstick disagrees with K1 at batch {batch}: {err}")
+        entry["library_ms"] = device_ms(lambda: cdna_library_forward(x, wt, batch * 3))
+    results.append(roofline(entry, RL.cdna_forward(batch, 64, 64, 3)))
+    print(timing_line(f"K1 per call (1 call per step), fp32, batch {batch}", entry))
 
     # K2 ------------------------------------------------------------------
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = 0.0
     per_width = {}
-    for cdim, px in sorted(set(LN_GATE_STEP)):
+    for cdim, px in sorted(set(RL.LN_GATE_STEP)):
         r = batch * px * px
-        z = randn(r, 4 * cdim) * 2.0
-        c = randn(r, cdim)
-        lnp = torch.cat([1.0 + 0.1 * randn(5, cdim), 0.1 * randn(5, cdim)], dim=0)
-        lnp = lnp.reshape(2, 5, cdim).transpose(0, 1).reshape(10, cdim).contiguous()  # scale, bias per LN
+        z, c, lnp, _, _ = ln_inputs(g, r, cdim, dev)
         for dt in ("float32", "bfloat16"):
             zz, cc = z.to(getattr(torch, dt)), c.to(getattr(torch, dt))
             out = K.fused_ln_gate(zz, cc, lnp)
@@ -196,20 +279,21 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
         per_width[cdim] = (
             cuda_ms(lambda: K.fused_ln_gate(z, c, lnp)),
             cuda_ms(lambda: K.fused_ln_gate_reference(z, c, lnp)),
+            device_ms(lambda: K.fused_ln_gate(z, c, lnp), "K2"),
         )
-        print(f"K2 time per call C={cdim} R={r}, fp32: kernel {per_width[cdim][0]:.4f} ms, "
-              f"plain {per_width[cdim][1]:.4f} ms")
-    for cdim, _ in LN_GATE_STEP:
-        ms += per_width[cdim][0]
-        plain_ms += per_width[cdim][1]
-    print(f"K2 time per generator step (6 calls), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(
+        print(f"K2 per call C={cdim} R={r}, fp32: device {per_width[cdim][2]:.4f} ms (bound "
+              f"{RL.bound_ms(*RL.ln_gate_forward([(r, cdim)])):.4f} ms); host-paced kernel "
+              f"{per_width[cdim][0]:.4f} ms, plain {per_width[cdim][1]:.4f} ms")
+    ms, plain_ms, dms = (sum(per_width[cdim][j] for cdim, _ in RL.LN_GATE_STEP) for j in range(3))
+    entry = dict(
         name="fused_ln_gate", route="cuda", source="video_prediction_torch/kernels/csrc/ln_gate.cu",
         replaces="video_prediction_tpu/ops/pallas_kernels.py:145",
-        shapes=f"R={', '.join(str(batch * px * px) for _, px in sorted(set(LN_GATE_STEP)))} at "
-               f"C={', '.join(str(c) for c, _ in sorted(set(LN_GATE_STEP)))}, 6 calls a step",
-        max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
-    ))
+        shapes=f"R={', '.join(str(batch * px * px) for _, px in sorted(set(RL.LN_GATE_STEP)))} at "
+               f"C={', '.join(str(c) for c, _ in sorted(set(RL.LN_GATE_STEP)))}, 6 calls a step",
+        max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms, device_ms=dms, library_ms=None,
+    )
+    results.append(roofline(entry, RL.ln_gate_forward(RL.ln_gate_step(batch))))
+    print(timing_line(f"K2 per generator step (6 calls), fp32, batch {batch}", entry))
 
     # K3 ------------------------------------------------------------------
     errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -227,15 +311,16 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
             errs[dt] = max(errs[dt], e0, e1)
     cand = rand(batch, 7, 64, 64, 3)
     logits = randn(batch, 64, 64, 7) * 3.0
-    ms = cuda_ms(lambda: K.composite(cand, logits))
-    plain_ms = cuda_ms(lambda: K.composite_reference(cand, logits))
-    print(f"K3 time per call (1 call per step), fp32, batch {batch}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(
+    entry = dict(
         name="composite", route="cuda", source="video_prediction_torch/kernels/csrc/composite.cu",
         replaces="video_prediction_tpu/ops/pallas_kernels.py:198",
         shapes=" and ".join(f"[{batch},{k},64,64,3]" for k in composite_ks) + " (timed at 7)",
-        max_abs_err=errs["float32"], ms=ms, plain_ms=plain_ms,
-    ))
+        max_abs_err=errs["float32"], ms=cuda_ms(lambda: K.composite(cand, logits)),
+        plain_ms=cuda_ms(lambda: K.composite_reference(cand, logits)),
+        device_ms=device_ms(lambda: K.composite(cand, logits), "K3"), library_ms=None,
+    )
+    results.append(roofline(entry, RL.composite_forward(batch, 7)))
+    print(timing_line(f"K3 per call (1 call per step), fp32, batch {batch}", entry))
     return results
 
 
@@ -270,6 +355,8 @@ def backward_phase(dev) -> list:
     """Phase 4: every backward kernel against autograd of its plain version,
     fp32 and bf16, at the train step's shapes and at odd shapes."""
     from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import device_ms, ln_inputs
 
     g = torch.Generator(device=dev).manual_seed(1)
     rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)  # noqa: E731
@@ -301,25 +388,36 @@ def backward_phase(dev) -> list:
             if dt == "float32" and b == b2:
                 err32 = e
     image, kern, grad = rand(b2, 64, 64, 3), torch.softmax(randn(b2, 25, 4), 1).reshape(b2, 5, 5, 4), randn(b2, 4, 64, 64, 3)
-    ms = cuda_ms(lambda: K.apply_cdna_kernels_backward(image, kern, grad))
-    plain_ms = plain_backward_ms(K.apply_cdna_kernels_reference, (image, kern), (grad,))
-    print(f"K1 backward time per call (1 call per step), fp32, batch {b2}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(
+    entry = dict(
         name="apply_cdna_kernels_backward", route="cuda", source="video_prediction_torch/kernels/csrc/cdna.cu",
         replaces="video_prediction_tpu/ops/pallas_kernels.py:82", shapes=f"[{b2},64,64,3]x[{b2},5,5,4]",
-        max_abs_err=err32, ms=ms, plain_ms=plain_ms,
-    ))
+        max_abs_err=err32, ms=cuda_ms(lambda: K.apply_cdna_kernels_backward(image, kern, grad)),
+        plain_ms=plain_backward_ms(K.apply_cdna_kernels_reference, (image, kern), (grad,)),
+        device_ms=device_ms(lambda: K.apply_cdna_kernels_backward(image, kern, grad), "K1"),
+    )
+    # the yardstick: one convolution_backward of the grouped conv (TF32 off),
+    # checked against K1 backward first (d kernels summed over C, untimed)
+    first, second = (K.apply_cdna_kernels_backward(image, kern, grad) for _ in range(2))
+    check(all(torch.equal(a, b) for a, b in zip(first, second)), "K1 backward is not deterministic")
+    x, wt = cdna_as_grouped_conv(image, kern)
+    go = grad.permute(0, 4, 1, 2, 3).reshape(1, b2 * 3 * 4, 64, 64).contiguous()
+    with NoTF32():
+        gx, gw = cdna_library_backward(go, x, wt, b2 * 3)
+        d_image, d_kern = K.apply_cdna_kernels_backward(image, kern, grad)
+        e0, ok0 = max_err(gx.view(b2, 3, 64, 64).permute(0, 2, 3, 1), d_image, "float32")
+        e1, ok1 = reduction_err(gw.view(b2, 3, 4, 5, 5).sum(1).permute(0, 2, 3, 1), d_kern)
+        print(f"K1 backward yardstick convolution_backward(groups={b2 * 3}) vs the kernel, fp32: max_abs_err "
+              f"d image {e0:.3g}, d kernels {e1:.3g}")
+        check(ok0 and ok1, f"K1 backward's yardstick disagrees with the kernel: {e0}, {e1}")
+        entry["library_ms"] = device_ms(lambda: cdna_library_backward(go, x, wt, b2 * 3))
+    results.append(roofline(entry, RL.cdna_backward(b2, 64, 64, 3)))
+    print(timing_line(f"K1 backward per call (1 call per step), fp32, batch {b2}", entry))
 
     # K2 backward ---------------------------------------------------------
-    def ln_inputs(r, cdim):
-        lnp = torch.cat([1.0 + 0.1 * randn(5, cdim), 0.1 * randn(5, cdim)], dim=0)
-        lnp = lnp.reshape(2, 5, cdim).transpose(0, 1).reshape(10, cdim).contiguous()
-        return randn(r, 4 * cdim) * 2.0, randn(r, cdim), lnp, randn(r, cdim), randn(r, cdim)
-
     err32, per_width = 0.0, {}
-    train_shapes = {(cdim, b2 * px * px) for cdim, px in LN_GATE_STEP}
+    train_shapes = {(cdim, b2 * px * px) for cdim, px in RL.LN_GATE_STEP}
     for cdim, r in sorted(train_shapes) + [(40, 77), (300, 1000)]:
-        z, c, lnp, dcn, dhn = ln_inputs(r, cdim)
+        z, c, lnp, dcn, dhn = ln_inputs(g, r, cdim, dev)
         for dt in ("float32", "bfloat16"):
             zz, cc, d1, d2 = (x.to(getattr(torch, dt)) for x in (z, c, dcn, dhn))
             e = compare("K2 backward", K.fused_ln_gate_backward(zz, cc, lnp, d1, d2),
@@ -328,21 +426,26 @@ def backward_phase(dev) -> list:
             if dt == "float32" and (cdim, r) in train_shapes:
                 err32 = max(err32, e)
         if (cdim, r) in train_shapes:
-            per_width[cdim] = (cuda_ms(lambda: K.fused_ln_gate_backward(z, c, lnp, dcn, dhn), iters=20),
-                               plain_backward_ms(K.fused_ln_gate_reference, (z, c, lnp), (dcn, dhn)))
-            print(f"K2 backward time per call C={cdim} R={r}, fp32: kernel {per_width[cdim][0]:.4f} ms, "
-                  f"plain {per_width[cdim][1]:.4f} ms")
-    ms = sum(per_width[cdim][0] for cdim, _ in LN_GATE_STEP)
-    plain_ms = sum(per_width[cdim][1] for cdim, _ in LN_GATE_STEP)
-    print(f"K2 backward time per generator step (6 calls), fp32, batch {b2}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    results.append(dict(
+            run = lambda: K.fused_ln_gate_backward(z, c, lnp, dcn, dhn)  # noqa: E731
+            first, second = run(), run()
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"K2 backward at R={r} C={cdim} is not deterministic")
+            per_width[cdim] = (cuda_ms(run, iters=20),
+                               plain_backward_ms(K.fused_ln_gate_reference, (z, c, lnp), (dcn, dhn)),
+                               device_ms(run, "K2"))
+            print(f"K2 backward per call C={cdim} R={r}, fp32: device {per_width[cdim][2]:.4f} ms (bound "
+                  f"{RL.bound_ms(*RL.ln_gate_backward([(r, cdim)])):.4f} ms); host-paced kernel "
+                  f"{per_width[cdim][0]:.4f} ms, plain {per_width[cdim][1]:.4f} ms; bitwise equal twice")
+    ms, plain_ms, dms = (sum(per_width[cdim][j] for cdim, _ in RL.LN_GATE_STEP) for j in range(3))
+    entry = dict(
         name="fused_ln_gate_backward", route="cuda", source="video_prediction_torch/kernels/csrc/ln_gate.cu",
         replaces="video_prediction_tpu/ops/pallas_kernels.py:145",
         shapes=f"R={', '.join(str(r) for _, r in sorted(train_shapes))} at "
                f"C={', '.join(str(c) for c, _ in sorted(train_shapes))}, 6 calls a step",
-        max_abs_err=err32, ms=ms, plain_ms=plain_ms,
-    ))
+        max_abs_err=err32, ms=ms, plain_ms=plain_ms, device_ms=dms, library_ms=None,
+    )
+    results.append(roofline(entry, RL.ln_gate_backward(RL.ln_gate_step(b2))))
+    print(timing_line(f"K2 backward per generator step (6 calls), fp32, batch {b2}", entry))
 
     # K3 backward ---------------------------------------------------------
     def composite_image(a, m):
@@ -358,14 +461,15 @@ def backward_phase(dev) -> list:
             if dt == "float32" and b == b2:
                 err32 = e
     cand, logits, grad = rand(b2, 7, 64, 64, 3), randn(b2, 64, 64, 7) * 3.0, randn(b2, 64, 64, 3)
-    ms = cuda_ms(lambda: K.composite_backward(cand, logits, grad))
-    plain_ms = plain_backward_ms(composite_image, (cand, logits), (grad,))
-    print(f"K3 backward time per call (1 call per step), fp32, batch {b2}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results.append(dict(
+    entry = dict(
         name="composite_backward", route="cuda", source="video_prediction_torch/kernels/csrc/composite.cu",
         replaces="video_prediction_tpu/ops/pallas_kernels.py:198", shapes=f"[{b2},7,64,64,3], [{b2},64,64,7]",
-        max_abs_err=err32, ms=ms, plain_ms=plain_ms,
-    ))
+        max_abs_err=err32, ms=cuda_ms(lambda: K.composite_backward(cand, logits, grad)),
+        plain_ms=plain_backward_ms(composite_image, (cand, logits), (grad,)),
+        device_ms=device_ms(lambda: K.composite_backward(cand, logits, grad), "K3"), library_ms=None,
+    )
+    results.append(roofline(entry, RL.composite_backward(b2, 7)))
+    print(timing_line(f"K3 backward per call (1 call per step), fp32, batch {b2}", entry))
     return results
 
 
@@ -460,6 +564,21 @@ def timing_phase(gpu_model, dev, ident: str) -> None:
                   f"{frames / ms * 1e3:.0f} generated frames/s [{ident}]")
 
 
+def ptxas_phase(report) -> None:
+    """Phase 2, after the build: registers and spills of every kernel
+    instantiation, from ptxas's report; the kernels rebuilt for Hopper (K1's)
+    must not spill."""
+    check(bool(report), "ptxas reported no kernels")
+    for name, regs, spill_st, spill_ld in report:
+        print(f"ptxas: {regs:3d} registers, spills {spill_st}/{spill_ld} bytes (stores/loads): {name[:150]}")
+    rebuilt = [r for r in report if "cdna_" in r[0]]
+    check(bool(rebuilt), "no K1 kernels in ptxas's report")
+    spilling = [r for r in rebuilt if r[2] or r[3]]
+    check(not spilling, f"K1 kernels spill: {spilling}")
+    print(f"ptxas: {len(report)} kernels; the {len(rebuilt)} of K1 spill nothing, at most "
+          f"{max(r[1] for r in rebuilt)} registers")
+
+
 def train_phase(init_seed: int = 0) -> dict:
     """Phase 8: ``python -m video_prediction_torch.train``'s ``main`` at full
     width, batch 16: 3 steps, then ``--resume`` for a 4th; returns the
@@ -488,10 +607,10 @@ def train_phase(init_seed: int = 0) -> dict:
     check(first["all_finite"] and resumed["all_finite"], "train produced non-finite losses")
     check((first["start_step"], first["step"]) == (0, 3), f"unexpected first run {first}")
     check((resumed["start_step"], resumed["step"]) == (3, 4), f"the resumed run did not continue at step 3: {resumed}")
-    steps = 4  # one doubled-batch rollout and its backward per step
-    want = {k: n * steps for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    # one doubled-batch rollout and its backward per step
+    want = {k: n * TRAIN_STEPS for k, n in LAUNCHES_PER_ROLLOUT.items()}
     want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
-    check(launches == want, f"kernel launches {launches}, want {want} ({steps} train steps)")
+    check(launches == want, f"kernel launches {launches}, want {want} ({TRAIN_STEPS} train steps)")
 
     from video_prediction_torch.models import get_model_class
 
@@ -848,15 +967,18 @@ def main() -> int:
         t0 = time.perf_counter()
         _lib.load_library()
         print(f"build: {time.perf_counter() - t0:.2f} s -> {_lib.library_path().relative_to(ROOT)}")
+        ptxas_phase(_lib.ptxas_report())
 
         # 3. forward kernels against their plain versions, at the generation
         # and at the train step's shapes
         generation = kernel_phase(dev, BATCH)
         kernel_results = kernel_phase(dev, 2 * TRAIN_BATCH)
         evaluation = kernel_phase(dev, EVAL_BATCH, composite_ks=(7, 6))
+        timed = ("shapes", "max_abs_err", "ms", "plain_ms", "device_ms", "bytes", "bound_ms", "share_of_bound",
+                 "library_ms")
         for entry, gen, ev in zip(kernel_results, generation, evaluation):
-            entry["generation"] = {k: gen[k] for k in ("shapes", "max_abs_err", "ms", "plain_ms")}
-            entry["evaluate"] = {k: ev[k] for k in ("shapes", "max_abs_err", "ms", "plain_ms")}
+            entry["generation"] = {k: gen[k] for k in timed}
+            entry["evaluate"] = {k: ev[k] for k in timed}
         torch.cuda.synchronize()
 
         # 4. backward kernels against autograd of their plain versions
@@ -878,6 +1000,8 @@ def main() -> int:
         launches = train_phase()
         for entry in kernel_results:
             entry["launches"] = launches[entry["name"]]
+            entry["launches_per_train_step"] = launches[entry["name"]] // TRAIN_STEPS
+            entry["launches_per_rollout"] = LAUNCHES_PER_ROLLOUT.get(entry["name"], 0)  # no-grad: no backward
 
         # 9. GPU train step (kernels) against CPU train step (plain versions)
         train_cpu_vs_gpu_phase(dev)
@@ -906,6 +1030,10 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
+    from video_prediction_torch.kernels.bench import REPEATS
+
+    print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
+          f"none was whole): {json.dumps(REPEATS)}")
     print(ident)
     print(json.dumps({"kernels": kernel_results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -160,6 +160,60 @@ def test_cdna_backward(dev, dtype, shape):
     _close_reduction(d_kernels, ref_kernels)
 
 
+# K1's dispatch: the flagship instantiation (C=3, 5x5, N=4; 4 x positions a
+# thread) at one sample (tiles of few rows), at ragged H and W (a partial last
+# tile and a partial last run of 4 x), at the train step's batch; and the
+# run-time instantiation at another N, C and kernel size
+CDNA_BRANCHES = [(1, 64, 64, 3, 5, 4), (5, 37, 30, 3, 5, 4), (32, 64, 64, 3, 5, 4), (2, 64, 64, 3, 5, 3),
+                 (2, 16, 16, 4, 5, 4), (2, 9, 11, 3, 3, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CDNA_BRANCHES)
+def test_cdna_dispatch_branches(dev, dtype, shape):
+    b, h, w, c, k, n = shape
+    g = torch.Generator(device=dev).manual_seed(b * h)
+    image = torch.rand(b, h, w, c, device=dev, generator=g).to(dtype)
+    kernels = torch.softmax(torch.randn(b, k * k, n, device=dev, generator=g), 1).reshape(b, k, k, n)
+    grad = torch.randn(b, n, h, w, c, device=dev, generator=g).to(dtype)
+    _close(K.apply_cdna_kernels(image, kernels), K.apply_cdna_kernels_reference(image, kernels), dtype)
+    d_image, d_kernels = K.apply_cdna_kernels_backward(image, kernels, grad)
+    ref_image, ref_kernels = _plain_grads(K.apply_cdna_kernels_reference, (image, kernels), (grad,))
+    _close(d_image, ref_image, dtype)
+    _close_reduction(d_kernels, ref_kernels)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cdna_unaligned_image(dev, dtype):
+    """A contiguous image that starts 1 element past a 16-byte boundary, and a
+    gradient likewise: both directions still match."""
+    b, h, w, c = 3, 64, 64, 3
+    g = torch.Generator(device=dev).manual_seed(11)
+    big = torch.rand(b * h * w * c + 1, device=dev, generator=g).to(dtype)
+    image = big[1:].view(b, h, w, c)
+    big_grad = torch.randn(b * 4 * h * w * c + 1, device=dev, generator=g).to(dtype)
+    grad = big_grad[1:].view(b, 4, h, w, c)
+    assert image.is_contiguous() and image.data_ptr() % 16 != 0
+    kernels = torch.softmax(torch.randn(b, 25, 4, device=dev, generator=g), 1).reshape(b, 5, 5, 4)
+    _close(K.apply_cdna_kernels(image, kernels), K.apply_cdna_kernels_reference(image, kernels), dtype)
+    d_image, d_kernels = K.apply_cdna_kernels_backward(image, kernels, grad)
+    ref_image, ref_kernels = _plain_grads(K.apply_cdna_kernels_reference, (image, kernels), (grad,))
+    _close(d_image, ref_image, dtype)
+    _close_reduction(d_kernels, ref_kernels)
+
+
+def test_cdna_backward_is_bitwise_deterministic(dev):
+    """d kernels is a two-pass reduction in a fixed order: two runs at the
+    train step's shapes give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    image = torch.rand(32, 64, 64, 3, device=dev, generator=g)
+    kernels = torch.softmax(torch.randn(32, 25, 4, device=dev, generator=g), 1).reshape(32, 5, 5, 4)
+    grad = torch.randn(32, 4, 64, 64, 3, device=dev, generator=g)
+    first = K.apply_cdna_kernels_backward(image, kernels, grad)
+    second = K.apply_cdna_kernels_backward(image, kernels, grad)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cdim,rows", [(8, 77), (32, 5000), (40, 77), (64, 77), (128, 2048), (256, 77), (300, 77),
                                        (512, 300)])

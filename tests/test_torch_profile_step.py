@@ -37,6 +37,10 @@ def test_union_ms(intervals, want_us):
 def test_kernel_groups():
     assert group_of("void cdna_backward_kernel<float>(float const*, float const*)") == "K1"
     assert group_of("cdna_kernel_grad_reduce(float const*, float*, int)") == "K1"
+    # the instantiations on C, kernel size and N, as the profiler names them
+    assert group_of("void (anonymous namespace)::cdna_forward_kernel<float, 3, 5, 4>(float const*, ...)") == "K1"
+    assert group_of("void (anonymous namespace)::cdna_backward_kernel<__nv_bfloat16, 0, 0, 0>(...)") == "K1"
+    assert group_of("(anonymous namespace)::cdna_kernel_grad_reduce(float const*, float*, int, int, int)") == "K1"
     assert group_of("ln_grad_reduce(float const*, float*, int, int)") == "K2"
     assert group_of("void ln_gate_forward_kernel<__nv_bfloat16>(...)") == "K2"
     assert group_of("void composite_backward_kernel<float>(...)") == "K3"

@@ -1,11 +1,14 @@
 """Build and bind the port's CUDA kernels.
 
-All kernels live in ``csrc/*.cu``. At first use on a CUDA tensor they are
-compiled by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, under ``build/torch_kernels/`` at the repository root, and loaded
-with ``ctypes``. The library's name carries a hash of the sources and flags,
-so an edited source is rebuilt and a stale library is never loaded. Nothing
-here runs at import time: the CPU-only tests import every module.
+All kernels live in ``csrc/*.cu``. At first use on a CUDA tensor each source
+is compiled by its own ``nvcc`` for ``sm_90a``, all started together, and the
+objects are linked into one shared library with a plain C interface, under
+``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
+``ptxas``'s report (registers, shared memory, spills of every kernel
+instantiation) is kept beside the library and read by ``ptxas_report``. The
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing here runs at import
+time: the CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # dtype codes shared with csrc/common.cuh
@@ -38,8 +41,8 @@ _SIGNATURES = {
     "vp_cdna_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vp_ln_gate_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
     "vp_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "vp_cdna_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vp_cdna_backward_tiles": [_I, _I, _I, _I, _I, _I],
+    "vp_cdna_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vp_cdna_backward_tiles": [_I, _I, _I, _I, _I, _I, _I, _I],
     "vp_ln_gate_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P],
     "vp_ln_gate_backward_blocks": [_I, _I],
     "vp_composite_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -62,23 +65,63 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvp_kernels_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_log_path() -> Path:
+    return library_path().with_suffix(".ptxas.txt")
+
+
 def _compile(target: Path) -> None:
-    """nvcc all ``csrc/*.cu`` into ``target``."""
+    """nvcc each ``csrc/*.cu`` into an object, all at once, then link them
+    into ``target``; keep ptxas's report beside it."""
     target.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True, text=True, check=False,
-        )
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for src, obj in zip(sources, objs)]
+        logs, failed = [], []
+        for src, proc in zip(sources, procs):
+            out, err = proc.communicate()
+            logs.append(f"# {src.name}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([_nvcc(), "-shared", "-o", lib, *objs], capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, target)  # atomic: a concurrent loader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        Path(tmp, "ptxas.txt").write_text("\n".join(logs))
+        os.replace(Path(tmp, "ptxas.txt"), ptxas_log_path())
+        os.replace(lib, target)  # atomic: a concurrent loader never sees a partial file
+
+
+def ptxas_report() -> list:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` of every
+    kernel instantiation in the built library, from ptxas's report; names
+    demangled with ``cu++filt`` where the toolkit has it."""
+    import re
+
+    rows, current, spills = [], None, (0, 0)
+    for line in ptxas_log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            rows.append((current, int(m.group(1)), *spills))
+            current = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows), capture_output=True, text=True,
+                             check=False).stdout.splitlines()
+        if len(out) == len(rows):
+            rows = [(name, *r[1:]) for name, r in zip(out, rows)]
+    return rows
 
 
 @functools.lru_cache(maxsize=None)

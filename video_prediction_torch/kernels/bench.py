@@ -1,0 +1,170 @@
+"""Device time of the port's six kernels at the shapes of the main paths.
+
+    python3 video_prediction_torch/kernels/bench.py [--root DIR] [--iters 20]
+
+``device_ms`` is what ``chip_smoke.py`` reports as a kernel's device time:
+the summed durations of the kernel's own device events (grouped as
+``train/profile_step.py`` groups them: K1, K2, K3, each with its reduce
+kernel) over ``iters`` calls recorded by ``torch.profiler`` with device
+activity only, after warm-up, divided by ``iters``. It is not paced by the
+host, unlike CUDA events around back-to-back Python calls. A profiler
+session that lost device records is run again (``device_ms``).
+
+Run as a script it times every kernel, forward at batch 8, 32 and 64 and
+backward at 32 (K2 per generator step of six calls), and prints one JSON
+object. ``--root`` imports the kernels from another checkout of the
+repository whose wrappers take the same arguments (the kernels of an
+earlier commit, for a comparison inside one run). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Callable, Dict, Optional
+
+import torch
+
+# (C, px) of the six K2 calls of one generator step (ngf=32, 64x64), as in
+# roofline.py; a copy, so that the script also times a checkout without it
+LN_GATE_STEP = ((64, 32), (128, 16), (256, 8), (128, 16), (64, 32), (32, 64))
+# the sleep that holds the stream while the host queues ``queued_ms``'s calls:
+# about 25 ms at the H100's 1.98 GHz, far longer than queuing 20 calls takes
+QUEUE_CYCLES = 50_000_000
+# the ``device_ms`` calls whose first profiler session lost device records:
+# each session's event count, and ``queued_ms``'s time where none was whole
+REPEATS: list = []
+
+
+def profiled_events(fn: Callable[[], object], group: Optional[str], iters: int) -> list:
+    """(start, end) in us of the device events of profile group ``group``
+    (every device event if None) in one profiler session of ``iters`` calls."""
+    from video_prediction_torch.train.profile_step import group_of
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type != torch.autograd.DeviceType.CPU and not getattr(e, "is_user_annotation", False)
+            and (group is None or group_of(e.name) == group)]
+
+
+def queued_ms(fn: Callable[[], object], iters: int) -> float:
+    """Device ms per call of ``fn`` from CUDA events around ``iters`` calls
+    queued behind a sleep kernel, so that the host's pace does not enter: all
+    of ``fn``'s device work, and the gaps between its kernels."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn: Callable[[], object], group: Optional[str] = None, iters: int = 20, warmup: int = 3,
+              sessions: int = 5) -> float:
+    """Mean device time per call of ``fn`` in ms: the durations of its device
+    events of profile group ``group`` (every device event if None).
+
+    ``fn`` launches as many events of the group in every call, so a session
+    holds a positive multiple of ``iters`` of them. Now and then a session
+    comes back without some or all of its device records (seen on an H100
+    with torch 2.11: none of 20 K3 launches), which would read as a failure
+    or as too short a time; such a session is run again, up to ``sessions``
+    sessions in all. If none is whole, the time is ``queued_ms``'s instead.
+    ``REPEATS`` records both."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(sessions):
+        events = profiled_events(fn, group, iters)
+        counts.append(len(events))
+        if events and len(events) % iters == 0:
+            if len(counts) > 1:
+                REPEATS.append({"group": group, "event_counts": counts})
+            return sum(end - start for start, end in events) / 1e3 / iters
+    ms = queued_ms(fn, iters)
+    REPEATS.append({"group": group, "event_counts": counts, "queued_ms": ms})
+    print(f"device_ms: the profiler recorded {counts} device events of group {group} in {sessions} sessions of "
+          f"{iters} calls; timed by CUDA events behind a queued sleep instead: {ms:.4f} ms", file=sys.stderr)
+    return ms
+
+
+def ln_inputs(gen: torch.Generator, rows: int, cdim: int, dev):
+    """z [R,4C], c [R,C], ln_params [10,C] (scale, bias per LayerNorm) and two
+    upstream gradients [R,C], fp32, as ``chip_smoke.py`` makes them."""
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)  # noqa: E731
+    lnp = torch.cat([1.0 + 0.1 * randn(5, cdim), 0.1 * randn(5, cdim)], dim=0)
+    lnp = lnp.reshape(2, 5, cdim).transpose(0, 1).reshape(10, cdim).contiguous()
+    return randn(rows, 4 * cdim) * 2.0, randn(rows, cdim), lnp, randn(rows, cdim), randn(rows, cdim)
+
+
+def ln_gate_step_ms(fn, batch: int, dev, iters: int) -> float:
+    """Device ms of one generator step's six K2 calls of ``fn(z, c, lnp, dc', dh)``."""
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    per_width = {}
+    for cdim, px in sorted(set(LN_GATE_STEP)):
+        z, c, lnp, dcn, dhn = ln_inputs(gen, batch * px * px, cdim, dev)
+        per_width[cdim] = device_ms(lambda: fn(z, c, lnp, dcn, dhn), "K2", iters=iters)
+    return sum(per_width[cdim] for cdim, _ in LN_GATE_STEP)
+
+
+def all_kernels(dev, iters: int = 20) -> Dict[str, Dict[str, float]]:
+    """Device ms of the six kernels: forward at batch 8, 32 and 64, backward at 32."""
+    from video_prediction_torch import kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out: Dict[str, Dict[str, float]] = {name: {} for name in K.WRAPPERS}
+    for batch in (8, 32, 64):
+        image = torch.rand(batch, 64, 64, 3, generator=gen, device=dev)
+        kern = torch.softmax(torch.randn(batch, 25, 4, generator=gen, device=dev), 1).reshape(batch, 5, 5, 4)
+        cand = torch.rand(batch, 7, 64, 64, 3, generator=gen, device=dev)
+        logits = torch.randn(batch, 64, 64, 7, generator=gen, device=dev) * 3.0
+        out["apply_cdna_kernels"][f"batch {batch}"] = device_ms(lambda: K.apply_cdna_kernels(image, kern), "K1",
+                                                                iters=iters)
+        out["fused_ln_gate"][f"batch {batch}"] = ln_gate_step_ms(
+            lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp), batch, dev, iters)
+        out["composite"][f"batch {batch}"] = device_ms(lambda: K.composite(cand, logits), "K3", iters=iters)
+        if batch == 32:
+            grad = torch.randn(batch, 4, 64, 64, 3, generator=gen, device=dev)
+            out["apply_cdna_kernels_backward"]["batch 32"] = device_ms(
+                lambda: K.apply_cdna_kernels_backward(image, kern, grad), "K1", iters=iters)
+            out["fused_ln_gate_backward"]["batch 32"] = ln_gate_step_ms(K.fused_ln_gate_backward, batch, dev, iters)
+            g3 = torch.randn(batch, 64, 64, 3, generator=gen, device=dev)
+            out["composite_backward"]["batch 32"] = device_ms(lambda: K.composite_backward(cand, logits, g3), "K3",
+                                                              iters=iters)
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                   help="checkout whose video_prediction_torch to time (default: this one)")
+    p.add_argument("--iters", type=int, default=20)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("bench: needs a CUDA device", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import video_prediction_torch
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(video_prediction_torch.__file__))) != root:
+        print(f"bench: imported {video_prediction_torch.__file__}, not from {root}", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    result = {"root": root, "device": torch.cuda.get_device_name(0), "device_ms": all_kernels(dev, args.iters),
+              "repeats": REPEATS}
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -75,14 +75,14 @@ def apply_cdna_kernels_backward(
     _lib.require(tuple(grad.shape) == (b, n, h, w, c), f"grad {tuple(grad.shape)} is not [B,N,H,W,C]")
     _lib.require(grad.dtype == image.dtype, f"grad ({grad.dtype}) and image ({image.dtype}) must share a dtype")
     _lib.require(grad.is_contiguous(), "grad must be contiguous")
-    tiles = _lib.query("vp_cdna_backward_tiles", h, w, c, kh, kw, n)
+    tiles = _lib.query("vp_cdna_backward_tiles", b, h, w, c, kh, kw, n, image.device.index)
     _lib.require(tiles > 0, f"one image row of [{h},{w},{c}] with N={n} does not fit the kernel's shared memory")
     d_image = torch.empty_like(image)
     d_kernels = torch.empty_like(kernels)
     partial = torch.empty((b, tiles, kh * kw * n), dtype=torch.float32, device=image.device)
     _lib.launch(
         "vp_cdna_backward", image.data_ptr(), kernels.data_ptr(), grad.data_ptr(), d_image.data_ptr(),
-        d_kernels.data_ptr(), partial.data_ptr(), b, h, w, c, kh, kw, n, _lib.dtype_code(image),
+        d_kernels.data_ptr(), partial.data_ptr(), b, h, w, c, kh, kw, n, tiles, _lib.dtype_code(image),
         device=image.device,
     )
     apply_cdna_kernels_backward.launches += 1
