@@ -9,17 +9,20 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 1. report the device (name and power limit from ``nvidia-smi``);
 2. build the CUDA kernels from ``video_prediction_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print ptxas's registers and spills
-   of every kernel instantiation; K1's must not spill;
+   of every kernel instantiation; K1's and K2's must not spill;
 3. compare each forward kernel with its plain PyTorch version on the card,
    at the shapes of the generation rollout (batch 8), of the train step's
    rollout (the doubled batch 2 x 16) and of the evaluate rollout (8
    examples x 8 samples = 64; K3 also at SV2P's 6 candidates), fp32 and
    bf16, and time it; K1 also against its library yardstick, one grouped
-   ``F.conv2d`` (TF32 off), checked equal to K1 before it is timed;
+   ``F.conv2d`` (TF32 off), checked equal to K1 before it is timed; K2 also
+   at C = 8, 40 and 300 and on views that start one element past a 16-byte
+   boundary (its run-time instantiation), and twice to equal bits;
 4. compare each backward kernel with autograd of its plain version, at the
    training step's shapes (the doubled batch 2 x 16) and at odd shapes, fp32
-   and bf16, and time it (K1 against one ``convolution_backward`` of the
-   grouped conv, checked first; K1 and K2 run twice to equal bits);
+   and bf16 (K2 also on unaligned views), and time it (K1 against one
+   ``convolution_backward`` of the grouped conv, checked first; K1 and K2
+   run twice to equal bits);
 5. drive ``video_prediction_torch.generate`` at the full ``ours_savp`` width
    (64x64, ngf=32, nz=8) from a run directory with seeded random weights, and
    check GIFs, finite outputs and the kernel launch counts per rollout;
@@ -218,6 +221,16 @@ def max_err(out, ref, dtype_name: str):
     return float(diff.max()), ok
 
 
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts one element past a 16-byte
+    boundary (a view with storage offset 1)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0, "could not make an unaligned view")
+    return view
+
+
 def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
     """Phase 3: every forward kernel against its plain version, fp32 and
     bf16, at the shapes a rollout at ``batch`` gives it (K3 with each
@@ -263,19 +276,27 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
     # K2 ------------------------------------------------------------------
     errs = {"float32": 0.0, "bfloat16": 0.0}
     per_width = {}
-    for cdim, px in sorted(set(RL.LN_GATE_STEP)):
-        r = batch * px * px
+    step_shapes = [(cdim, batch * px * px) for cdim, px in sorted(set(RL.LN_GATE_STEP))]
+    for cdim, r in step_shapes + [(8, 77), (40, 77), (300, 1000)]:
         z, c, lnp, _, _ = ln_inputs(g, r, cdim, dev)
         for dt in ("float32", "bfloat16"):
             zz, cc = z.to(getattr(torch, dt)), c.to(getattr(torch, dt))
-            out = K.fused_ln_gate(zz, cc, lnp)
-            ref = K.fused_ln_gate_reference(zz, cc, lnp)
-            check(out[0].dtype == cc.dtype and out[1].dtype == cc.dtype, "K2 output dtype must follow c")
-            e0, ok0 = max_err(out[0], ref[0], dt)
-            e1, ok1 = max_err(out[1], ref[1], dt)
-            print(f"K2 fused_ln_gate {dt} R={r} C={cdim}: max_abs_err c {e0:.3g} h {e1:.3g} (tol {TOL[dt]})")
-            check(ok0 and ok1, f"K2 {dt} C={cdim} disagrees with its plain version: {e0}, {e1}")
-            errs[dt] = max(errs[dt], e0, e1)
+            for label, (za, ca) in (("", (zz, cc)), (", unaligned", (unaligned(zz), unaligned(cc)))):
+                out = K.fused_ln_gate(za, ca, lnp)
+                ref = K.fused_ln_gate_reference(za, ca, lnp)
+                check(out[0].dtype == cc.dtype and out[1].dtype == cc.dtype, "K2 output dtype must follow c")
+                again = K.fused_ln_gate(za, ca, lnp)
+                check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                      f"K2 {dt} C={cdim}{label} is not deterministic")
+                e0, ok0 = max_err(out[0], ref[0], dt)
+                e1, ok1 = max_err(out[1], ref[1], dt)
+                print(f"K2 fused_ln_gate {dt} R={r} C={cdim}{label}: max_abs_err c {e0:.3g} h {e1:.3g} "
+                      f"(tol {TOL[dt]}); bitwise equal twice")
+                check(ok0 and ok1, f"K2 {dt} C={cdim}{label} disagrees with its plain version: {e0}, {e1}")
+                if (cdim, r) in step_shapes and not label:
+                    errs[dt] = max(errs[dt], e0, e1)
+        if (cdim, r) not in step_shapes:
+            continue
         per_width[cdim] = (
             cuda_ms(lambda: K.fused_ln_gate(z, c, lnp)),
             cuda_ms(lambda: K.fused_ln_gate_reference(z, c, lnp)),
@@ -416,15 +437,18 @@ def backward_phase(dev) -> list:
     # K2 backward ---------------------------------------------------------
     err32, per_width = 0.0, {}
     train_shapes = {(cdim, b2 * px * px) for cdim, px in RL.LN_GATE_STEP}
-    for cdim, r in sorted(train_shapes) + [(40, 77), (300, 1000)]:
+    for cdim, r in sorted(train_shapes) + [(8, 77), (40, 77), (300, 1000)]:
         z, c, lnp, dcn, dhn = ln_inputs(g, r, cdim, dev)
         for dt in ("float32", "bfloat16"):
             zz, cc, d1, d2 = (x.to(getattr(torch, dt)) for x in (z, c, dcn, dhn))
-            e = compare("K2 backward", K.fused_ln_gate_backward(zz, cc, lnp, d1, d2),
-                        plain_grads(K.fused_ln_gate_reference, (zz, cc, lnp), (d1, d2)), ("elem", "elem", "sum"),
+            ref = plain_grads(K.fused_ln_gate_reference, (zz, cc, lnp), (d1, d2))
+            e = compare("K2 backward", K.fused_ln_gate_backward(zz, cc, lnp, d1, d2), ref, ("elem", "elem", "sum"),
                         dt, f"R={r} C={cdim}")
             if dt == "float32" and (cdim, r) in train_shapes:
                 err32 = max(err32, e)
+            views = [unaligned(x) for x in (zz, cc, d1, d2)]
+            compare("K2 backward", K.fused_ln_gate_backward(views[0], views[1], lnp, *views[2:]), ref,
+                    ("elem", "elem", "sum"), dt, f"R={r} C={cdim}, unaligned")
         if (cdim, r) in train_shapes:
             run = lambda: K.fused_ln_gate_backward(z, c, lnp, dcn, dhn)  # noqa: E731
             first, second = run(), run()
@@ -566,17 +590,19 @@ def timing_phase(gpu_model, dev, ident: str) -> None:
 
 def ptxas_phase(report) -> None:
     """Phase 2, after the build: registers and spills of every kernel
-    instantiation, from ptxas's report; the kernels rebuilt for Hopper (K1's)
-    must not spill."""
+    instantiation, from ptxas's report; the kernels rebuilt for Hopper (K1's
+    and K2's) must not spill."""
     check(bool(report), "ptxas reported no kernels")
     for name, regs, spill_st, spill_ld in report:
         print(f"ptxas: {regs:3d} registers, spills {spill_st}/{spill_ld} bytes (stores/loads): {name[:150]}")
-    rebuilt = [r for r in report if "cdna_" in r[0]]
-    check(bool(rebuilt), "no K1 kernels in ptxas's report")
-    spilling = [r for r in rebuilt if r[2] or r[3]]
-    check(not spilling, f"K1 kernels spill: {spilling}")
-    print(f"ptxas: {len(report)} kernels; the {len(rebuilt)} of K1 spill nothing, at most "
-          f"{max(r[1] for r in rebuilt)} registers")
+    for group, stem in (("K1", "cdna_"), ("K2", "ln_gate_")):  # mangled or demangled names
+        rebuilt = [r for r in report if stem in r[0]]
+        check(bool(rebuilt), f"no {group} kernels in ptxas's report")
+        spilling = [r for r in rebuilt if r[2] or r[3]]
+        check(not spilling, f"{group} kernels spill: {spilling}")
+        print(f"ptxas: the {len(rebuilt)} {group} kernels spill nothing, at most {max(r[1] for r in rebuilt)} "
+              f"registers ({', '.join(f'{r[1]}' for r in rebuilt)})")
+    print(f"ptxas: {len(report)} kernels")
 
 
 def train_phase(init_seed: int = 0) -> dict:

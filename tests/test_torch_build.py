@@ -5,6 +5,10 @@ instantiation; the device-time script (``kernels/bench.py``) refuses to run
 without a card, runs a profiler session again that lost device records, and
 makes K2's inputs as ``chip_smoke.py`` uses them."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -23,10 +27,23 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_120cdna_backward_kernelI
     40 bytes stack frame, 36 bytes spill stores, 32 bytes spill loads
 ptxas info    : Used 48 registers, 8 bytes smem, 432 bytes cmem[0]
 # ln_gate.cu
-ptxas info    : Compiling entry function '_Z14ln_grad_reducePKfPfii' for 'sm_90a'
-ptxas info    : Function properties for _Z14ln_grad_reducePKfPfii
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc522ln_gate_forward_kernelIfLi256ELi8EEEvNS_4ArgsIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc522ln_gate_forward_kernelIfLi256ELi8EEEvNS_4ArgsIT_EE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 12 registers, 376 bytes cmem[0]
+ptxas info    : Used 74 registers, used 1 barriers
+ptxas info    : Compile time = 279.550 ms
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc523ln_gate_backward_kernelIfLi32ELi4EEEvNS_4ArgsIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc523ln_gate_backward_kernelIfLi32ELi4EEEvNS_4ArgsIT_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 94 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc523ln_gate_backward_kernelI13__nv_bfloat16Li0ELi16EEEvNS_4ArgsIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc523ln_gate_backward_kernelI13__nv_bfloat16Li0ELi16EEEvNS_4ArgsIT_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 205 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc519ln_gate_grad_reduceEPKfPfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc519ln_gate_grad_reduceEPKfPfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 1 barriers, 2048 bytes smem
 """
 
 
@@ -35,9 +52,11 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     log.write_text(PTXAS_LOG)
     monkeypatch.setattr(_lib, "ptxas_log_path", lambda: log)
     rows = _lib.ptxas_report()
-    assert [r[1:] for r in rows] == [(111, 0, 0), (48, 36, 32), (12, 0, 0)]
+    assert [r[1:] for r in rows] == [(111, 0, 0), (48, 36, 32), (74, 0, 0), (94, 0, 0), (205, 0, 0), (24, 0, 0)]
     assert "cdna_forward_kernel" in rows[0][0] and "cdna_backward_kernel" in rows[1][0]
-    assert "ln_grad_reduce" in rows[2][0]  # mangled, or demangled where the toolkit has cu++filt
+    # mangled, or demangled where the toolkit has cu++filt
+    assert "ln_gate_forward_kernel" in rows[2][0] and all("ln_gate_backward_kernel" in r[0] for r in rows[3:5])
+    assert "ln_gate_grad_reduce" in rows[5][0]
 
 
 @pytest.mark.parametrize("flag", ["-lineinfo", "-DVP_TEST"])
@@ -85,3 +104,60 @@ def test_ln_inputs():
     assert z.shape == (7, 48) and lnp.shape == (10, 12) and lnp.is_contiguous()
     assert c.shape == dcn.shape == dhn.shape == (7, 12)
     assert float((lnp[0::2] - 1.0).abs().max()) < 1.0 and float(lnp[1::2].abs().max()) < 1.0  # scales near 1, biases near 0
+
+
+def test_ln_gate_step_ms_counts_each_width_as_often_as_a_step_calls_it():
+    """A generator step calls C=64 and C=128 twice, C=32 and C=256 once."""
+    assert bench.ln_gate_step_ms({32: 1.0, 64: 10.0, 128: 100.0, 256: 1000.0}) == pytest.approx(1221.0)
+
+
+@pytest.mark.parametrize("counts, want", [
+    ([40], {"row": 0.003, "reduce": 0.001}),  # 20 calls, each a 3 us row kernel and a 1 us reduce
+    ([0, 39, 40], {"row": 0.003, "reduce": 0.001}),  # sessions that lost records are run again
+    ([0] * 5, None),  # none whole
+])
+def test_device_ms_by_kernel_splits_a_whole_session_by_name(monkeypatch, counts, want):
+    sessions = []
+
+    def events(fn, group, iters):
+        sessions.append(group)
+        n = counts[len(sessions) - 1]
+        return [("row", 10.0 * i, 10.0 * i + 3.0) if i % 2 == 0 else ("reduce", 10.0 * i, 10.0 * i + 1.0)
+                for i in range(n)]
+
+    monkeypatch.setattr(bench, "profiled_named_events", events)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    got = bench.device_ms_by_kernel(lambda: None, "K2", iters=20)
+    assert sessions == ["K2"] * len(counts)
+    assert got == (None if want is None else pytest.approx(want))
+
+
+def test_flushing_writes_the_buffer_before_each_call(monkeypatch):
+    monkeypatch.setattr(bench, "L2_FLUSH_BYTES", 64)
+    calls = []
+    fn = bench.flushing(lambda: calls.append(1), "cpu")
+    fn()
+    fn()
+    assert calls == [1, 1]
+
+
+
+def _exports() -> dict:
+    """name -> parameter list of every ``VP_EXPORT`` function in ``csrc/``."""
+    out = {}
+    for src in sorted((Path(_lib.__file__).parent / "csrc").glob("*.cu")):
+        for m in re.finditer(r"VP_EXPORT\s+[\w\s\*]+?\b(vp_\w+)\(([^)]*)\)", src.read_text()):
+            out[m.group(1)] = [a.strip() for a in m.group(2).split(",") if a.strip()]
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_lib._SIGNATURES))
+def test_ctypes_signature_matches_the_export(name):
+    """ctypes passes what ``_SIGNATURES`` lists and nothing else checks it
+    against the C side, so a parameter added to or removed from an export
+    must show here: same count, pointers where the C side takes pointers."""
+    params = _exports()[name]
+    want = _lib._SIGNATURES[name]
+    assert len(want) == len(params), (name, params)
+    for ctype, param in zip(want, params):
+        assert (ctype is ctypes.c_void_p) == ("*" in param), (name, param, ctype)

@@ -57,18 +57,38 @@ def test_cdna(dev, dtype, shape):
     _close(K.apply_cdna_kernels(image, kernels), K.apply_cdna_kernels_reference(image, kernels), dtype)
 
 
+def _unaligned(x):
+    """A contiguous copy of ``x`` one element past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# K2: the compile-time widths (16-byte chunks, several rows a warp below 128)
+# at a ragged last tile and at many tiles; the run-time instantiation at other
+# widths and, through ``aligned=False``, at every width
+LN_GATE_SHAPES = [(8, 77), (32, 77), (32, 5000), (40, 77), (64, 77), (64, 3001), (128, 77), (256, 77), (256, 517),
+                  (300, 77), (512, 300)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cdim", [8, 32, 40, 64, 128, 256, 300, 512])
-def test_ln_gate(dev, dtype, cdim):
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("cdim,rows", LN_GATE_SHAPES)
+def test_ln_gate(dev, dtype, aligned, cdim, rows):
     g = torch.Generator(device=dev).manual_seed(cdim)
-    z = (2.0 * torch.randn(77, 4 * cdim, device=dev, generator=g)).to(dtype)
-    c = torch.randn(77, cdim, device=dev, generator=g).to(dtype)
+    z = (2.0 * torch.randn(rows, 4 * cdim, device=dev, generator=g)).to(dtype)
+    c = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
     lnp = torch.rand(10, cdim, device=dev, generator=g) + 0.5
+    if not aligned:
+        z, c = _unaligned(z), _unaligned(c)
     out = K.fused_ln_gate(z, c, lnp, forget_bias=0.5)
     ref = K.fused_ln_gate_reference(z, c, lnp, forget_bias=0.5)
     for a, b in zip(out, ref):
         assert a.dtype == dtype
         _close(a, b, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(out, K.fused_ln_gate(z, c, lnp, forget_bias=0.5)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -215,21 +235,25 @@ def test_cdna_backward_is_bitwise_deterministic(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cdim,rows", [(8, 77), (32, 5000), (40, 77), (64, 77), (128, 2048), (256, 77), (300, 77),
-                                       (512, 300)])
-def test_ln_gate_backward(dev, dtype, cdim, rows):
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("cdim,rows", LN_GATE_SHAPES + [(128, 2048)])
+def test_ln_gate_backward(dev, dtype, aligned, cdim, rows):
     g = torch.Generator(device=dev).manual_seed(cdim)
     z = (2.0 * torch.randn(rows, 4 * cdim, device=dev, generator=g)).to(dtype)
     c = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
     lnp = torch.rand(10, cdim, device=dev, generator=g) + 0.5
     dcn = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
     dhn = torch.randn(rows, cdim, device=dev, generator=g).to(dtype)
+    if not aligned:
+        z, c, dcn, dhn = map(_unaligned, (z, c, dcn, dhn))
     dz, dc, dln = K.fused_ln_gate_backward(z, c, lnp, dcn, dhn, forget_bias=0.5)
     ref = _plain_grads(lambda a, b_, p: K.fused_ln_gate_reference(a, b_, p, 0.5), (z, c, lnp), (dcn, dhn))
     assert dz.dtype == dtype and dc.dtype == dtype and dln.dtype == torch.float32
     _close(dz, ref[0], dtype)
     _close(dc, ref[1], dtype)
     _close_reduction(dln, ref[2])
+    again = K.fused_ln_gate_backward(z, c, lnp, dcn, dhn, forget_bias=0.5)
+    assert all(torch.equal(a, b) for a, b in zip((dz, dc, dln), again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

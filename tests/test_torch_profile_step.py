@@ -1,14 +1,17 @@
 """The train-step profiler (``python -m video_prediction_torch.train.profile_step``)
 on the CPU at a small width: it runs the step, and its summary line is
-consistent (the CPU has no device events, so nothing counts as busy); and
-the interval union that gives the device's busy time."""
+consistent (the CPU has no device events, so nothing counts as busy); the
+interval union that gives the device's busy time; the groups kernel names
+fall into; and the check of a window's device events against the kernel
+wrappers' launch counts, with its reruns and its report of a shortfall."""
 
 import json
 
 import pytest
 import torch
 
-from video_prediction_torch.train.profile_step import group_of, main, union_ms
+from video_prediction_torch.train import profile_step
+from video_prediction_torch.train.profile_step import group_of, main, union_ms, whole_window, window_shortfall
 
 torch.set_num_threads(1)
 
@@ -21,6 +24,7 @@ def test_profile_step_runs_on_cpu(capsys):
     assert summary["finite"] and summary["step_ms"] > 0 and summary["window_ms"] > 0
     assert summary["busy_ms"] == 0.0 and summary["launches"] == 0 and summary["busy_share"] == 0.0
     assert sorted(summary["device_ms"]) == ["K1", "K2", "K3", "conv_gemm", "other"]
+    assert summary["windows"] == 1 and summary["shortfall"] is None
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
 
 
@@ -34,16 +38,92 @@ def test_union_ms(intervals, want_us):
     assert union_ms(intervals) == pytest.approx(want_us / 1e3)
 
 
-def test_kernel_groups():
-    assert group_of("void cdna_backward_kernel<float>(float const*, float const*)") == "K1"
-    assert group_of("cdna_kernel_grad_reduce(float const*, float*, int)") == "K1"
+# K2's kernels of csrc/ln_gate.cu as the profiler names them: forward and
+# backward, fp32 and bf16, each compile-time width with its values a lane
+# and the run-time instantiation's; and its reduce
+K2_NAMES = [
+    f"void (anonymous namespace)::ln_gate_{d}_kernel<{t}, {ct}, {vpt}>((anonymous namespace)::Args<{t}>)"
+    for d in ("forward", "backward")
+    for t, widths in (("float", ((32, 4), (64, 4), (128, 4), (256, 8))),
+                      ("__nv_bfloat16", ((32, 8), (64, 8), (128, 8), (256, 8))))
+    for ct, vpt in widths + tuple((0, v) for v in (1, 2, 4, 8, 16))
+] + ["(anonymous namespace)::ln_gate_grad_reduce(float const*, float*, int, int)"]
+
+
+@pytest.mark.parametrize("name, group", [
+    ("void cdna_backward_kernel<float>(float const*, float const*)", "K1"),
+    ("cdna_kernel_grad_reduce(float const*, float*, int)", "K1"),
     # the instantiations on C, kernel size and N, as the profiler names them
-    assert group_of("void (anonymous namespace)::cdna_forward_kernel<float, 3, 5, 4>(float const*, ...)") == "K1"
-    assert group_of("void (anonymous namespace)::cdna_backward_kernel<__nv_bfloat16, 0, 0, 0>(...)") == "K1"
-    assert group_of("(anonymous namespace)::cdna_kernel_grad_reduce(float const*, float*, int, int, int)") == "K1"
-    assert group_of("ln_grad_reduce(float const*, float*, int, int)") == "K2"
-    assert group_of("void ln_gate_forward_kernel<__nv_bfloat16>(...)") == "K2"
-    assert group_of("void composite_backward_kernel<float>(...)") == "K3"
-    assert group_of("sm90_xmma_fprop_implicit_gemm_tf32f32") == "conv_gemm"
-    assert group_of("void pointwise_mult_and_sum_complex<float2, 8, 4>(...)") == "conv_gemm"  # cuDNN's FFT convs
-    assert group_of("void at::native::vectorized_elementwise_kernel<4>") == "other"
+    ("void (anonymous namespace)::cdna_forward_kernel<float, 3, 5, 4>(float const*, ...)", "K1"),
+    ("void (anonymous namespace)::cdna_backward_kernel<__nv_bfloat16, 0, 0, 0>(...)", "K1"),
+    ("(anonymous namespace)::cdna_kernel_grad_reduce(float const*, float*, int, int, int)", "K1"),
+    # the earlier K2 kernels' names, so that an earlier checkout is grouped alike
+    ("ln_grad_reduce(float const*, float*, int, int)", "K2"),
+    ("void ln_gate_forward_kernel<__nv_bfloat16>(...)", "K2"),
+    *[(name, "K2") for name in K2_NAMES],
+    ("void composite_backward_kernel<float>(...)", "K3"),
+    ("sm90_xmma_fprop_implicit_gemm_tf32f32", "conv_gemm"),
+    ("void pointwise_mult_and_sum_complex<float2, 8, 4>(...)", "conv_gemm"),  # cuDNN's FFT convs
+    ("void at::native::vectorized_elementwise_kernel<4>", "other"),
+    ("Memset (Device)", "other"),
+])
+def test_kernel_groups(name, group):
+    assert group_of(name) == group
+
+
+LAUNCHES = {"apply_cdna_kernels": 2, "fused_ln_gate": 12, "composite": 2, "apply_cdna_kernels_backward": 2,
+            "fused_ln_gate_backward": 12, "composite_backward": 2}
+
+
+def fake_events(k1=6, k2=36, k3=4, other=3):
+    """Device events (name, start, end) of a window: K1 2 + 2 x 2, K2 12 + 12
+    x 2 and K3 2 + 2 for ``LAUNCHES``, and some others."""
+    names = (["cdna_forward_kernel<float, 3, 5, 4>"] * k1 + [K2_NAMES[0]] * k2
+             + ["composite_forward_kernel<float>"] * k3 + ["sm90_xmma_fprop"] * other)
+    return [(name, 10.0 * i, 10.0 * i + 2.0) for i, name in enumerate(names)]
+
+
+@pytest.mark.parametrize("events, want", [
+    (fake_events(), {}),
+    (fake_events(k2=35), {"K2": [35, 36]}),  # one record of a backward's reduce lost
+    (fake_events(k1=0, k3=3), {"K1": [0, 6], "K3": [3, 4]}),
+    (fake_events(other=0), {}),  # the other groups are not counted by launches
+])
+def test_window_shortfall(events, want):
+    assert window_shortfall(events, LAUNCHES) == want
+
+
+@pytest.mark.parametrize("k2_counts, windows, short", [
+    ([36], 1, None),
+    ([30, 36], 2, None),
+    ([0, 12, 35, 36], 4, None),
+    ([35, 0, 35, 34, 30], 5, {"K2": [30, 36]}),  # never whole: the last window's shortfall is reported
+])
+def test_whole_window_reruns_a_short_window(k2_counts, windows, short):
+    calls = []
+
+    def profile():
+        calls.append(1)
+        return fake_events(k2=k2_counts[len(calls) - 1]), 5.0, {"loss": 1.0}, LAUNCHES
+
+    events, window_ms, scalars, n, shortfall = whole_window(profile)
+    assert n == len(calls) == windows and (shortfall or None) == short
+    assert sum(group_of(e[0]) == "K2" for e in events) == k2_counts[-1]
+
+
+def test_main_reports_a_shortfall_instead_of_a_short_time(monkeypatch, capsys):
+    """Fed windows that always lack K2 records, ``main`` profiles five and
+    reports the shortfall, with no K2 time; the other groups keep theirs."""
+    windows = []
+
+    def fake_window(step, steps, cuda, sync):
+        windows.append(step())  # the step still runs
+        return fake_events(k2=20), 5.0 * steps, windows[-1], LAUNCHES
+
+    monkeypatch.setattr(profile_step, "profile_window", fake_window)
+    summary = main(["--device", "cpu", "--batch_size", "2", "--steps", "1", "--model_hparams", SMALL])
+    assert len(windows) == profile_step.WINDOWS == summary["windows"] == 5
+    assert summary["shortfall"] == {"K2": [20, 36]} and summary["device_ms"]["K2"] is None
+    assert summary["device_ms"]["K1"] == pytest.approx(6 * 2e-3) and summary["launches"] == 6 + 20 + 4 + 3
+    out = capsys.readouterr().out
+    assert out.count("profile window") == 5 and json.loads(out.strip().splitlines()[-1]) == summary

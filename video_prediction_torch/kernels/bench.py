@@ -11,10 +11,17 @@ host, unlike CUDA events around back-to-back Python calls. A profiler
 session that lost device records is run again (``device_ms``).
 
 Run as a script it times every kernel, forward at batch 8, 32 and 64 and
-backward at 32 (K2 per generator step of six calls), and prints one JSON
-object. ``--root`` imports the kernels from another checkout of the
-repository whose wrappers take the same arguments (the kernels of an
-earlier commit, for a comparison inside one run). Needs a CUDA device.
+backward at 32 (K2 per generator step of six calls, and per width), and
+prints one JSON object. ``--root`` imports the kernels from another
+checkout of the repository whose wrappers take the same arguments (the
+kernels of an earlier commit, for a comparison inside one run). Needs a
+CUDA device.
+
+``--detail`` adds, for K2: each width's time with the 50 MB L2 flushed
+before every call (a 128 MB memset, which is not in the K2 group, so not
+counted), the backward's time split by device kernel (the row kernel and
+the d ln_params reduce) and ptxas's registers and spills of every K2
+instantiation.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 from typing import Callable, Dict, Optional
 
@@ -38,18 +46,28 @@ QUEUE_CYCLES = 50_000_000
 REPEATS: list = []
 
 
-def profiled_events(fn: Callable[[], object], group: Optional[str], iters: int) -> list:
-    """(start, end) in us of the device events of profile group ``group``
-    (every device event if None) in one profiler session of ``iters`` calls."""
+# bytes written between calls to flush the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+
+
+def profiled_named_events(fn: Callable[[], object], group: Optional[str], iters: int) -> list:
+    """(name, start, end), times in us, of the device events of profile group
+    ``group`` (every device event if None) in one profiler session of
+    ``iters`` calls."""
     from video_prediction_torch.train.profile_step import group_of
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
             if e.device_type != torch.autograd.DeviceType.CPU and not getattr(e, "is_user_annotation", False)
             and (group is None or group_of(e.name) == group)]
+
+
+def profiled_events(fn: Callable[[], object], group: Optional[str], iters: int) -> list:
+    """(start, end) in us of the device events of ``profiled_named_events``."""
+    return [(start, end) for _, start, end in profiled_named_events(fn, group, iters)]
 
 
 def queued_ms(fn: Callable[[], object], iters: int) -> float:
@@ -97,6 +115,31 @@ def device_ms(fn: Callable[[], object], group: Optional[str] = None, iters: int 
     return ms
 
 
+def device_ms_by_kernel(fn: Callable[[], object], group: str, iters: int = 20, warmup: int = 3,
+                        sessions: int = 5) -> Optional[Dict[str, float]]:
+    """``device_ms`` split by device kernel name: ms per call of each kernel
+    of ``group``, from the first whole session of up to ``sessions`` (None if
+    none is whole)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        events = profiled_named_events(fn, group, iters)
+        if events and len(events) % iters == 0:
+            out: Dict[str, float] = {}
+            for name, start, end in events:
+                out[name] = out.get(name, 0.0) + (end - start) / 1e3 / iters
+            return out
+    return None
+
+
+def flushing(fn: Callable[[], object], dev) -> Callable[[], object]:
+    """``fn`` with ``L2_FLUSH_BYTES`` written before every call, so that it
+    finds its inputs in device memory, not in the L2."""
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    return lambda: (buf.zero_(), fn())
+
+
 def ln_inputs(gen: torch.Generator, rows: int, cdim: int, dev):
     """z [R,4C], c [R,C], ln_params [10,C] (scale, bias per LayerNorm) and two
     upstream gradients [R,C], fp32, as ``chip_smoke.py`` makes them."""
@@ -106,20 +149,31 @@ def ln_inputs(gen: torch.Generator, rows: int, cdim: int, dev):
     return randn(rows, 4 * cdim) * 2.0, randn(rows, cdim), lnp, randn(rows, cdim), randn(rows, cdim)
 
 
-def ln_gate_step_ms(fn, batch: int, dev, iters: int) -> float:
-    """Device ms of one generator step's six K2 calls of ``fn(z, c, lnp, dc', dh)``."""
+def ln_gate_widths(fn, batch: int, dev, iters: int, flush: bool = False, by_kernel: bool = False) -> Dict[int, object]:
+    """Device ms per call of ``fn(z, c, lnp, dc', dh)`` at each K2 width of a
+    generator step at ``batch`` (C -> ms; with ``by_kernel``, C -> {device
+    kernel: ms}); with ``flush``, the L2 flushed before every call."""
     gen = torch.Generator(device=dev).manual_seed(batch)
-    per_width = {}
+    out: Dict[int, object] = {}
     for cdim, px in sorted(set(LN_GATE_STEP)):
         z, c, lnp, dcn, dhn = ln_inputs(gen, batch * px * px, cdim, dev)
-        per_width[cdim] = device_ms(lambda: fn(z, c, lnp, dcn, dhn), "K2", iters=iters)
+        call = lambda: fn(z, c, lnp, dcn, dhn)  # noqa: E731
+        call = flushing(call, dev) if flush else call
+        out[cdim] = device_ms_by_kernel(call, "K2", iters=iters) if by_kernel else device_ms(call, "K2", iters=iters)
+    return out
+
+
+def ln_gate_step_ms(per_width: Dict[int, float]) -> float:
+    """Device ms of one generator step's six K2 calls, from ``ln_gate_widths``."""
     return sum(per_width[cdim] for cdim, _ in LN_GATE_STEP)
 
 
-def all_kernels(dev, iters: int = 20) -> Dict[str, Dict[str, float]]:
-    """Device ms of the six kernels: forward at batch 8, 32 and 64, backward at 32."""
+def all_kernels(dev, iters: int = 20, widths: Optional[dict] = None) -> Dict[str, Dict[str, float]]:
+    """Device ms of the six kernels: forward at batch 8, 32 and 64, backward
+    at 32; K2's per width also into ``widths`` where given."""
     from video_prediction_torch import kernels as K
 
+    widths = {} if widths is None else widths
     gen = torch.Generator(device=dev).manual_seed(0)
     out: Dict[str, Dict[str, float]] = {name: {} for name in K.WRAPPERS}
     for batch in (8, 32, 64):
@@ -129,18 +183,37 @@ def all_kernels(dev, iters: int = 20) -> Dict[str, Dict[str, float]]:
         logits = torch.randn(batch, 64, 64, 7, generator=gen, device=dev) * 3.0
         out["apply_cdna_kernels"][f"batch {batch}"] = device_ms(lambda: K.apply_cdna_kernels(image, kern), "K1",
                                                                 iters=iters)
-        out["fused_ln_gate"][f"batch {batch}"] = ln_gate_step_ms(
-            lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp), batch, dev, iters)
+        per_width = ln_gate_widths(lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp), batch, dev, iters)
+        widths.setdefault("fused_ln_gate", {})[f"batch {batch}"] = per_width
+        out["fused_ln_gate"][f"batch {batch}"] = ln_gate_step_ms(per_width)
         out["composite"][f"batch {batch}"] = device_ms(lambda: K.composite(cand, logits), "K3", iters=iters)
         if batch == 32:
             grad = torch.randn(batch, 4, 64, 64, 3, generator=gen, device=dev)
             out["apply_cdna_kernels_backward"]["batch 32"] = device_ms(
                 lambda: K.apply_cdna_kernels_backward(image, kern, grad), "K1", iters=iters)
-            out["fused_ln_gate_backward"]["batch 32"] = ln_gate_step_ms(K.fused_ln_gate_backward, batch, dev, iters)
+            per_width = ln_gate_widths(K.fused_ln_gate_backward, batch, dev, iters)
+            widths["fused_ln_gate_backward"] = {"batch 32": per_width}
+            out["fused_ln_gate_backward"]["batch 32"] = ln_gate_step_ms(per_width)
             g3 = torch.randn(batch, 64, 64, 3, generator=gen, device=dev)
             out["composite_backward"]["batch 32"] = device_ms(lambda: K.composite_backward(cand, logits, g3), "K3",
                                                               iters=iters)
     return out
+
+
+def ln_gate_detail(dev, iters: int) -> dict:
+    """``--detail``: K2 with the L2 flushed, the backward by device kernel
+    and ptxas's K2 rows."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import _lib
+
+    fwd = lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp)  # noqa: E731
+    return {
+        "flushed": {"fused_ln_gate": {"batch 8": ln_gate_widths(fwd, 8, dev, iters, flush=True)},
+                    "fused_ln_gate_backward": {"batch 32": ln_gate_widths(K.fused_ln_gate_backward, 32, dev, iters,
+                                                                          flush=True)}},
+        "backward_by_kernel": {"batch 32": ln_gate_widths(K.fused_ln_gate_backward, 32, dev, iters, by_kernel=True)},
+        "ptxas": [row for row in _lib.ptxas_report() if re.search(r"ln_(gate|grad)_", row[0])],
+    }
 
 
 def main(argv=None) -> int:
@@ -148,6 +221,8 @@ def main(argv=None) -> int:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                    help="checkout whose video_prediction_torch to time (default: this one)")
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--detail", action="store_true",
+                   help="also K2 with the L2 flushed, by device kernel and ptxas's rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: needs a CUDA device", file=sys.stderr)
@@ -160,8 +235,12 @@ def main(argv=None) -> int:
         print(f"bench: imported {video_prediction_torch.__file__}, not from {root}", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    result = {"root": root, "device": torch.cuda.get_device_name(0), "device_ms": all_kernels(dev, args.iters),
-              "repeats": REPEATS}
+    widths: dict = {}
+    result = {"root": root, "device": torch.cuda.get_device_name(0),
+              "device_ms": all_kernels(dev, args.iters, widths), "ln_gate_widths": widths}
+    if args.detail:
+        result["ln_gate_detail"] = ln_gate_detail(dev, args.iters)
+    result["repeats"] = REPEATS
     print(json.dumps(result))
     return 0
 

@@ -37,8 +37,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace vp

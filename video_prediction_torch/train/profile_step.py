@@ -25,6 +25,15 @@ object of per-step figures:
   ``K1``, ``K2``, ``K3`` (the port's kernels, forward and backward), and
   ``other``; ``launches``: device events per step.
 
+The window is checked against the kernel wrappers' launch counters: each
+launch of a wrapper gives ``KERNELS_PER_LAUNCH`` device events of its
+group, so the window must hold exactly that many K1, K2 and K3 events. The
+profiler now and then loses device records; a window that holds another
+count is profiled again, up to ``WINDOWS`` windows in all. ``windows`` says
+how many were profiled; if none was whole, ``shortfall`` gives each group's
+events against the expected count and that group's ``device_ms`` is None,
+not too short a time.
+
 On the CPU there are no device events: the busy and device figures are 0.
 """
 
@@ -34,19 +43,29 @@ import argparse
 import json
 import re
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 SEED = 0
 WARMUP = 3
+WINDOWS = 5
 GROUPS = (
     ("K1", re.compile(r"\bcdna_(forward|backward)_kernel|\bcdna_kernel_grad_reduce")),
-    ("K2", re.compile(r"\bln_gate_(forward|backward)_kernel|\bln_grad_reduce")),
+    ("K2", re.compile(r"\bln_gate_(forward|backward)_kernel|\bln_(gate_)?grad_reduce")),
     ("K3", re.compile(r"\bcomposite_(forward|backward)_kernel")),
     ("conv_gemm", re.compile(r"conv|cudnn|xmma|gemm|cutlass|wgrad|dgrad|fprop|winograd|nchw|nhwc|fft|"
                              r"pointwise_mult_and_sum_complex", re.I)),
 )
+
+
+# device kernels one call of each wrapper launches: (group, events); the
+# backward kernels of K1 and K2 each add a reduce kernel
+KERNELS_PER_LAUNCH = {
+    "apply_cdna_kernels": ("K1", 1), "apply_cdna_kernels_backward": ("K1", 2),
+    "fused_ln_gate": ("K2", 1), "fused_ln_gate_backward": ("K2", 2),
+    "composite": ("K3", 1), "composite_backward": ("K3", 1),
+}
 
 
 def parse_args(argv=None):
@@ -65,6 +84,58 @@ def group_of(name: str) -> str:
         if pattern.search(name):
             return group
     return "other"
+
+
+def window_shortfall(events: List[Tuple[str, float, float]], launches: Dict[str, int]) -> Dict[str, List[int]]:
+    """Groups whose device events in ``events`` (name, start, end) disagree
+    with the wrappers' ``launches`` in the same window: group -> [events,
+    expected]. Empty for a whole window."""
+    want: Dict[str, int] = {}
+    for wrapper, n in launches.items():
+        group, per_launch = KERNELS_PER_LAUNCH[wrapper]
+        want[group] = want.get(group, 0) + n * per_launch
+    got = {group: 0 for group in want}
+    for name, _, _ in events:
+        group = group_of(name)
+        if group in got:
+            got[group] += 1
+    return {group: [got[group], want[group]] for group in want if got[group] != want[group]}
+
+
+def profile_window(step, steps: int, cuda: bool, sync):
+    """One profiled window of ``steps`` calls of ``step()``: its device events
+    (name, start, end in us), host wall ms per step, the last step's
+    scalars and the wrappers' launch counts over the window."""
+    from video_prediction_torch import kernels as K
+
+    activity = torch.profiler.ProfilerActivity.CUDA if cuda else torch.profiler.ProfilerActivity.CPU
+    K.reset_launch_counts()
+    with torch.profiler.profile(activities=[activity]) as prof:
+        sync()  # the device is idle here: every device event below is the window's
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            scalars = step()
+        sync()
+        window_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # kernels, copies and sets; not the ranges that annotate them
+    events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type != torch.autograd.DeviceType.CPU and not getattr(e, "is_user_annotation", False)]
+    return events, window_ms, scalars, K.launch_counts()
+
+
+def whole_window(profile: Callable[[], tuple], windows: int = WINDOWS) -> tuple:
+    """Profile a window with ``profile()`` (events, window ms, scalars,
+    launch counts) until its events agree with its launch counts, at most
+    ``windows`` times: (events, window ms, scalars, windows run, shortfall
+    of the last window)."""
+    for n in range(1, windows + 1):
+        events, window_ms, scalars, launches = profile()
+        shortfall = window_shortfall(events, launches)
+        if not shortfall:
+            break
+        print(f"profile window {n}: device events short of the launch counts {launches}: "
+              f"{json.dumps(shortfall)} (group: [events, expected])")
+    return events, window_ms, scalars, n, shortfall
 
 
 def union_ms(intervals: List[Tuple[float, float]]) -> float:
@@ -117,28 +188,21 @@ def main(argv=None) -> Dict[str, object]:
     sync()
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    activity = torch.profiler.ProfilerActivity.CUDA if cuda else torch.profiler.ProfilerActivity.CPU
-    with torch.profiler.profile(activities=[activity]) as prof:
-        sync()  # the device is idle here: every device event below is the window's
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            scalars = step(ts, data)
-        sync()
-        window_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    # kernels, copies and sets; not the ranges that annotate them
-    device_events = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CPU
-                     and not getattr(e, "is_user_annotation", False)]
-    busy_ms = union_ms([(e.time_range.start, e.time_range.end) for e in device_events]) / args.steps
+    device_events, window_ms, scalars, windows, shortfall = whole_window(
+        lambda: profile_window(lambda: step(ts, data), args.steps, cuda, sync))
+    busy_ms = union_ms([(start, end) for _, start, end in device_events]) / args.steps
 
-    by_group = {g: 0.0 for g, _ in GROUPS}
+    by_group: Dict[str, object] = {g: 0.0 for g, _ in GROUPS}
     by_group["other"] = 0.0
     by_name: Dict[str, List[float]] = {}
-    for e in device_events:
-        ms = (e.time_range.end - e.time_range.start) / 1e3 / args.steps
-        by_group[group_of(e.name)] += ms
-        entry = by_name.setdefault(e.name, [0.0, 0])
+    for name, start, end in device_events:
+        ms = (end - start) / 1e3 / args.steps
+        by_group[group_of(name)] += ms
+        entry = by_name.setdefault(name, [0.0, 0])
         entry[0] += ms
         entry[1] += 1
+    for group in shortfall:
+        by_group[group] = None  # events lost: no time rather than too short a time
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"{ms:9.3f} ms {n / args.steps:7.1f}x  [{group_of(name)}] {name[:100]}")
 
@@ -148,6 +212,7 @@ def main(argv=None) -> Dict[str, object]:
         "step_ms": step_ms, "window_ms": window_ms, "busy_ms": busy_ms,
         "busy_share": busy_ms / window_ms,
         "device_ms": by_group, "launches": len(device_events) / args.steps,
+        "windows": windows, "shortfall": shortfall or None,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
         "finite": all(bool(torch.isfinite(v)) for v in scalars.values()),
     }
