@@ -9,7 +9,7 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 1. report the device (name and power limit from ``nvidia-smi``);
 2. build the CUDA kernels from ``video_prediction_torch/kernels/csrc`` (one
    ``nvcc`` per source, all at once) and print ptxas's registers and spills
-   of every kernel instantiation; K1's and K2's must not spill;
+   of every kernel instantiation; none of K1's, K2's or K3's may spill;
 3. compare each forward kernel with its plain PyTorch version on the card,
    at the shapes of the generation rollout (batch 8), of the train step's
    rollout (the doubled batch 2 x 16) and of the evaluate rollout (8
@@ -17,7 +17,10 @@ and ``nvidia-smi``. Phases, each fatal on failure:
    bf16, and time it; K1 also against its library yardstick, one grouped
    ``F.conv2d`` (TF32 off), checked equal to K1 before it is timed; K2 also
    at C = 8, 40 and 300 and on views that start one element past a 16-byte
-   boundary (its run-time instantiation), and twice to equal bits;
+   boundary (its run-time instantiation), and twice to equal bits; K3 at
+   each compile-time instantiation (7 and 6 candidates, aligned tensors) and
+   at its run-time one (such views, and 33x31 with 16 candidates), with and
+   without the masks, twice to equal bits;
 4. compare each backward kernel with autograd of its plain version, at the
    training step's shapes (the doubled batch 2 x 16) and at odd shapes, fp32
    and bf16 (K2 also on unaligned views), and time it (K1 against one
@@ -317,19 +320,33 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
     print(timing_line(f"K2 per generator step (6 calls), fp32, batch {batch}", entry))
 
     # K3 ------------------------------------------------------------------
+    # each candidate count's compile-time instantiation (aligned tensors),
+    # and the run-time one (the same shape one element past a 16-byte
+    # boundary, and 33x31 with 16 candidates)
+    from video_prediction_torch.kernels.composite import device_plan
+
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    for k in composite_ks:
-        cand = rand(batch, k, 64, 64, 3)
-        logits = randn(batch, 64, 64, k) * 3.0
+    for k, h, w in [(k, 64, 64) for k in composite_ks] + [(16, 33, 31)]:
+        cand = rand(batch, k, h, w, 3)
+        logits = randn(batch, h, w, k) * 3.0
         for dt in ("float32", "bfloat16"):
             cd, lg = cand.to(getattr(torch, dt)), logits.to(getattr(torch, dt))
-            out, masks = K.composite(cd, lg, with_masks=True)
             ref, ref_masks = K.composite_reference(cd, lg, with_masks=True)
-            e0, ok0 = max_err(out, ref, dt)
-            e1, ok1 = max_err(masks, ref_masks, "float32")
-            print(f"K3 composite {dt} [{batch},{k},64,64,3]: max_abs_err out {e0:.3g} masks {e1:.3g} (tol {TOL[dt]})")
-            check(ok0 and ok1, f"K3 {dt} with {k} candidates disagrees with its plain version: {e0}, {e1}")
-            errs[dt] = max(errs[dt], e0, e1)
+            for label, (ca, la) in (("", (cd, lg)), (", unaligned", (unaligned(cd), unaligned(lg)))):
+                p = device_plan(ca, la)
+                want = k if (h, w) == (64, 64) and not label else 0
+                check(p.staged == want, f"K3 {dt} [{batch},{k},{h},{w},3]{label}: plan {p}, want staged={want}")
+                out, masks = K.composite(ca, la, with_masks=True)
+                again, no_masks = K.composite(ca, la)
+                check(no_masks is None and torch.equal(again, out), f"K3 {dt} K={k}{label} is not deterministic")
+                e0, ok0 = max_err(out, ref, dt)
+                e1, ok1 = max_err(masks, ref_masks, "float32")
+                inst = f"compile-time K={p.staged}" if p.staged else "run-time"
+                print(f"K3 composite {dt} [{batch},{k},{h},{w},3]{label} ({inst}, tile {p.tile}, {p.blocks} "
+                      f"blocks): max_abs_err out {e0:.3g} masks {e1:.3g} (tol {TOL[dt]}); bitwise equal twice")
+                check(ok0 and ok1, f"K3 {dt} with {k} candidates{label} disagrees with its plain version: {e0}, {e1}")
+                if (h, w) == (64, 64) and not label:
+                    errs[dt] = max(errs[dt], e0, e1)
     cand = rand(batch, 7, 64, 64, 3)
     logits = randn(batch, 64, 64, 7) * 3.0
     entry = dict(
@@ -590,12 +607,11 @@ def timing_phase(gpu_model, dev, ident: str) -> None:
 
 def ptxas_phase(report) -> None:
     """Phase 2, after the build: registers and spills of every kernel
-    instantiation, from ptxas's report; the kernels rebuilt for Hopper (K1's
-    and K2's) must not spill."""
+    instantiation, from ptxas's report; no K1, K2 or K3 kernel may spill."""
     check(bool(report), "ptxas reported no kernels")
     for name, regs, spill_st, spill_ld in report:
         print(f"ptxas: {regs:3d} registers, spills {spill_st}/{spill_ld} bytes (stores/loads): {name[:150]}")
-    for group, stem in (("K1", "cdna_"), ("K2", "ln_gate_")):  # mangled or demangled names
+    for group, stem in (("K1", "cdna_"), ("K2", "ln_gate_"), ("K3", "composite_")):  # mangled or demangled
         rebuilt = [r for r in report if stem in r[0]]
         check(bool(rebuilt), f"no {group} kernels in ptxas's report")
         spilling = [r for r in rebuilt if r[2] or r[3]]

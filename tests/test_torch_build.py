@@ -3,7 +3,7 @@
 report, and how the report is read into registers and spills per kernel
 instantiation; the device-time script (``kernels/bench.py``) refuses to run
 without a card, runs a profiler session again that lost device records, and
-makes K2's inputs as ``chip_smoke.py`` uses them."""
+makes K2's inputs as ``chip_smoke.py`` uses them and K3's as it times them."""
 
 import ctypes
 import re
@@ -44,6 +44,20 @@ ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__59cf225a_10_ln_gate_c
 ptxas info    : Function properties for _ZN43_GLOBAL__N__59cf225a_10_ln_gate_cu_d377fbc519ln_gate_grad_reduceEPKfPfii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 24 registers, used 1 barriers, 2048 bytes smem
+
+# composite.cu
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__4e1a7c02_12_composite_cu_d377fbc524composite_forward_kernelIfLi7ELi3EEEvNS_3FwdIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__4e1a7c02_12_composite_cu_d377fbc524composite_forward_kernelIfLi7ELi3EEEvNS_3FwdIT_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__4e1a7c02_12_composite_cu_d377fbc524composite_forward_kernelI13__nv_bfloat16Li0ELi0EEEvNS_3FwdIT_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__4e1a7c02_12_composite_cu_d377fbc524composite_forward_kernelI13__nv_bfloat16Li0ELi0EEEvNS_3FwdIT_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__4e1a7c02_12_composite_cu_d377fbc525composite_backward_kernelIfEEvPKT_S3_S3_PS1_S4_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__4e1a7c02_12_composite_cu_d377fbc525composite_backward_kernelIfEEvPKT_S3_S3_PS1_S4_iiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers
 """
 
 
@@ -52,11 +66,14 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
     log.write_text(PTXAS_LOG)
     monkeypatch.setattr(_lib, "ptxas_log_path", lambda: log)
     rows = _lib.ptxas_report()
-    assert [r[1:] for r in rows] == [(111, 0, 0), (48, 36, 32), (74, 0, 0), (94, 0, 0), (205, 0, 0), (24, 0, 0)]
+    assert [r[1:] for r in rows] == [(111, 0, 0), (48, 36, 32), (74, 0, 0), (94, 0, 0), (205, 0, 0), (24, 0, 0),
+                                     (32, 0, 0), (32, 0, 0), (72, 0, 0)]
     assert "cdna_forward_kernel" in rows[0][0] and "cdna_backward_kernel" in rows[1][0]
     # mangled, or demangled where the toolkit has cu++filt
     assert "ln_gate_forward_kernel" in rows[2][0] and all("ln_gate_backward_kernel" in r[0] for r in rows[3:5])
     assert "ln_gate_grad_reduce" in rows[5][0]
+    # K3 forward's compile-time (K=7, C=3) and run-time instantiations, and its backward
+    assert all("composite_forward_kernel" in r[0] for r in rows[6:8]) and "composite_backward_kernel" in rows[8][0]
 
 
 @pytest.mark.parametrize("flag", ["-lineinfo", "-DVP_TEST"])
@@ -104,6 +121,12 @@ def test_ln_inputs():
     assert z.shape == (7, 48) and lnp.shape == (10, 12) and lnp.is_contiguous()
     assert c.shape == dcn.shape == dhn.shape == (7, 12)
     assert float((lnp[0::2] - 1.0).abs().max()) < 1.0 and float(lnp[1::2].abs().max()) < 1.0  # scales near 1, biases near 0
+
+
+def test_composite_inputs():
+    cand, logits = bench.composite_inputs(torch.Generator().manual_seed(0), 3, "cpu")
+    assert cand.shape == (3, 7, 64, 64, 3) and logits.shape == (3, 64, 64, 7)
+    assert cand.is_contiguous() and logits.is_contiguous() and 0.0 <= float(cand.min()) <= float(cand.max()) < 1.0
 
 
 def test_ln_gate_step_ms_counts_each_width_as_often_as_a_step_calls_it():

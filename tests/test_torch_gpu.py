@@ -17,6 +17,7 @@ import torch
 from video_prediction_torch import kernels as K
 from video_prediction_torch import metrics as M
 from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
+from video_prediction_torch.kernels.composite import MAX_TILE, STAGED, device_plan
 from video_prediction_torch.kernels._lib import plain_vjp
 from video_prediction_torch.models import get_model_class
 
@@ -91,16 +92,35 @@ def test_ln_gate(dev, dtype, aligned, cdim, rows):
     assert all(torch.equal(a, b) for a, b in zip(out, K.fused_ln_gate(z, c, lnp, forget_bias=0.5)))
 
 
+# K3 forward: the zoo's shapes at the generation batch (K = 7 ours_savp, 6
+# sv2p; compile-time instantiations, bulk-staged tiles when aligned), and the
+# run-time instantiation at 33x31 (a ragged last tile), K = 1 and 16, C = 1,
+# and through ``aligned=False`` at every shape
+COMPOSITE_SHAPES = [(8, 7, 64, 64, 3), (8, 6, 64, 64, 3), (2, 1, 33, 31, 3), (2, 7, 33, 31, 3), (2, 16, 33, 31, 3),
+                    (3, 5, 17, 19, 1)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 7, 16])
-def test_composite(dev, dtype, k):
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", COMPOSITE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_composite(dev, dtype, aligned, shape):
+    b, k, h, w, c = shape
     g = torch.Generator(device=dev).manual_seed(k)
-    cand = torch.rand(2, k, 33, 31, 3, device=dev, generator=g).to(dtype)
-    logits = (3.0 * torch.randn(2, 33, 31, k, device=dev, generator=g)).to(dtype)
+    cand = torch.rand(b, k, h, w, c, device=dev, generator=g).to(dtype)
+    logits = (3.0 * torch.randn(b, h, w, k, device=dev, generator=g)).to(dtype)
+    if not aligned:
+        cand, logits = _unaligned(cand), _unaligned(logits)
+    staged = aligned and (k, c) in STAGED and h * w % MAX_TILE == 0
+    assert device_plan(cand, logits).staged == (k if staged else 0)
     out, masks = K.composite(cand, logits, with_masks=True)
     ref, ref_masks = K.composite_reference(cand, logits, with_masks=True)
+    assert out.dtype == dtype and masks.dtype == torch.float32
     _close(out, ref, dtype)
     _close(masks, ref_masks, torch.float32)
+    alone, no_masks = K.composite(cand, logits)
+    again = K.composite(cand, logits, with_masks=True)
+    assert no_masks is None and torch.equal(alone, out)
+    assert torch.equal(again[0], out) and torch.equal(again[1], masks)
 
 
 EVAL_BATCH = 64  # evaluate's defaults: batch 8 x 8 stochastic samples in one rollout

@@ -48,6 +48,12 @@ K2_NAMES = [
                       ("__nv_bfloat16", ((32, 8), (64, 8), (128, 8), (256, 8))))
     for ct, vpt in widths + tuple((0, v) for v in (1, 2, 4, 8, 16))
 ] + ["(anonymous namespace)::ln_gate_grad_reduce(float const*, float*, int, int)"]
+# K3 forward's instantiations as the profiler names them: compile-time K = 7
+# and 6 at C = 3, and the run-time one, fp32 and bf16
+K3_NAMES = [
+    f"void (anonymous namespace)::composite_forward_kernel<{t}, {k}, {c}>((anonymous namespace)::Fwd<{t}>)"
+    for t in ("float", "__nv_bfloat16") for k, c in ((7, 3), (6, 3), (0, 0))
+]
 
 
 @pytest.mark.parametrize("name, group", [
@@ -62,6 +68,8 @@ K2_NAMES = [
     ("void ln_gate_forward_kernel<__nv_bfloat16>(...)", "K2"),
     *[(name, "K2") for name in K2_NAMES],
     ("void composite_backward_kernel<float>(...)", "K3"),
+    ("void composite_forward_kernel<float>(...)", "K3"),  # the earlier K3 forward, so a parent checkout is grouped
+    *[(name, "K3") for name in K3_NAMES],
     ("sm90_xmma_fprop_implicit_gemm_tf32f32", "conv_gemm"),
     ("void pointwise_mult_and_sum_complex<float2, 8, 4>(...)", "conv_gemm"),  # cuDNN's FFT convs
     ("void at::native::vectorized_elementwise_kernel<4>", "other"),

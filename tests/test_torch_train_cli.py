@@ -1,22 +1,33 @@
 """The port's training CLI (``python -m video_prediction_torch.train``) end to
-end on the CPU at a small width: 2 steps, then ``--resume`` to 3, equal to
-an unbroken 3-step run (parameters, spectral u, both Adam states, the noise
-generator and the step); the losses it reports; the run directory it writes
-is one ``generate`` reads; a params file without discriminators still loads
-for generation."""
+end on the CPU at a small width: 2 steps, then ``--resume`` to 3, which
+restores the whole train state (step, parameters, spectral u, both Adam
+states, the noise generator) and trains step 3 on the first batch of the
+data stream opened afresh, as ``scripts/train.py`` resumes; the losses it
+reports; the run directory it writes is one ``generate`` reads; a params
+file without discriminators still loads for generation."""
 
 import json
 import os
+import shutil
 from pathlib import Path
 
 import pytest
 import torch
 
 from video_prediction_torch import generate
-from video_prediction_torch.configs.hparams import ModelHparams, apply_overrides
+from video_prediction_torch.configs.hparams import DatasetHparams, ModelHparams, apply_overrides
+from video_prediction_torch.data.synthetic import SyntheticVideoDataset
 from video_prediction_torch.models import get_model_class
 from video_prediction_torch.train.__main__ import main as train_main
-from video_prediction_torch.train.checkpoint import PARAMS_FILE, TRAIN_STATE_FILE, load_params
+from video_prediction_torch.train.checkpoint import (
+    PARAMS_FILE,
+    TRAIN_STATE_FILE,
+    load_params,
+    load_train_state,
+    save_train_state,
+)
+from video_prediction_torch.train.state import create_train_state
+from video_prediction_torch.train.step import make_train_step
 
 torch.set_num_threads(1)
 
@@ -42,20 +53,16 @@ def _model(run_dir):
 def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("train")
     first = _train(root / "resumed", 2)
+    shutil.copytree(root / "resumed", root / "step2")  # the state the resume starts from
     resumed = _train(root / "resumed", 3, resume=True)
     whole = _train(root / "whole", 3)
     return root, first, resumed, whole
 
 
-def test_resume_equals_an_unbroken_run(runs):
-    root, first, resumed, whole = runs
-    assert (first["start_step"], first["step"]) == (0, 2)
-    assert (resumed["start_step"], resumed["step"]) == (2, 3)
-    assert whole["step"] == 3 and resumed["all_finite"] and whole["all_finite"]
-    assert resumed["scalars"] == whole["scalars"]
-    a = torch.load(root / "resumed" / TRAIN_STATE_FILE, weights_only=True)
-    b = torch.load(root / "whole" / TRAIN_STATE_FILE, weights_only=True)
-    assert a["step"] == b["step"] == 3
+def _assert_same_state(a, b):
+    """Two saved train states hold the same step, parameters and buffers,
+    Adam slots of both optimizers, and noise generator state."""
+    assert a["step"] == b["step"]
     assert sorted(a["model"]) == sorted(b["model"])
     for k in b["model"]:
         assert torch.equal(a["model"][k], b["model"][k]), k
@@ -65,6 +72,36 @@ def test_resume_equals_an_unbroken_run(runs):
             for name, v in slots.items():
                 assert torch.equal(a[opt]["state"][i][name], v), (opt, i, name)
     assert torch.equal(a["rng"], b["rng"])
+
+
+def test_resume_equals_an_unbroken_run(runs):
+    """The resumed step equals one unbroken train step from the restored
+    step-2 state on the fresh stream's first batch: ``scripts/train.py:170-190``
+    restores the state and trains on a stream that starts again at its init
+    example, without replaying the batches the first run took."""
+    root, first, resumed, whole = runs
+    assert (first["start_step"], first["step"]) == (0, 2)
+    assert (resumed["start_step"], resumed["step"]) == (2, 3)
+    assert whole["step"] == 3 and resumed["all_finite"] and whole["all_finite"]
+
+    # step 3 by hand: the step-2 checkpoint, then one train step on next(fresh iterator)
+    model = _model(root / "step2")
+    ts = create_train_state(model, SEED, "cpu")
+    load_train_state(str(root / "step2"), ts)
+    assert ts.step == 2
+    with open(root / "step2" / "dataset_hparams.json") as f:
+        dhp = apply_overrides(DatasetHparams(), json.load(f))
+    batch = next(SyntheticVideoDataset("", mode="train", hparams=dhp, seed=SEED).make_iterator(2))
+    scalars = make_train_step(model)(ts, generate.batch_to_device(batch, "cpu"))
+    assert resumed["scalars"] == {k: float(v) for k, v in scalars.items()}
+    state = root / "by_hand"
+    save_train_state(str(state), ts)
+    a = torch.load(root / "resumed" / TRAIN_STATE_FILE, weights_only=True)
+    _assert_same_state(a, torch.load(state / TRAIN_STATE_FILE, weights_only=True))
+    # the unbroken run trained step 3 on the stream's third batch: another state
+    b = torch.load(root / "whole" / TRAIN_STATE_FILE, weights_only=True)
+    assert a["step"] == b["step"] == 3 and torch.equal(a["rng"], b["rng"])
+    assert any(not torch.equal(a["model"][k], b["model"][k]) for k in b["model"])
 
 
 def test_losses_reported_and_spectral_u_moved(runs):

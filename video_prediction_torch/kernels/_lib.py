@@ -40,7 +40,7 @@ _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "vp_cdna_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vp_ln_gate_forward": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "vp_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vp_composite_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vp_cdna_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vp_cdna_backward_tiles": [_I, _I, _I, _I, _I, _I, _I, _I],
     "vp_ln_gate_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I,

@@ -21,7 +21,10 @@ CUDA device.
 before every call (a 128 MB memset, which is not in the K2 group, so not
 counted), the backward's time split by device kernel (the row kernel and
 the d ln_params reduce) and ptxas's registers and spills of every K2
-instantiation.
+instantiation; for K3: the forward's time at batch 8 with the L2 flushed
+the same way, ptxas's rows of every K3 instantiation, and the device time
+of one copy of the same bytes as the batch-8 forward moves (the least one
+kernel of that size takes here).
 """
 
 from __future__ import annotations
@@ -179,8 +182,7 @@ def all_kernels(dev, iters: int = 20, widths: Optional[dict] = None) -> Dict[str
     for batch in (8, 32, 64):
         image = torch.rand(batch, 64, 64, 3, generator=gen, device=dev)
         kern = torch.softmax(torch.randn(batch, 25, 4, generator=gen, device=dev), 1).reshape(batch, 5, 5, 4)
-        cand = torch.rand(batch, 7, 64, 64, 3, generator=gen, device=dev)
-        logits = torch.randn(batch, 64, 64, 7, generator=gen, device=dev) * 3.0
+        cand, logits = composite_inputs(gen, batch, dev)
         out["apply_cdna_kernels"][f"batch {batch}"] = device_ms(lambda: K.apply_cdna_kernels(image, kern), "K1",
                                                                 iters=iters)
         per_width = ln_gate_widths(lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp), batch, dev, iters)
@@ -216,13 +218,38 @@ def ln_gate_detail(dev, iters: int) -> dict:
     }
 
 
+def composite_inputs(gen: torch.Generator, batch: int, dev):
+    """Candidates [B,7,64,64,3] and mask logits [B,64,64,7] (``ours_savp``'s
+    7 candidates), fp32."""
+    cand = torch.rand(batch, 7, 64, 64, 3, generator=gen, device=dev)
+    return cand, torch.randn(batch, 64, 64, 7, generator=gen, device=dev) * 3.0
+
+
+def composite_detail(dev, iters: int) -> dict:
+    """``--detail``: K3 forward at batch 8 with the L2 flushed, ptxas's K3
+    rows, and beside them the device time of one copy that moves the same
+    bytes as K3 at batch 8 (reads half, writes half; L2-warm, as K3's warm
+    figure is): what one kernel of that size takes on this card at least."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import _lib
+    from video_prediction_torch.kernels import roofline as RL
+
+    cand, logits = composite_inputs(torch.Generator(device=dev).manual_seed(8), 8, dev)
+    src = torch.zeros(RL.composite_forward(8, 7)[0] // 8, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    return {"flushed": {"composite": {"batch 8": device_ms(flushing(lambda: K.composite(cand, logits), dev), "K3",
+                                                           iters=iters)}},
+            "ptxas": [row for row in _lib.ptxas_report() if "composite_" in row[0]],
+            "copy_same_bytes_batch_8": device_ms(lambda: dst.copy_(src), iters=iters)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                    help="checkout whose video_prediction_torch to time (default: this one)")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--detail", action="store_true",
-                   help="also K2 with the L2 flushed, by device kernel and ptxas's rows")
+                   help="also K2 and K3 with the L2 flushed, K2 by device kernel, and ptxas's rows")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: needs a CUDA device", file=sys.stderr)
@@ -240,6 +267,7 @@ def main(argv=None) -> int:
               "device_ms": all_kernels(dev, args.iters, widths), "ln_gate_widths": widths}
     if args.detail:
         result["ln_gate_detail"] = ln_gate_detail(dev, args.iters)
+        result["composite_detail"] = composite_detail(dev, args.iters)
     result["repeats"] = REPEATS
     print(json.dumps(result))
     return 0

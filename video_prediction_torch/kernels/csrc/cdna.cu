@@ -85,10 +85,6 @@ struct Layout {
 // shifted so that column 0 is 16-byte aligned (the bulk copies need it).
 __device__ __forceinline__ float* plane_at(float* begin, int lead) { return begin + ((4 - (lead & 3)) & 3); }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ int rows_inside(int y_first, int rows, int H) {
   return max(0, min(H, y_first + rows) - max(0, y_first));
 }
@@ -111,7 +107,8 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ p, float* __res
         const int ge = e - lead;  // element offset in the plane's row
         const bool take = in && ge >= 0 && ge < row_len;
         const T* src = take ? p + (size_t)gy * row_len + ge : p;
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(s + (size_t)sy * stride + e)),
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         vp::smem_u32(s + (size_t)sy * stride + e)),
                      "l"(src), "r"(take ? 4 : 0)
                      : "memory");
       }
@@ -160,36 +157,14 @@ __device__ __forceinline__ void bulk_rows(const float* p, float* s, int y_first,
   for (int sy = lane; sy < rows; sy += 32) {
     const int gy = y_first + sy;
     if (gy >= 0 && gy < H)
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-              smem_u32(s + (size_t)sy * stride + lead)),
-          "l"(p + (size_t)gy * row_len), "r"(row_len * 4), "r"(smem_u32(bar))
-          : "memory");
+      vp::bulk_load(s + (size_t)sy * stride + lead, p + (size_t)gy * row_len, row_len * 4, bar);
   }
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .pred P1;\n\tLAB_WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n\t"
-      "@P1 bra DONE;\n\tbra LAB_WAIT;\n\tDONE:\n\t}\n" ::"r"(smem_u32(bar))
-      : "memory");
 }
 
 // Rows staged in shared memory to device memory with one bulk copy (a
 // lane of warp 0 each); called by the whole block after its last write.
 __device__ __forceinline__ void bulk_store(float* dst, const float* src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_u32(src)),
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(vp::smem_u32(src)),
                "r"(bytes)
                : "memory");
 }
@@ -271,10 +246,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   const T* ib = img + (size_t)b * plane;
   if constexpr (sizeof(T) == 4) {
     if (bulk) {
-      if (threadIdx.x == 0) bar_init(&bar);
+      if (threadIdx.x == 0) vp::bar_init(&bar);
       __syncthreads();
       if (threadIdx.x < 32) {
-        if (threadIdx.x == 0) bar_expect(&bar, rows_inside(y0 - ph, rows + KH - 1, H) * row_len * 4);
+        if (threadIdx.x == 0) vp::bar_expect(&bar, rows_inside(y0 - ph, rows + KH - 1, H) * row_len * 4);
         __syncwarp();
         bulk_rows(ib, tile, y0 - ph, rows + KH - 1, pw * C, stride, H, row_len, &bar, threadIdx.x);
       }
@@ -285,7 +260,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float* kb = kern + (size_t)b * taps * N;
   for (int i = threadIdx.x; i < taps * N; i += blockDim.x) wts[i] = kb[i];
   if (bulk)
-    bar_wait(&bar);
+    vp::bar_wait(&bar, 0);
   else
     stage_wait();
   __syncthreads();
@@ -393,11 +368,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int srows = rows + KH - 1;
   if constexpr (sizeof(T) == 4) {
     if (bulk) {
-      if (threadIdx.x == 0) bar_init(&bar);
+      if (threadIdx.x == 0) vp::bar_init(&bar);
       __syncthreads();
       if (warp == 0) {
         if (lane == 0)
-          bar_expect(&bar, (rows_inside(y0 - ph, srows, H) + N * rows_inside(y0 - gh, srows, H)) * row_len * 4);
+          vp::bar_expect(&bar, (rows_inside(y0 - ph, srows, H) + N * rows_inside(y0 - gh, srows, H)) * row_len * 4);
         __syncwarp();
         bulk_rows(img + (size_t)b * plane, itile, y0 - ph, srows, pw * C, stride, H, row_len, &bar, lane);
         for (int n = 0; n < N; ++n)
@@ -414,7 +389,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float* kb = kern + (size_t)b * M;
   for (int i = threadIdx.x; i < M; i += blockDim.x) wts[i] = kb[i];
   if (bulk)
-    bar_wait(&bar);
+    vp::bar_wait(&bar, 0);
   else
     stage_wait();
   __syncthreads();

@@ -6,6 +6,8 @@
 // the stream it is given and returns cudaGetLastError() as an int.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -38,5 +40,78 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// --- shared-memory staging: mbarriers and bulk copies (TMA, no tensor map) ---
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// an mbarrier that one arrival (with its expected bytes) completes; make it
+// visible to the block (a block barrier) before any thread waits on it
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// the one arrival: the bytes the bulk copies on `bar` will bring
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\tVP_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra VP_DONE;\n\tbra VP_WAIT;\n\tVP_DONE:\n\t}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from device
+// memory into shared memory by one bulk copy, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// --- 16-byte vectors: 4 fp32 or 8 bf16 values ---
+
+// 16 / sizeof(T) values from 16 bytes at p (shared or global)
+template <typename T>
+__device__ __forceinline__ void ld16(const T* p, float* out) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      out[2 * i] = f.x, out[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// 16 / sizeof(T) values to 16 bytes at p (shared or global)
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const float* in) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
 
 }  // namespace vp

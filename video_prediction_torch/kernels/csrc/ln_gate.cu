@@ -124,10 +124,6 @@ struct Args {
   int stages;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // sigmoid and tanh from one __expf (ex2.approx) and one __fdividef each, at
 // a fraction of expf's and tanhf's instructions, which at C <= 128 are the
 // kernels' other limit besides bytes; approximate (header note)
@@ -135,69 +131,10 @@ __device__ __forceinline__ float sigm(float x) { return __fdividef(1.0f, 1.0f + 
 
 __device__ __forceinline__ float tanh_(float x) { return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * x)); }
 
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n\t.reg .pred P1;\n\tLN_WAIT:\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
-      "@P1 bra LN_DONE;\n\tbra LN_WAIT;\n\tLN_DONE:\n\t}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
-
 // n values from src to dst by the warp's lanes, through registers
 template <typename T>
 __device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src, int n, int lane) {
   for (int i = lane; i < n; i += 32) dst[i] = src[i];
-}
-
-// V values from 16 bytes at p (shared or global)
-template <typename T, int V>
-__device__ __forceinline__ void ld16(const T* p, float* out) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-  } else {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-      out[2 * i] = f.x, out[2 * i + 1] = f.y;
-    }
-  }
-}
-
-// V values to 16 bytes at p (global)
-template <typename T, int V>
-__device__ __forceinline__ void st16(T* p, const float* in) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  } else {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 b = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-      w[i] = *reinterpret_cast<const uint32_t*>(&b);
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
 }
 
 // Lane j of a row's L lanes, slot k: channel (j + L*(k/V))*V + k%V, or j + 32k
@@ -213,7 +150,7 @@ struct Row {
   __device__ __forceinline__ void load(const T* p, float (&v)[VPT]) const {
     if constexpr (G_::kVec) {
 #pragma unroll
-      for (int m = 0; m < G_::NCH; ++m) ld16<T, G_::V>(p + (j + G_::L * m) * G_::V, v + m * G_::V);
+      for (int m = 0; m < G_::NCH; ++m) vp::ld16<T>(p + (j + G_::L * m) * G_::V, v + m * G_::V);
     } else {
 #pragma unroll
       for (int k = 0; k < VPT; ++k) v[k] = on(k) ? vp::to_float(p[j + 32 * k]) : 0.0f;
@@ -226,7 +163,7 @@ struct Row {
 #pragma unroll
       for (int m = 0; m < G_::NCH; ++m)
 #pragma unroll
-        for (int u = 0; u < G_::V; u += 4) ld16<float, 4>(p + (j + G_::L * m) * G_::V + u, v + m * G_::V + u);
+        for (int u = 0; u < G_::V; u += 4) vp::ld16<float>(p + (j + G_::L * m) * G_::V + u, v + m * G_::V + u);
     } else {
 #pragma unroll
       for (int k = 0; k < VPT; ++k) v[k] = on(k) ? p[j + 32 * k] : 0.0f;
@@ -236,7 +173,7 @@ struct Row {
   __device__ __forceinline__ void store(T* p, const float (&v)[VPT]) const {
     if constexpr (G_::kVec) {
 #pragma unroll
-      for (int m = 0; m < G_::NCH; ++m) st16<T, G_::V>(p + (j + G_::L * m) * G_::V, v + m * G_::V);
+      for (int m = 0; m < G_::NCH; ++m) vp::st16<T>(p + (j + G_::L * m) * G_::V, v + m * G_::V);
     } else {
 #pragma unroll
       for (int k = 0; k < VPT; ++k)
@@ -543,10 +480,10 @@ __device__ __forceinline__ void rows_body(const Args<T>& a) {
     if constexpr (G_::kVec) {
       if (lane == 0) {
         const uint32_t zb = nr * 4 * C * sizeof(T), cb = nr * C * sizeof(T);
-        bar_expect(bars + s, zb + n_c * cb);
-        bulk_load(z, a.z + (size_t)r0 * 4 * C, zb, bars + s);
+        vp::bar_expect(bars + s, zb + n_c * cb);
+        vp::bulk_load(z, a.z + (size_t)r0 * 4 * C, zb, bars + s);
 #pragma unroll
-        for (int t = 0; t < n_c; ++t) bulk_load(cs[t], cg[t], cb, bars + s);
+        for (int t = 0; t < n_c; ++t) vp::bulk_load(cs[t], cg[t], cb, bars + s);
       }
     } else {
       copy_rows(z, a.z + (size_t)r0 * 4 * C, nr * 4 * C, lane);
@@ -568,8 +505,8 @@ __device__ __forceinline__ void rows_body(const Args<T>& a) {
     // the first tile's copies are in flight while ln_params come in through
     // L1 (every block reads the same 40 C bytes), 16 bytes a thread
     if (lane == 0) {
-      bar_init(bars);
-      bar_init(bars + 1);
+      vp::bar_init(bars);
+      vp::bar_init(bars + 1);
     }
     __syncwarp();
     if (blockIdx.x * nwarps + warp < tiles) issue(blockIdx.x * nwarps + warp, 0);
@@ -586,7 +523,7 @@ __device__ __forceinline__ void rows_body(const Args<T>& a) {
     const bool ahead = a.stages == 2 && tile + stride < tiles;
     if (ahead) issue(tile + stride, s ^ 1);
     if constexpr (G_::kVec) {
-      bar_wait(bars + s, (phase >> s) & 1u);
+      vp::bar_wait(bars + s, (phase >> s) & 1u);
       phase ^= 1u << s;
     }
     __syncwarp();

@@ -9,13 +9,15 @@ resolves the hparams as it does (model-class defaults, then
 ``--model_hparams_dict``, then ``--model_hparams``; the dataset's sequence
 structure fills what neither set), writes the run directory's option files,
 builds the model and its train state from ``--seed``, restores
-``checkpoints/train_state.pt`` with ``--resume`` (and draws the data stream
-up to the restored step, so that a resumed run equals an unbroken one), then
-runs the train step until ``max_steps``. Every ``--progress_freq`` steps it prints ``step N:
-g_loss= d_loss= steps/s= frames/s=`` (frames per step = batch x (T -
-context)); every ``--summary_freq`` steps the loss terms and the schedule
-scalars (``lr``, ``schedule_sampling_prob``, ``kl_weight``) at the step the
-losses were taken; every ``--eval_summary_freq`` and
+``checkpoints/train_state.pt`` with ``--resume`` (the step, the model, both
+Adams and the noise generator; the data stream starts afresh from
+``--seed``, at the batch that fixed the shapes, as ``scripts/train.py``'s
+does), then runs the train step until ``max_steps``. Every
+``--progress_freq`` steps it prints ``step N: g_loss= d_loss= steps/s=
+frames/s=`` (frames per step = batch x (T - context)); every
+``--summary_freq`` steps the loss terms and the schedule scalars (``lr``,
+``schedule_sampling_prob``, ``kl_weight``) at the step the losses were
+taken; every ``--eval_summary_freq`` and
 ``--accum_eval_summary_freq`` steps the eval metrics (``eval/*`` and
 ``accum_eval/*``: the prior rollout's PSNR, SSIM and MSE) averaged over 8
 and 64 validation batches, drawn from one ``val`` iterator that walks on
@@ -116,10 +118,10 @@ def main(argv=None) -> Dict[str, object]:
     print(f"device: {device}; generator params: {param_count(g_params):,}; "
           f"discriminator params: {param_count(d_params):,}")
     if args.resume and has_train_state(args.output_dir):
+        # the whole train state; the data stream is not replayed up to the
+        # step: training goes on from the batch above, as in the JAX CLI
         load_train_state(args.output_dir, ts)
         print(f"resumed from step {ts.step}")
-        for _ in range(ts.step):  # replay the data stream up to the step, so a resumed run sees what an unbroken one does
-            batch = next(train_iter)
     train_step = make_train_step(model)
     eval_step = make_eval_step(model)
     # one persistent val iterator: successive eval firings walk on through the
