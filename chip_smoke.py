@@ -52,7 +52,26 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 13. PSNR and SSIM on the card against the CPU with cuDNN's TF32 left on, VGG
     and LPIPS with it off (and how far TF32 moves them);
 14. time one evaluate batch at the defaults, split into the rollout and the
-    metrics, with PSNR/SSIM alone and with VGG and LPIPS.
+    metrics, with PSNR/SSIM alone and with VGG and LPIPS;
+15. the bf16 model (``hparams/bair_action_free/ours_savp_tpu``: the
+    flagship's widths, bf16 compute and gates, batch 64) from a run
+    directory with seeded random weights: ``generate`` and ``evaluate`` at
+    their defaults (``evaluate`` best of 8); check finite outputs, the launch
+    counts per rollout and the dtype of every launch (K1 and K3 fp32, K2
+    bf16);
+16. the GPU bf16 rollout (kernels) against the CPU bf16 rollout (plain
+    versions) of the same weights, batch and z, batch 2, TF32 off, under the
+    ratio rule: max|GPU bf16 - CPU bf16| <= 2 max|CPU bf16 - CPU fp32| (the
+    fp32 rollout of the same weights);
+17. ``train``'s ``main`` on ``ours_savp_tpu`` at batch 64: 2 steps, then
+    ``--resume`` for a third; finite losses, launch counts and dtypes per
+    step; then one GPU bf16 train step against the CPU bf16 step at ngf=8,
+    from each of two seeds, against the CPU fp32 step: each loss term within
+    2 times the CPU bf16 term's distance from the fp32 one (a GAN term plus
+    one bf16 ulp of its logit), each gradient leaf within 4 times that
+    distance plus one rounding of its largest entry;
+18. time the bf16 rollout at batch 8 and 64, the bf16 train step at batch 16
+    and 64 with its peak device memory, and one bf16 evaluate batch.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -79,7 +98,14 @@ calls. Its fields:
 - ``library_ms``: the device time of the one PyTorch call that computes the
   same function on the same inputs, where there is one (K1: a grouped
   ``F.conv2d`` and its ``convolution_backward``, TF32 off, inputs laid out
-  beforehand), else null.
+  beforehand), else null;
+- K2's forward and backward entries also have ``"bfloat16"``: K2 on bf16
+  z and c at the bf16 model's shapes (forward at the generation batch 8,
+  the rollout batch 64 and the train step's doubled batch 128; backward at
+  128), each with ``device_ms`` (a step of six calls; ``per_width_ms`` a
+  call at each width), ``ms`` and ``plain_ms`` (a step, as above),
+  ``bytes``, ``bound_ms``, ``share_of_bound`` and ``max_abs_err`` against
+  the plain version, and ``launches`` (phase 17's three train steps).
 
 The line before it is the ``nvidia-smi`` identity, and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -90,6 +116,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -130,6 +157,23 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL, TRAIN_GRAD_MEDIAN_TOL, TRAIN_GRAD_FLOOR = 1e-2, 1e-4, 1e-5
 WORK_DIR = os.path.join(ROOT, "build", "chip_smoke")
 TRAIN_STEPS = 4  # phase 8: 3 steps, then a resumed 4th
+BF16_TRAIN_STEPS = 3  # phase 17: 2 steps, then a resumed 3rd
+# the dtype each kernel runs in, in the bf16 model: fp32 images, CDNA kernels
+# and (exactly cast) mask logits; bf16 ConvLSTM gates and states
+BF16_MODEL_DTYPES = {"apply_cdna_kernels": "float32", "fused_ln_gate": "bfloat16", "composite": "float32",
+                     "apply_cdna_kernels_backward": "float32", "fused_ln_gate_backward": "bfloat16",
+                     "composite_backward": "float32"}
+# the rule for bf16 against the plain versions: max|GPU bf16 - CPU bf16| at
+# most BF16_RATIO times max|CPU bf16 - CPU fp32|, from the same weights
+BF16_RATIO = 2.0
+# phase 17's train step, each loss term and each gradient leaf on its own:
+# the terms by BF16_RATIO (the GAN terms plus one bf16 ulp of their logit,
+# ``term_floor``), the leaves
+# by BF16_GRAD_RATIO plus one bf16 rounding of the leaf's largest fp32 entry
+# (tests/test_torch_bf16.py holds the CPU step to the JAX one by the same rule)
+BF16_GRAD_RATIO = 4.0
+BF16_ROUNDING = 2.0**-8
+BF16_STEP_SEEDS = (17, 27)  # two witnesses: weights, batch and noise from each
 
 
 class SmokeFailure(Exception):
@@ -932,13 +976,14 @@ def metrics_phase(dev, vgg_path: str, lin_path: str) -> None:
     set_tf32_default()
 
 
-def eval_timing_phase(model, dev, ident: str, vgg_path: str, lin_path: str) -> None:
+def eval_timing_phase(model, dev, ident: str, vgg_path: str = "", lin_path: str = "", label: str = "") -> None:
     """Phase 14: one evaluate batch at the defaults (8 examples x 8 samples in
     one rollout of 64), cuDNN's default TF32, as the CLI runs it: tile and
     roll out, the metrics of the chunk with the running best-of-N, and the
-    copies to the host; with PSNR/SSIM alone and with VGG and LPIPS added.
-    CUDA events at the part boundaries of each of 10 batches after 3
-    warm-up batches, so that the parts add up to the batch."""
+    copies to the host; with PSNR/SSIM alone and, given their weights, with
+    VGG and LPIPS added. CUDA events at the part boundaries of each of 10
+    batches after 3 warm-up batches, so that the parts add up to the batch.
+    ``label`` names the model in the lines."""
     from video_prediction_torch.evaluate import BestOfN, metric_fns, sample_chunks
 
     set_tf32_default()
@@ -947,7 +992,10 @@ def eval_timing_phase(model, dev, ident: str, vgg_path: str, lin_path: str) -> N
     rng = torch.Generator(device=dev).manual_seed(14)
     iters, warmup = 10, 3
     with torch.inference_mode():
-        for label, fns in (("PSNR/SSIM", metric_fns(dev)), ("PSNR/SSIM/VGG/LPIPS", metric_fns(dev, vgg_path, lin_path))):
+        runs = [("PSNR/SSIM", metric_fns(dev))]
+        if vgg_path:
+            runs.append(("PSNR/SSIM/VGG/LPIPS", metric_fns(dev, vgg_path, lin_path)))
+        for metrics_label, fns in runs:
             parts = []  # (rollout, metrics, whole batch) ms
             torch.cuda.reset_peak_memory_stats()
             for i in range(warmup + iters):
@@ -967,9 +1015,338 @@ def eval_timing_phase(model, dev, ident: str, vgg_path: str, lin_path: str) -> N
             peak = torch.cuda.max_memory_allocated() / 2**30
             rollout_ms, metrics_ms, batch_ms = (sum(p[j] for p in parts) / iters for j in range(3))
             spread = max(p[2] for p in parts) - min(p[2] for p in parts)
-            print(f"evaluate batch 8 x 8 samples, {label}, TF32 convs: rollout {rollout_ms:.2f} ms, metrics "
+            print(f"evaluate batch 8 x 8 samples, {label + ', ' if label else ''}{metrics_label}, TF32 convs: "
+                  f"rollout {rollout_ms:.2f} ms, metrics "
                   f"{metrics_ms:.2f} ms, whole batch {batch_ms:.2f} ms (max - min over {iters}: {spread:.2f} ms), "
                   f"{8e3 / batch_ms:.1f} evaluated examples/s; peak memory {peak:.2f} GiB [{ident}]")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 model (phases 15-18)
+# ---------------------------------------------------------------------------
+def tpu_hparams():
+    """``savp`` defaults overridden by ``bair_action_free/ours_savp_tpu``: the
+    flagship's widths, bf16 compute and gates, split gate convs, batch 64."""
+    from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
+    from video_prediction_torch.models import get_model_class
+
+    zoo = zoo_dir() / "bair_action_free" / "ours_savp_tpu" / "model_hparams.json"
+    hp = resolve_model_hparams(get_model_class("savp").default_hparams(), str(zoo))
+    got = (hp.ngf, hp.nz, hp.sequence_length, hp.compute_dtype, hp.gate_dtype, hp.lstm_gate_conv, hp.batch_size)
+    check(got == (32, 8, 12, "bfloat16", "bfloat16", "split", 64), f"unexpected ours_savp_tpu config {got}")
+    return hp
+
+
+def check_launch_dtypes(label: str) -> dict:
+    """Every launch since the last reset ran in its ``BF16_MODEL_DTYPES`` dtype."""
+    from video_prediction_torch import kernels as K
+
+    dtypes = K.launch_dtypes()
+    for name, by_dtype in dtypes.items():
+        check(set(by_dtype) == {BF16_MODEL_DTYPES[name]},
+              f"{label}: {name} launched on {by_dtype}, want only {BF16_MODEL_DTYPES[name]}")
+    check("fused_ln_gate" in dtypes, f"{label}: K2 did not launch")
+    return dtypes
+
+
+def ratio_check(label: str, gpu16, cpu16, cpu32) -> float:
+    """The bf16 rule; returns max|GPU bf16 - CPU bf16| / max|CPU bf16 - CPU fp32|."""
+    lhs = float((gpu16.detach().float().cpu() - cpu16.detach().float()).abs().max())
+    rhs = float((cpu16.detach().float() - cpu32.detach().float()).abs().max())
+    check(bool(torch.isfinite(gpu16).all()), f"{label}: the GPU bf16 values are not finite")
+    check(rhs > 0.0, f"{label}: the CPU bf16 values equal the fp32 ones; the rule would say nothing")
+    check(lhs <= BF16_RATIO * rhs, f"{label}: max|GPU bf16 - CPU bf16| {lhs:.3g} > {BF16_RATIO} x "
+                                   f"max|CPU bf16 - CPU fp32| {rhs:.3g}")
+    return lhs / rhs
+
+
+def bf16_generate_evaluate_phase():
+    """Phase 15: ``generate`` and ``evaluate`` at their defaults on a run
+    directory of the bf16 model with seeded random weights; returns the model."""
+    import numpy as np
+
+    from video_prediction_torch import evaluate, generate
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import DatasetHparams
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.checkpoint import write_run_dir
+
+    set_tf32_default()
+    hp = tpu_hparams()
+    model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(10))
+    run_dir = os.path.join(WORK_DIR, "tpu_run")
+    write_run_dir(run_dir, "savp", "synthetic", hp, DatasetHparams(context_frames=2, sequence_length=12), model)
+    results = os.path.join(WORK_DIR, "tpu_results")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = generate.main(["--checkpoint", run_dir, "--results_dir", results, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, rollouts = K.launch_counts(), summary["rollouts"]
+    dtypes = check_launch_dtypes("generate bf16")
+    print(f"generate ours_savp_tpu (bf16): {rollouts} rollouts of 8, {summary['gifs']} GIFs, {wall:.2f} s wall; "
+          f"launches {launches}; by dtype {dtypes}")
+    check(rollouts == 2 and summary["gifs"] == 16, f"unexpected generate summary {summary}")
+    check(summary["all_finite"], "generate (bf16) produced non-finite values")
+    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(launches == want, f"generate bf16 kernel launches {launches}, want {want}")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = evaluate.main(["--checkpoint", run_dir, "--results_dir", results, "--device", "cuda",
+                             "--num_stochastic_samples", "8"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, rollouts = K.launch_counts(), summary["rollouts"]
+    dtypes = check_launch_dtypes("evaluate bf16")
+    print(f"evaluate ours_savp_tpu (bf16): {rollouts} rollouts of 64 (32 examples, best of 8), {wall:.2f} s wall; "
+          f"means {summary['metrics']}; launches {launches}; by dtype {dtypes}")
+    check(rollouts == 4, f"unexpected evaluate summary {summary}")
+    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(launches == want, f"evaluate bf16 kernel launches {launches}, want {want}")
+    for name in ("psnr", "ssim"):
+        best = read_metric(summary["results_dir"], f"{name}_max", (32, 10))
+        mean = read_metric(summary["results_dir"], f"{name}_avg", (32, 10))
+        check(bool(np.isfinite(best).all() and np.isfinite(mean).all()), f"bf16 {name}: non-finite values")
+        check(bool((best >= mean - 1e-6).all()), f"bf16 {name}: max below avg")
+    return model
+
+
+def bf16_cpu_vs_gpu_phase(model, dev) -> None:
+    """Phase 16: the bf16 rollout on the GPU (kernels) and on the CPU (plain
+    versions), batch 2, TF32 off, under the rule against the CPU fp32 rollout
+    of the same weights."""
+    from video_prediction_torch.models import get_model_class
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fp32 = get_model_class("savp")(model.hparams.replace(compute_dtype="float32", gate_dtype="float32"),
+                                   image_shape=(64, 64, 3), action_dim=4)
+    fp32.load_state_dict(model.state_dict())
+    gpu_model = copy.deepcopy(model).to(dev).eval()
+    batch = synthetic_batch(2, seed=16, device="cpu")
+    z = torch.randn(2, 11, 8, generator=torch.Generator().manual_seed(16))
+    with torch.inference_mode():
+        cpu16 = model.eval()(batch, zs_prior=z)["gen_images"]
+        cpu32 = fp32.eval()(batch, zs_prior=z)["gen_images"]
+        gpu16 = gpu_model({k: v.to(dev) for k, v in batch.items()}, zs_prior=z.to(dev))["gen_images"]
+    ratio = ratio_check("bf16 rollout", gpu16, cpu16, cpu32)
+    print(f"rollout GPU vs CPU, batch 2, bf16 (TF32 off): max|GPU bf16 - CPU bf16| "
+          f"{float((gpu16.cpu() - cpu16).abs().max()):.3g}, max|CPU bf16 - CPU fp32| "
+          f"{float((cpu16 - cpu32).abs().max()):.3g}: ratio {ratio:.3f} (rule {BF16_RATIO})")
+    set_tf32_default()
+
+
+def bf16_train_phase(dev) -> dict:
+    """Phase 17: ``train``'s ``main`` on ``ours_savp_tpu`` at batch 64, 2
+    steps, then ``--resume`` for a third; then one GPU bf16 train step against
+    the CPU's at ngf=8 (``bf16_step_check``), from each of two seeds.
+    Returns the launch counts of the 3 CLI steps."""
+    import shutil
+
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    set_tf32_default()
+    run_dir = os.path.join(WORK_DIR, "tpu_train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--dataset", "synthetic", "--model", "savp",
+            "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp_tpu" / "model_hparams.json"),
+            "--output_dir", run_dir, "--device", "cuda", "--progress_freq", "1", "--save_freq", "1000"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_main(argv + ["--max_steps", "2"])
+    resumed = train_main(argv + ["--max_steps", "3", "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    dtypes = check_launch_dtypes("train bf16")
+    print(f"train ours_savp_tpu (bf16), batch 64: 2 steps then a resumed 3rd, {wall:.2f} s wall; last losses "
+          f"{resumed['scalars']}; launches {launches}; by dtype {dtypes}")
+    check(first["all_finite"] and resumed["all_finite"], "train (bf16) produced non-finite losses")
+    check((first["start_step"], first["step"], resumed["start_step"], resumed["step"]) == (0, 2, 2, 3),
+          f"unexpected bf16 train runs {first}, {resumed}")
+    want = {k: n * BF16_TRAIN_STEPS for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
+    check(launches == want, f"train bf16 kernel launches {launches}, want {want}")
+
+    for seed in BF16_STEP_SEEDS:
+        bf16_step_check(dev, seed)
+    return launches
+
+
+def term_floor(name: str, value: float) -> float:
+    """One bf16 ulp of the logit behind a GAN log-loss term (a mean of
+    softplus of the discriminator's bf16 logits): dL = (1 - e^-L) du, with
+    |u| = |log(e^L - 1)|. At L = 4e-5 (logits near -10, ulp 0.0625) one ulp
+    moves the term by 6%, so two bf16 runs may differ there by more than
+    either differs from fp32. 0 for the other terms, which the ratio alone
+    holds."""
+    if "gan" in name and not name.endswith("feat") and value > 0.0:
+        _, exp = math.frexp(abs(math.log(math.expm1(value))))  # |u| = m 2^exp, 0.5 <= m < 1
+        return 2.0 ** (exp - 8) * -math.expm1(-value)
+    return 0.0
+
+
+def bf16_step_readings(dev, seed: int) -> dict:
+    """One train step of ``ours_savp_tpu`` at ngf=8 (64 px, 6 frames, batch
+    2, the KL at full weight from step 0), TF32 off, with weights, batch and
+    noise from ``seed``: on the CPU in fp32 and bf16 (plain versions) and on
+    the GPU in bf16 (kernels). Returns ``{"terms": {name: (cpu32, cpu16,
+    gpu16)}, "leaves": {name: (max|GPU bf16 - CPU bf16|, max|CPU bf16 - CPU
+    fp32|, max|CPU fp32|)}}``."""
+    from video_prediction_torch.models import get_model_class
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = tpu_hparams().replace(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2, kl_anneal="none")
+    cpu16 = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    cpu16.init_weights(torch.Generator().manual_seed(seed))
+    cpu32 = get_model_class("savp")(hp.replace(compute_dtype="float32", gate_dtype="float32"),
+                                    image_shape=(64, 64, 3), action_dim=4)
+    cpu32.load_state_dict(cpu16.state_dict())
+    gpu16 = copy.deepcopy(cpu16).to(dev)
+    batch = {k: v[:, :6] for k, v in synthetic_batch(2, seed=seed, device="cpu").items()}
+    noise = cpu16.draw_noise(2, 6, torch.Generator().manual_seed(seed + 1))
+    runs = {}
+    for key, m, on in (("cpu32", cpu32, "cpu"), ("cpu16", cpu16, "cpu"), ("gpu16", gpu16, dev)):
+        total, aux = m.compute_losses({k: v.to(on) for k, v in batch.items()}, 0,
+                                      noise={k: v.to(on) if torch.is_tensor(v) else v for k, v in noise.items()})
+        total.backward()
+        runs[key] = ({k: float(v.detach()) for k, v in {**aux["g_losses"], **aux["d_losses"]}.items()},
+                     {n: p.grad.detach().float().cpu() for n, p in m.named_parameters()})
+    set_tf32_default()
+    check(sorted(runs["gpu16"][0]) == sorted(runs["cpu16"][0]), "bf16 loss terms differ")
+    check(sorted(runs["gpu16"][1]) == sorted(runs["cpu16"][1]), "bf16 parameters differ")
+    (l32, g32), (l16, g16), (lg, gg) = runs["cpu32"], runs["cpu16"], runs["gpu16"]
+    return {"terms": {t: (l32[t], l16[t], lg[t]) for t in sorted(l16)},
+            "leaves": {n: (float((gg[n] - g16[n]).abs().max()), float((g16[n] - g32[n]).abs().max()),
+                           float(g32[n].abs().max())) for n in sorted(g16)}}
+
+
+def bf16_step_check(dev, seed: int) -> None:
+    """Phase 17's second part: the GPU bf16 step against the CPU's, each
+    loss term by BF16_RATIO plus ``term_floor``, each gradient leaf by
+    BF16_GRAD_RATIO plus one rounding of its largest fp32 entry."""
+    r = bf16_step_readings(dev, seed)
+    term_ratios, leaf_ratios = {}, {}
+    for t, (c32, c16, g16) in r["terms"].items():
+        check(math.isfinite(g16), f"bf16 step (seed {seed}): loss {t} is not finite")
+        lhs, rhs = abs(g16 - c16), abs(c16 - c32)
+        allowed = BF16_RATIO * rhs + term_floor(t, c32)
+        check(lhs <= allowed, f"bf16 step (seed {seed}): loss {t}: |GPU bf16 - CPU bf16| {lhs:.3g} > {BF16_RATIO} x "
+                              f"|CPU bf16 - CPU fp32| {rhs:.3g} + a logit's ulp {term_floor(t, c32):.3g} "
+                              f"(CPU fp32 {c32:.6g}, CPU bf16 {c16:.6g}, GPU bf16 {g16:.6g})")
+        term_ratios[t] = lhs / allowed if allowed else 0.0
+    for n, (lhs, rhs, scale) in r["leaves"].items():
+        check(math.isfinite(lhs), f"bf16 step (seed {seed}): the gradient of {n} is not finite")
+        allowed = BF16_GRAD_RATIO * rhs + BF16_ROUNDING * scale
+        check(lhs <= allowed, f"bf16 step (seed {seed}): gradient {n}: max|GPU bf16 - CPU bf16| {lhs:.3g} > "
+                              f"{BF16_GRAD_RATIO} x max|CPU bf16 - CPU fp32| {rhs:.3g} + one rounding of its "
+                              f"max {BF16_ROUNDING * scale:.3g}")
+        leaf_ratios[n] = lhs / rhs if rhs else 0.0
+    worst = sorted(leaf_ratios.items(), key=lambda kv: -kv[1])[:3]
+    print(f"train step GPU vs CPU, ngf=8, batch 2, bf16 (TF32 off), seed {seed}: {len(term_ratios)} loss terms and "
+          f"{len(leaf_ratios)} gradient leaves each within its rule; share of the allowed difference used by the "
+          f"worst term {max(term_ratios.values()):.3f}; largest leaf ratios max|GPU - CPU bf16| / max|CPU bf16 - "
+          f"fp32| {', '.join(f'{n} {v:.2f}' for n, v in worst)} (rule {BF16_GRAD_RATIO}); per term (CPU fp32, "
+          f"CPU bf16, GPU bf16): { {t: tuple(f'{v:.6g}' for v in vals) for t, vals in r['terms'].items()} }")
+
+
+def ln_gate_bf16_entries(dev) -> tuple:
+    """K2 on bf16 z and c at the bf16 model's shapes (``bench.BF16_LN_GATE``):
+    a step of six calls' device time, bytes and bound, and the largest error
+    against the plain version; (forward, backward) sub-entries."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import BF16_LN_GATE, ln_gate_step_ms, ln_gate_widths, ln_inputs
+
+    labels = {8: "generation batch 8", 64: "rollout batch 64", 128: "train step batch 128"}
+    entries = ({}, {})
+    for (name, batches), out in zip(BF16_LN_GATE.items(), entries):
+        backward = name.endswith("backward")
+        for batch in batches:
+            g = torch.Generator(device=dev).manual_seed(batch)
+            err, ms, plain_ms = 0.0, {}, {}
+            for cdim, px in sorted(set(RL.LN_GATE_STEP)):
+                z, c, lnp, d1, d2 = ln_inputs(g, batch * px * px, cdim, dev, torch.bfloat16)
+                if backward:
+                    ms[cdim] = cuda_ms(lambda: K.fused_ln_gate_backward(z, c, lnp, d1, d2), iters=10)
+                    plain_ms[cdim] = plain_backward_ms(K.fused_ln_gate_reference, (z, c, lnp), (d1, d2))
+                else:
+                    ms[cdim] = cuda_ms(lambda: K.fused_ln_gate(z, c, lnp), iters=10)
+                    plain_ms[cdim] = cuda_ms(lambda: K.fused_ln_gate_reference(z, c, lnp), iters=10)
+                if backward:
+                    outs = K.fused_ln_gate_backward(z, c, lnp, d1, d2)
+                    refs = plain_grads(K.fused_ln_gate_reference, (z, c, lnp), (d1, d2))
+                    errs = [max_err(outs[0], refs[0], "bfloat16"), max_err(outs[1], refs[1], "bfloat16"),
+                            reduction_err(outs[2], refs[2])]
+                else:
+                    errs = [max_err(o, r, "bfloat16") for o, r in zip(K.fused_ln_gate(z, c, lnp),
+                                                                       K.fused_ln_gate_reference(z, c, lnp))]
+                check(all(ok for _, ok in errs), f"K2 {name} bf16 batch {batch} C={cdim}: {errs}")
+                err = max(err, *(e for e, _ in errs))
+            fn = K.fused_ln_gate_backward if backward else (lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp))
+            widths = ln_gate_widths(fn, batch, dev, 20, dtype=torch.bfloat16)
+            sub = dict(max_abs_err=err, ms=ln_gate_step_ms(ms), plain_ms=ln_gate_step_ms(plain_ms),
+                       device_ms=ln_gate_step_ms(widths), per_width_ms={str(c): t for c, t in widths.items()})
+            count = RL.ln_gate_backward if backward else RL.ln_gate_forward
+            out[labels[batch]] = roofline(sub, count(RL.ln_gate_step(batch), itemsize=2))
+            print(f"K2 {'backward' if backward else 'forward'} per generator step (6 calls), bf16, batch {batch}: "
+                  f"device {sub['device_ms']:.4f} ms (bound {sub['bound_ms']:.4f} ms, "
+                  f"{100 * sub['share_of_bound']:.1f}% of it), {sub['bytes'] / 1e6:.2f} MB, a call at C = "
+                  f"{', '.join(f'{c}: {t:.4f}' for c, t in widths.items())} ms; host-paced kernel {sub['ms']:.4f} ms, "
+                  f"plain {sub['plain_ms']:.4f} ms; max_abs_err {err:.3g}")
+    return entries
+
+
+def bf16_timing_phase(model, dev, ident: str) -> None:
+    """Phase 18: the bf16 rollout at batch 8 and 64, the bf16 train step at
+    batch 16 and 64 with its peak memory, and one bf16 evaluate batch, at the
+    CLIs' TF32 default (cuDNN's TF32 convs; the bf16 convs are bf16 either way)."""
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.state import create_train_state
+    from video_prediction_torch.train.step import make_train_step
+
+    set_tf32_default()
+    gpu_model = copy.deepcopy(model).to(dev).eval()
+    for bsz in (8, 64):
+        batch = synthetic_batch(bsz, seed=18, device=dev)
+        z = torch.randn(bsz, 11, 8, device=dev, generator=torch.Generator(device=dev).manual_seed(18))
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: gpu_model(batch, zs_prior=z), iters=10, warmup=3)
+        print(f"rollout batch {bsz}, bf16 (ours_savp_tpu): {ms:.2f} ms, {bsz * 10 / ms * 1e3:.0f} generated "
+              f"frames/s [{ident}]")
+    eval_timing_phase(gpu_model, dev, ident, label="bf16 (ours_savp_tpu)")
+    del gpu_model
+    hp = tpu_hparams()
+    for bsz in (16, 64):
+        m = get_model_class("savp")(hp.replace(batch_size=bsz), image_shape=(64, 64, 3), action_dim=4)
+        ts = create_train_state(m, 0, dev)
+        step = make_train_step(m)
+        data = synthetic_batch(bsz, seed=19, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step(ts, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 3
+        for _ in range(n):
+            scalars = step(ts, data)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(all(bool(torch.isfinite(v)) for v in scalars.values()), "timed bf16 train steps gave non-finite losses")
+        print(f"train step batch {bsz}, bf16 (ours_savp_tpu): {ms:.2f} ms, {bsz * 10 / ms * 1e3:.1f} frames/s, "
+              f"peak memory {peak:.2f} GiB [{ident}]")
+        del ts, step, m
+        torch.cuda.empty_cache()
 
 
 def set_tf32_default() -> None:
@@ -1025,6 +1402,8 @@ def main() -> int:
 
         # 4. backward kernels against autograd of their plain versions
         kernel_results += backward_phase(dev)
+        # and K2 on bf16 z and c at the bf16 model's shapes (its launches: phase 17)
+        k2_bf16 = dict(zip(("fused_ln_gate", "fused_ln_gate_backward"), ln_gate_bf16_entries(dev)))
         torch.cuda.synchronize()
 
         # 5. the generation entry point at full width
@@ -1068,6 +1447,23 @@ def main() -> int:
         gpu_model = copy.deepcopy(model).to(dev).eval()
         eval_timing_phase(gpu_model, dev, ident, vgg_path, lin_path)
         del gpu_model
+
+        # 15. the bf16 model: generate and evaluate at their defaults
+        bf16_model = bf16_generate_evaluate_phase()
+
+        # 16. its GPU rollout against the CPU's, under the bf16 rule
+        bf16_cpu_vs_gpu_phase(bf16_model, dev)
+
+        # 17. its training entry point at batch 64, with a resume; one step GPU vs CPU
+        launches = bf16_train_phase(dev)
+        for entry, sub in k2_bf16.items():
+            for part in sub.values():
+                part["launches"] = launches[entry]
+                part["launches_per_train_step"] = launches[entry] // BF16_TRAIN_STEPS
+            next(e for e in kernel_results if e["name"] == entry)["bfloat16"] = sub
+
+        # 18. bf16 times: rollout, evaluate batch, train step and its memory
+        bf16_timing_phase(bf16_model, dev, ident)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

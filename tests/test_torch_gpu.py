@@ -2,7 +2,8 @@
 plain PyTorch versions (the backward against autograd of the plain
 version), also at the evaluate path's shapes (8 examples x 8 samples, and
 SV2P's 6 candidates), a small GPU rollout and train step against the CPU
-ones, and SSIM on the card against the CPU. Every test needs a CUDA
+ones (fp32, and the bf16 model with the dtype of every launch), and SSIM on
+the card against the CPU. Every test needs a CUDA
 device and skips without one. This file imports no jax, so that it runs on a
 GPU machine without jax:
 
@@ -370,3 +371,39 @@ def test_small_rollout_gpu_matches_cpu(dev, no_tf32):
                                  "apply_cdna_kernels_backward": 0, "fused_ln_gate_backward": 0,
                                  "composite_backward": 0}
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)
+
+
+def test_small_bf16_model_gpu_matches_cpu(dev, no_tf32):
+    """The bf16 model (``ours_savp_tpu``: bf16 compute and gates) at ngf=8, 64
+    px, 6 frames: a rollout and a loss backward on the card launch K1 and K3
+    on fp32 tensors and K2 on bf16 ones, and the GPU rollout stays within
+    twice the CPU bf16 rollout's distance from the CPU fp32 one (same weights,
+    batch and z)."""
+    cls = get_model_class("savp")
+    hp = resolve_model_hparams(
+        cls.default_hparams(), str(zoo_dir() / "bair_action_free" / "ours_savp_tpu" / "model_hparams.json"),
+        extra=dict(ngf=8, nef=8, ndf=8, sequence_length=6),
+    )
+    model = cls(hp, image_shape=(64, 64, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(0))
+    fp32 = cls(hp.replace(compute_dtype="float32", gate_dtype="float32"), image_shape=(64, 64, 3), action_dim=4)
+    fp32.load_state_dict(model.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batch = {"images": torch.rand(2, 6, 64, 64, 3, generator=g), "actions": torch.randn(2, 6, 4, generator=g)}
+    z = torch.randn(2, 5, 8, generator=g)
+    with torch.inference_mode():
+        ref16, ref32 = model(batch, zs_prior=z)["gen_images"], fp32(batch, zs_prior=z)["gen_images"]
+    gpu = model.to(dev)
+    gbatch = {k: v.to(dev) for k, v in batch.items()}
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        out = gpu(gbatch, zs_prior=z.to(dev))["gen_images"].cpu()
+    total, _ = gpu.compute_losses(gbatch, 0, generator=torch.Generator(device=dev).manual_seed(2))
+    total.backward()
+    torch.cuda.synchronize()
+    assert K.launch_dtypes() == {"apply_cdna_kernels": {"float32": 10}, "fused_ln_gate": {"bfloat16": 60},
+                                 "composite": {"float32": 10}, "apply_cdna_kernels_backward": {"float32": 5},
+                                 "fused_ln_gate_backward": {"bfloat16": 30}, "composite_backward": {"float32": 5}}
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    rhs = float((ref16 - ref32).abs().max())
+    assert rhs > 0.0 and float((out - ref16).abs().max()) <= 2.0 * rhs

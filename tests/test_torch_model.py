@@ -157,7 +157,7 @@ def test_images_to_float():
 
 def test_unported_options_raise():
     for extra in (dict(transformation="dna"), dict(learn_prior=True), dict(conv_rnn="gru"),
-                  dict(compute_dtype="bfloat16"), dict(use_states=True)):
+                  dict(use_states=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
     # unported loss weights: the model builds and rolls out; its losses raise

@@ -6,8 +6,9 @@ CUDA tensors, a ``torch.autograd.Function`` that launches the forward CUDA
 kernel and whose backward launches the backward CUDA kernel (through the
 ``*_backward`` wrappers), raising on any input the kernels do not take.
 There is no fallback from a CUDA tensor to the plain version. Each of the
-six wrappers carries a ``launches`` counter, incremented once per launch of
-its kernel.
+six wrappers carries ``launches``, its kernel's launches counted by the
+dtype of the tensors (``{"float32": n, "bfloat16": m}``), one added per
+launch.
 """
 
 from __future__ import annotations
@@ -43,14 +44,20 @@ __all__ = [
     "fused_ln_gate_backward",
     "fused_ln_gate_reference",
     "launch_counts",
+    "launch_dtypes",
     "reset_launch_counts",
 ]
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
+        fn.launches = {}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: sum(fn.launches.values()) for name, fn in WRAPPERS.items()}
+
+
+def launch_dtypes() -> Dict[str, Dict[str, int]]:
+    """Each wrapper's launches by dtype, where it launched."""
+    return {name: dict(fn.launches) for name, fn in WRAPPERS.items() if fn.launches}

@@ -162,6 +162,13 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel on ``dtype`` tensors, counted in
+    its ``launches`` (``{"float32": n, "bfloat16": m}``)."""
+    key = str(dtype).replace("torch.", "")
+    wrapper.launches[key] = wrapper.launches.get(key, 0) + 1
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)

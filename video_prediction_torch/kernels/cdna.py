@@ -57,7 +57,7 @@ def _forward_kernel(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
         "vp_cdna_forward", image.data_ptr(), kernels.data_ptr(), out.data_ptr(),
         b, h, w, c, kh, kw, n, _lib.dtype_code(image), device=image.device,
     )
-    apply_cdna_kernels.launches += 1
+    _lib.count_launch(apply_cdna_kernels, image.dtype)
     return out
 
 
@@ -85,7 +85,7 @@ def apply_cdna_kernels_backward(
         d_kernels.data_ptr(), partial.data_ptr(), b, h, w, c, kh, kw, n, tiles, _lib.dtype_code(image),
         device=image.device,
     )
-    apply_cdna_kernels_backward.launches += 1
+    _lib.count_launch(apply_cdna_kernels_backward, image.dtype)
     return d_image, d_kernels
 
 
@@ -110,5 +110,5 @@ def apply_cdna_kernels(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tens
     return _CDNAFunction.apply(image, kernels)
 
 
-apply_cdna_kernels.launches = 0
-apply_cdna_kernels_backward.launches = 0
+apply_cdna_kernels.launches = {}
+apply_cdna_kernels_backward.launches = {}

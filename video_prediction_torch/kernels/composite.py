@@ -141,7 +141,7 @@ def _forward_kernel(candidates, mask_logits, with_masks):
         masks.data_ptr() if masks is not None else None, b, h * w, k, c, p.staged, p.tile, p.smem,
         _lib.dtype_code(candidates), device=candidates.device,
     )
-    composite.launches += 1
+    _lib.count_launch(composite, candidates.dtype)
     return out, masks
 
 
@@ -167,7 +167,7 @@ def composite_backward(
         d_cand.data_ptr(), d_logits.data_ptr(), b, h * w, k, c, _lib.dtype_code(candidates),
         device=candidates.device,
     )
-    composite_backward.launches += 1
+    _lib.count_launch(composite_backward, candidates.dtype)
     return d_cand, d_logits
 
 
@@ -201,5 +201,5 @@ def composite(
     return _CompositeFunction.apply(candidates, mask_logits, False), None
 
 
-composite.launches = 0
-composite_backward.launches = 0
+composite.launches = {}
+composite_backward.launches = {}

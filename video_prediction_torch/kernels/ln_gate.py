@@ -204,7 +204,7 @@ def _forward_kernel(z, c, ln_params, forget_bias):
         c_new.data_ptr(), h_new.data_ptr(), r, cdim, float(forget_bias), *_plan_args(p), _lib.dtype_code(c),
         device=c.device,
     )
-    fused_ln_gate.launches += 1
+    _lib.count_launch(fused_ln_gate, c.dtype)
     return c_new, h_new
 
 
@@ -234,7 +234,7 @@ def fused_ln_gate_backward(
         d_h_new.data_ptr(), dz.data_ptr(), dc.data_ptr(), d_ln.data_ptr(), partial.data_ptr(), r, cdim,
         float(forget_bias), *_plan_args(p), _lib.dtype_code(c), device=c.device,
     )
-    fused_ln_gate_backward.launches += 1
+    _lib.count_launch(fused_ln_gate_backward, c.dtype)
     return dz, dc, d_ln
 
 
@@ -265,5 +265,5 @@ def fused_ln_gate(
     return _LNGateFunction.apply(z, c, ln_params, forget_bias)
 
 
-fused_ln_gate.launches = 0
-fused_ln_gate_backward.launches = 0
+fused_ln_gate.launches = {}
+fused_ln_gate_backward.launches = {}

@@ -19,6 +19,12 @@ Conventions as in the JAX package: ``batch`` holds ``images [B,T,H,W,C]``
 package draws noise from a key, the port takes it as an input (``zs_prior``
 for the eval rollout; the ``noise`` dict of ``draw_noise`` for training) or
 draws it from an explicit ``torch.Generator``.
+
+``compute_dtype`` bfloat16 builds the generator, the posterior's convs and
+the discriminators in bf16 (``models/base.py:84-112`` of the JAX package);
+the parameters stay fp32, the images and ``gen_images`` too, and the losses
+(``losses.py``) and metrics (``metrics.py``) cast to fp32, as the JAX
+package computes them. There is no loss scaling, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,18 +96,20 @@ class VideoPredictionModel(nn.Module):
         if hp.latent_time_invariant and hp.learn_prior:
             raise ValueError("latent_time_invariant (one z per sequence, SV2P) is incompatible with learn_prior "
                              "(the in-cell prior is per-step by construction)")
-        self.generator = SAVPGenerator(hparams, image_shape, action_dim)
+        # the compute dtype; None: that of the inputs (fp32)
+        dtype = torch.bfloat16 if hp.compute_dtype == "bfloat16" else None
+        self.generator = SAVPGenerator(hparams, image_shape, action_dim, dtype=dtype)
         self.posterior = (
             PosteriorEncoder(image_shape[-1], nz=hparams.nz, nef=hparams.nef,
-                             time_invariant=hparams.latent_time_invariant)
+                             time_invariant=hparams.latent_time_invariant, dtype=dtype)
             if hparams.nz > 0 else None
         )
         self.discriminator = nn.ModuleDict()
         clip_shape = (min(hp.clip_length, hp.sequence_length - 1), image_shape[0], image_shape[1])
         if hp.video_sn_gan_weight:
-            self.discriminator["video"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf)
+            self.discriminator["video"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf, dtype)
         if hp.video_sn_vae_gan_weight:
-            self.discriminator["video_vae"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf)
+            self.discriminator["video_vae"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf, dtype)
 
     @classmethod
     def default_hparams(cls) -> ModelHparams:

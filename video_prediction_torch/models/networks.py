@@ -15,7 +15,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn as nn
 
-from video_prediction_torch.ops.layers import Conv2D, InstanceNorm, lrelu
+from video_prediction_torch.ops.layers import Conv2D, Dense, Dtype, InstanceNorm, lrelu
 from video_prediction_torch.ops.spectral import SpectralConv3D, SpectralDense
 
 
@@ -29,12 +29,14 @@ class PosteriorEncoder(nn.Module):
     (eps 1e-6) after every conv but the first, leaky ReLU 0.2, global average
     pool, dense mu / logvar heads. ``time_invariant`` averages the pooled pair
     features over time before the heads, so both forms have the same
-    parameters.
+    parameters. With ``dtype`` bf16 the convs run in bf16; the norms and the
+    heads have no dtype, as in the JAX package, so they promote to fp32.
     """
 
     n_layers = 3
 
-    def __init__(self, in_channels: int, nz: int = 8, nef: int = 64, time_invariant: bool = False):
+    def __init__(self, in_channels: int, nz: int = 8, nef: int = 64, time_invariant: bool = False,
+                 dtype: Dtype = None):
         super().__init__()
         self.nz = nz
         self.time_invariant = time_invariant
@@ -42,12 +44,12 @@ class PosteriorEncoder(nn.Module):
         f_in = 2 * in_channels
         for i in range(self.n_layers):
             f = nef * min(2**i, 4)
-            self.add_module(f"conv{i}", Conv2D(f_in, f, 4, strides=2))
+            self.add_module(f"conv{i}", Conv2D(f_in, f, 4, strides=2, dtype=dtype))
             if i > 0:
                 self.add_module(f"norm{i}", InstanceNorm(f))
             f_in = f
-        self.mu = nn.Linear(f_in, nz)
-        self.logvar = nn.Linear(f_in, nz)
+        self.mu = Dense(f_in, nz)
+        self.logvar = Dense(f_in, nz)
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t, h, w, c = images.shape
@@ -76,6 +78,7 @@ class VideoSNDiscriminator(nn.Module):
     ``new_u`` maps each layer's name to its advanced power-iteration vector
     (the caller stores it or drops it). ``clip_shape`` (T, H, W) fixes the
     dense layer's input width, as the first clip does for flax's lazy init.
+    Every layer computes in ``dtype`` (that of the clips when None).
     """
 
     # (features as a multiple of ndf, kernel (T, H, W), strides), as in the JAX package
@@ -88,14 +91,14 @@ class VideoSNDiscriminator(nn.Module):
         (4, (3, 4, 4), (2, 2, 2)),
     ]
 
-    def __init__(self, in_channels: int, clip_shape: Tuple[int, int, int], ndf: int = 64):
+    def __init__(self, in_channels: int, clip_shape: Tuple[int, int, int], ndf: int = 64, dtype: Dtype = None):
         super().__init__()
         f_in, shape = in_channels, list(clip_shape)
         for i, (mult, k, s) in enumerate(self.SPEC):
-            self.add_module(f"sn_conv3d{i}", SpectralConv3D(f_in, ndf * mult, k, s))
+            self.add_module(f"sn_conv3d{i}", SpectralConv3D(f_in, ndf * mult, k, s, dtype=dtype))
             f_in = ndf * mult
             shape = [-(-n // st) for n, st in zip(shape, s)]  # SAME: ceil(n / stride)
-        self.sn_fc = SpectralDense(f_in * shape[0] * shape[1] * shape[2], 1)
+        self.sn_fc = SpectralDense(f_in * shape[0] * shape[1] * shape[2], 1, dtype=dtype)
 
     def forward(self, clips: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor], Dict[str, torch.Tensor]]:
         x, feats, new_u = clips, [], {}

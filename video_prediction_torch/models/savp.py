@@ -10,14 +10,29 @@ kernel K3 once (compositing, ``kernels/composite.py``).
 
 Ported: the ``cdna`` transformation, the ``prev``/``first``/``scratch``
 backgrounds, dependent and independent masks, ``where_add``, action
-conditioning, LSTM cells with or without LayerNorm, fp32 compute. The other
+conditioning, LSTM cells with or without LayerNorm, fp32 or bf16 compute
+(``compute_dtype``) and gate maths (``gate_dtype``). The other
 transformations, ``learn_prior``, ``use_states``, ``learn_initial_state``,
-``context_images_background``, GRU cells and bf16 compute raise
-``NotImplementedError`` (ROADMAP.md, queue 1). ``remat``, ``remat_policy``,
-``remat_prevent_cse`` and ``scan_unroll`` steer how JAX lowers its scan;
-they mean nothing to a Python loop and are ignored. The JAX package's two
-compositing forms (fused sum and einsum, ``savp.py:364-390``) are the same
-maths with the same parameters; both are K3 here.
+``context_images_background`` and GRU cells raise ``NotImplementedError``
+(ROADMAP.md, queue 1). ``remat``, ``remat_policy``, ``remat_prevent_cse``
+and ``scan_unroll`` steer how JAX lowers its scan and mean nothing to a
+Python loop, save one choice that follows the JAX condition
+(``savp.py:364-366``): with ``scan_unroll == 0`` (and not ``remat`` with
+``remat_prevent_cse``) the dependent mask head runs as two convs over the
+slices of its kernel plus an add (``_SplitInputConv2D``), else as one conv
+over the concat. The two forms have the same parameters and agree within
+fp32; in bf16 they round differently. The JAX package's two compositing
+forms (fused sum and einsum, ``savp.py:381-390``) are the same fp32 maths;
+both are K3 here.
+
+Dtypes (``video_prediction_tpu/models/savp.py``): with ``compute_dtype``
+bfloat16 the convs, the norms (their statistics in fp32), the ConvLSTM
+states and the CDNA head run in bf16; the images stay fp32. The CDNA
+kernels are normalized in fp32, so K1 takes fp32 images and kernels
+(``:285-288``); the scratch image's sigmoid runs in bf16 and is cast to the
+image dtype (``:345-346``); the mask head reads the candidates cast to the
+compute dtype (``:369``, ``:376``); its logits are cast to fp32, exactly,
+for K3, whose softmax and sum are fp32 (``:381-391``).
 
 Module names follow the flax parameter tree (``stem``, ``down1``,
 ``enc_rnn1``, ..., ``mask_head``) so that ``convert.py`` maps it directly.
@@ -35,10 +50,16 @@ from video_prediction_torch.kernels.composite import composite
 from video_prediction_torch.ops.cdna import apply_cdna_kernels, normalize_kernels
 from video_prediction_torch.ops.layers import (
     Conv2D,
+    Dense,
+    Dtype,
+    add_bias,
+    cast,
+    conv2d_nhwc,
     get_activation,
     get_downsample_layer,
     get_norm_layer,
     get_upsample_layer,
+    split_bias,
     tile_concat,
 )
 from video_prediction_torch.ops.rnn import ConvLSTMCell
@@ -68,12 +89,21 @@ def check_supported(hp: ModelHparams) -> None:
         "learn_initial_state": hp.learn_initial_state,
         "context_images_background": hp.context_images_background,
         "conv_rnn": hp.conv_rnn != "lstm",
-        "compute_dtype": hp.compute_dtype != "float32",
-        "gate_dtype": hp.gate_dtype != "float32",
     }
     for name, bad in unsupported.items():
         if bad:
             raise NotImplementedError(f"{name}={getattr(hp, name)!r} {_NOT_PORTED}")
+
+
+def split_input_conv(conv: Conv2D, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``conv`` of ``concat([a, b], -1)`` as two convs over the slices of its
+    weight and one add, in ``conv.dtype`` (or ``a``'s dtype), then the bias
+    (the JAX package's ``_SplitInputConv2D``, ``savp.py:47-97``)."""
+    dt = conv.dtype or a.dtype
+    w = cast(conv.weight, dt)
+    c1 = a.shape[-1]
+    fused, after = split_bias(conv.bias, dt)
+    return add_bias(conv2d_nhwc(cast(a, dt), w[:, :c1], fused) + conv2d_nhwc(cast(b, dt), w[:, c1:]), after)
 
 
 class SAVPCell(nn.Module):
@@ -84,11 +114,14 @@ class SAVPCell(nn.Module):
     out   = {gen_image, masks?, kernels?}
     """
 
-    def __init__(self, hparams: ModelHparams, num_scales: int, image_channels: int, action_dim: int = 0):
+    def __init__(self, hparams: ModelHparams, num_scales: int, image_channels: int, action_dim: int = 0,
+                 dtype: Dtype = None):
         super().__init__()
         check_supported(hparams)
         hp = self.hparams = hparams
         self.num_scales = num_scales
+        self.dtype = dtype
+        gate_dtype = torch.bfloat16 if hp.gate_dtype == "bfloat16" else torch.float32
         ngf, c = hp.ngf, image_channels
         self.action_dim = action_dim
         z_dim = hp.nz if hp.nz > 0 else 0
@@ -99,24 +132,25 @@ class SAVPCell(nn.Module):
         self.act = get_activation(hp.activation_layer)
 
         def rnn(in_features: int, features: int) -> ConvLSTMCell:
-            return ConvLSTMCell(in_features, features, use_norm=hp.conv_rnn_norm, gate_conv=hp.lstm_gate_conv)
+            return ConvLSTMCell(in_features, features, use_norm=hp.conv_rnn_norm, gate_conv=hp.lstm_gate_conv,
+                                dtype=dtype, gate_dtype=gate_dtype)
 
         # channel order of every concat follows savp.py: input = image, cond,
         # z (:228-232); encoder level = h, z, cond (:251-254); decoder = up(h),
         # skip, z (:268-270)
         stem_in = c + action_dim + (z_dim if hp.where_add in ("input", "all") else 0)
-        self.stem = Conv2D(stem_in, ngf, 3)
-        self.stem_norm = norm(ngf)
+        self.stem = Conv2D(stem_in, ngf, 3, dtype=dtype)
+        self.stem_norm = norm(ngf, dtype)
         for s in range(1, num_scales + 1):
             feats = ngf * 2**s
-            self.add_module(f"down{s}", down(feats // 2, feats))
-            self.add_module(f"down{s}_norm", norm(feats))
+            self.add_module(f"down{s}", down(feats // 2, feats, dtype))
+            self.add_module(f"down{s}_norm", norm(feats, dtype))
             cond_all = action_dim if hp.where_add == "all" else 0
             self.add_module(f"enc_rnn{s}", rnn(feats + z_all + cond_all, feats))
         for s in range(num_scales - 1, -1, -1):
             feats = ngf * 2**s
-            self.add_module(f"up{s}", up(2 * feats, feats))
-            self.add_module(f"up{s}_norm", norm(feats))
+            self.add_module(f"up{s}", up(2 * feats, feats, dtype))
+            self.add_module(f"up{s}_norm", norm(feats, dtype))
             z_dec = z_dim if hp.where_add in ("all", "middle") else 0
             self.add_module(f"dec_rnn{s}", rnn(2 * feats + z_dec, feats))
 
@@ -125,17 +159,19 @@ class SAVPCell(nn.Module):
         num_masks = 0
         if n_trans > 0:
             # GAP over the bottleneck, then Dense(kh*kw*N) (savp.py:283-289)
-            self.cdna_head = nn.Linear(ngf * 2**num_scales, kh * kw * n_trans)
+            self.cdna_head = Dense(ngf * 2**num_scales, kh * kw * n_trans, dtype=dtype)
             num_masks += n_trans * hp.last_frames
         num_masks += int(hp.prev_image_background) + int(hp.first_image_background)
         self.has_scratch = hp.generate_scratch_image or num_masks == 0
         if self.has_scratch:
-            self.scratch_head = Conv2D(ngf, c, 3)
+            self.scratch_head = Conv2D(ngf, c, 3, dtype=dtype)
             num_masks += 1
         self.num_masks = num_masks
         if num_masks > 1:
             mask_in = ngf + num_masks * c if hp.dependent_mask else ngf
-            self.mask_head = Conv2D(mask_in, num_masks, 3)
+            self.mask_head = Conv2D(mask_in, num_masks, 3, dtype=dtype)
+        # the JAX package's ``fused_composite`` (savp.py:364-366)
+        self.split_mask_input = hp.dependent_mask and hp.scan_unroll == 0 and not (hp.remat and hp.remat_prevent_cse)
 
     def rnn_cells(self) -> List[ConvLSTMCell]:
         """Encoder cells (scales 1..S), then decoder cells (scales S-1..0)."""
@@ -143,10 +179,11 @@ class SAVPCell(nn.Module):
         dec = [getattr(self, f"dec_rnn{s}") for s in range(self.num_scales - 1, -1, -1)]
         return enc + dec
 
-    def init_rnn_states(self, batch: int, height: int, width: int, device: torch.device) -> list:
+    def init_rnn_states(self, batch: int, height: int, width: int, device: torch.device,
+                        dtype: torch.dtype = torch.float32) -> list:
         scales = list(range(1, self.num_scales + 1)) + list(range(self.num_scales - 1, -1, -1))
         return [
-            cell.initial_state(batch, height // 2**s, width // 2**s, device)
+            cell.initial_state(batch, height // 2**s, width // 2**s, device, dtype)
             for cell, s in zip(self.rnn_cells(), scales)
         ]
 
@@ -162,7 +199,7 @@ class SAVPCell(nn.Module):
 
         z = x.get("z")
         cond = x.get("action")
-        inputs = image
+        inputs = cast(image, self.dtype or image.dtype)
         if cond is not None:
             inputs = tile_concat(inputs, cond)
         if z is not None and hp.where_add in ("input", "all"):
@@ -199,8 +236,9 @@ class SAVPCell(nn.Module):
         if hp.num_transformed_images > 0:
             kh, kw = hp.kernel_size
             raw = self.cdna_head(bottleneck.mean(dim=(1, 2)))
-            # row-major [kh, kw, N] reshape, as flax's
-            kernels = normalize_kernels(raw.reshape(b, kh, kw, hp.num_transformed_images), hp.kernel_normalization)
+            # row-major [kh, kw, N] reshape, as flax's; normalized in fp32
+            kernels = normalize_kernels(cast(raw.reshape(b, kh, kw, hp.num_transformed_images), torch.float32),
+                                        hp.kernel_normalization)
             aux["kernels"] = kernels
             for f in range(hp.last_frames):
                 parts.append(apply_cdna_kernels(last_images[-(f + 1)], kernels))  # [B,N,H,W,C]
@@ -209,7 +247,7 @@ class SAVPCell(nn.Module):
         if hp.first_image_background:
             parts.append(x["first_image"][:, None])
         if self.has_scratch:
-            parts.append(torch.sigmoid(self.scratch_head(feat_top))[:, None])
+            parts.append(cast(torch.sigmoid(self.scratch_head(feat_top)), image.dtype)[:, None])
         candidates = torch.cat(parts, dim=1)  # [B,K,H,W,C]
 
         # ---- compositing ----
@@ -219,11 +257,17 @@ class SAVPCell(nn.Module):
             if hp.dependent_mask:
                 # mask head input: feat_top, then the candidates in list order
                 cand_cat = candidates.permute(0, 2, 3, 1, 4).reshape(b, hgt, wid, self.num_masks * c)
-                mask_in = torch.cat([feat_top, cand_cat], dim=-1)
+                cand_cat = cast(cand_cat, feat_top.dtype)
+                if self.split_mask_input:
+                    mask_logits = split_input_conv(self.mask_head, feat_top, cand_cat)
+                else:
+                    mask_logits = self.mask_head(torch.cat([feat_top, cand_cat], dim=-1))
             else:
-                mask_in = feat_top
-            mask_logits = self.mask_head(mask_in)
-            gen_image_new, masks = composite(candidates, mask_logits, with_masks=output_aux)
+                mask_logits = self.mask_head(feat_top)
+            # softmax and sum in fp32 (the logits' cast is exact), the image dtype out
+            gen_image_new, masks = composite(cast(candidates, torch.float32), cast(mask_logits, torch.float32),
+                                              with_masks=output_aux)
+            gen_image_new = cast(gen_image_new, image.dtype)
             if output_aux:
                 aux["masks"] = masks
 
@@ -239,15 +283,18 @@ class SAVPGenerator(nn.Module):
     frames 1..T-1 (``gen_images`` aligns with ``images[:, 1:]``).
 
     ``image_shape`` (H, W, C) and ``action_dim`` fix the parameter shapes,
-    as the first batch does for flax's lazy init.
+    as the first batch does for flax's lazy init. ``dtype`` is the compute
+    dtype (None: that of the images); the states are kept in it.
     """
 
-    def __init__(self, hparams: ModelHparams, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0):
+    def __init__(self, hparams: ModelHparams, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0,
+                 dtype: Dtype = None):
         super().__init__()
         self.hparams = hparams
         self.image_shape = tuple(image_shape)
+        self.dtype = dtype
         hgt, wid, c = self.image_shape
-        self.cell = SAVPCell(hparams, generator_num_scales(hgt, wid), c, action_dim)
+        self.cell = SAVPCell(hparams, generator_num_scales(hgt, wid), c, action_dim, dtype)
 
     def forward(
         self,
@@ -266,7 +313,7 @@ class SAVPGenerator(nn.Module):
                              f"got actions {None if actions is None else tuple(actions.shape)}")
         first_image = images[:, 0]
         state = (
-            self.cell.init_rnn_states(b, hgt, wid, images.device),
+            self.cell.init_rnn_states(b, hgt, wid, images.device, self.dtype or images.dtype),
             first_image,
             [first_image] * hp.last_frames,
         )

@@ -11,15 +11,22 @@ never writes it: it returns the advanced ``u`` beside its output, and the
 train step stores it after the optimizer update, as the JAX package threads
 its ``"spectral"`` collection through the step. The discriminator's
 generator-side call reads the same old ``u`` and drops the advanced one.
+
+The power iteration runs in fp32 on the fp32 weight; the normalized weight
+is cast to the layer's ``dtype`` (that of the input when None) at the conv
+or the product, with the input, and the bias to the output's dtype
+(``video_prediction_tpu/ops/spectral.py:30-52, 80-130``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from video_prediction_torch.ops.layers import add_bias, cast, split_bias
 
 SN_EPS = 1e-12
 
@@ -48,8 +55,9 @@ def spectral_normalize(w_mat: torch.Tensor, u: torch.Tensor, n_iters: int = 1
 class SpectralLayer(nn.Module):
     """A weight ``[out, ...]`` (PyTorch layout), a bias and the buffer ``u [out]``."""
 
-    def __init__(self, weight_shape: Sequence[int], use_bias: bool = True):
+    def __init__(self, weight_shape: Sequence[int], use_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(tuple(weight_shape)))
         self.bias = nn.Parameter(torch.zeros(weight_shape[0])) if use_bias else None
         self.register_buffer("u", l2_normalize(torch.randn(weight_shape[0])))
@@ -60,16 +68,23 @@ class SpectralLayer(nn.Module):
         _, u_new, sigma = spectral_normalize(self.weight.reshape(self.weight.shape[0], -1).t(), self.u)
         return self.weight / sigma, u_new
 
+    def operands(self, x: torch.Tensor, w: torch.Tensor):
+        """``x`` and the normalized ``w`` in the layer's compute dtype, and the
+        bias split by ``layers.split_bias``: ``(x, w, fused, after)``."""
+        dt = self.dtype or x.dtype
+        return (cast(x, dt), cast(w, dt), *split_bias(self.bias, dt))
+
 
 class SpectralDense(SpectralLayer):
     """Dense layer with a spectrally normalized ``[out, in]`` weight."""
 
-    def __init__(self, in_features: int, features: int, use_bias: bool = True):
-        super().__init__((features, in_features), use_bias)
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__((features, in_features), use_bias, dtype)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         w, u_new = self.normalized_weight()
-        return F.linear(x, w, self.bias), u_new
+        x, w, fused, after = self.operands(x, w)
+        return add_bias(F.linear(x, w, fused), after), u_new
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -85,8 +100,8 @@ class SpectralConv3D(SpectralLayer):
     stride asks for it, so ``F.pad`` and no ``padding=``), output ``NTHWC``."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int] = (3, 3, 3),
-                 strides: Sequence[int] = (1, 1, 1), use_bias: bool = True):
-        super().__init__((features, in_features, *kernel_size), use_bias)
+                 strides: Sequence[int] = (1, 1, 1), use_bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__((features, in_features, *kernel_size), use_bias, dtype)
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
 
@@ -95,6 +110,15 @@ class SpectralConv3D(SpectralLayer):
         pads = []
         for size, k, s in reversed(list(zip(x.shape[1:4], self.kernel_size, self.strides))):
             pads.extend(same_pads(size, k, s))  # F.pad wants the last axis (W) first
-        xc = F.pad(x.permute(0, 4, 1, 2, 3), pads)
-        y = F.conv3d(xc, w, self.bias, stride=self.strides)
-        return y.permute(0, 2, 3, 4, 1), u_new
+        x, w, fused, after = self.operands(x, w)
+        xc = x.permute(0, 4, 1, 2, 3)
+        if xc.dtype == torch.bfloat16:
+            # cuDNN's bf16 conv3d backward takes a direct kernel for a
+            # channels-last input at some shapes: sn_conv3d2 (32 -> 64, 3x3x3)
+            # on 128 clips ran 295 ms forward and backward, 3.2 ms from a
+            # contiguous NCDHW copy; the other five move by under 1.7 ms
+            # either way with the copy (H100, kernels/bench.py#conv3d_layouts)
+            xc = xc.contiguous()
+        xc = F.pad(xc, pads)
+        y = F.conv3d(xc, w, fused, stride=self.strides)
+        return add_bias(y.permute(0, 2, 3, 4, 1), after), u_new

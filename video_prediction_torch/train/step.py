@@ -4,7 +4,9 @@ spectral ``u`` update) and the eval step (the prior rollout and its metrics).
 Port of ``video_prediction_tpu/train/step.py#make_train_step`` and
 ``#make_eval_step`` for one device and one step per call. ``compute_losses`` places the detaches so
 that one backward of ``g_loss + d_loss`` gives each side its own gradients,
-as the reference's joint ``sess.run`` does.
+as the reference's joint ``sess.run`` does. With ``compute_dtype`` bfloat16
+the parameters, their gradients and Adam's moments stay fp32, and there is
+no loss scaling, as in the JAX package.
 """
 
 from __future__ import annotations
