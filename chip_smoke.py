@@ -71,7 +71,21 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     one bf16 ulp of its logit), each gradient leaf within 4 times that
     distance plus one rounding of its largest entry;
 18. time the bf16 rollout at batch 8 and 64, the bf16 train step at batch 16
-    and 64 with its peak device memory, and one bf16 evaluate batch.
+    and 64 with its peak device memory, and one bf16 evaluate batch;
+19. the TFRecord datasets: write BAIR-schema records (64 train in 4 files,
+    16 val, 16 test; 30 raw 64x64 frames of the ``synthetic`` generator with
+    its actions and states) through the port's writer (``data/records.py``);
+    ``train``'s ``main`` on them (``--dataset bair``, ``--val_input_dir``,
+    ``ours_savp``, batch 16, TF32 convs, 3 steps and an eval firing of 8 val
+    batches), with the launches per train step against phase 8's; the
+    feeder's first device batch against the host pipeline's, byte for byte;
+    one step of the action-conditioned ``bair/ours_savp`` with
+    ``use_state=True``; ``evaluate`` (best of 8) and ``generate`` on the
+    test records with phase 11's and phase 5's checks; print whether the
+    native JPEG codec links and PIL is present, the host pipeline's
+    examples/s, the train step on the records through the feeder beside the
+    same model's step on a fixed device batch, and an evaluate batch from the
+    records beside one on a fixed batch.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -1349,6 +1363,291 @@ def bf16_timing_phase(model, dev, ident: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the TFRecord datasets (phase 19)
+# ---------------------------------------------------------------------------
+RECORDS = {"train": (4, 16), "val": (1, 16), "test": (1, 16)}  # files x records of 30 frames
+RECORD_FRAMES = 30
+
+
+def write_bair_records(root: str) -> dict:
+    """Phase 19, first part: BAIR-schema records (``%d/image_aux1/encoded``
+    raw 64x64x3 uint8, 4-D ``%d/action``, 3-D ``%d/endeffector_pos``, 30
+    frames) through the port's own writer, the frames and the actions from
+    the port's ``synthetic`` generator so that the content moves. Returns the
+    split directories."""
+    import shutil
+
+    from video_prediction_torch.configs.hparams import DatasetHparams
+    from video_prediction_torch.data.records import TFRecordWriter, bytes_feature, encode_example, float_feature
+    from video_prediction_torch.data.synthetic import SyntheticVideoDataset
+
+    shutil.rmtree(root, ignore_errors=True)
+    dirs, n_bytes, n_records = {}, 0, 0
+    t0 = time.perf_counter()
+    for split, (files, per_file) in RECORDS.items():
+        dirs[split] = os.path.join(root, split)
+        os.makedirs(dirs[split])
+        it = SyntheticVideoDataset(mode=split, seed=19, hparams=DatasetHparams(sequence_length=RECORD_FRAMES)
+                                   ).make_iterator(per_file)
+        for f in range(files):
+            batch = next(it)
+            path = os.path.join(dirs[split], f"bair_{split}_{f}.tfrecord")
+            with TFRecordWriter(path) as w:
+                for b in range(per_file):
+                    feat = {}
+                    for i in range(RECORD_FRAMES):
+                        feat[f"{i}/image_aux1/encoded"] = bytes_feature([batch["images"][b, i].tobytes()])
+                        feat[f"{i}/action"] = float_feature(batch["actions"][b, i])
+                        feat[f"{i}/endeffector_pos"] = float_feature(batch["states"][b, i])
+                    w.write(encode_example(feat))
+            n_bytes += os.path.getsize(path)
+            n_records += per_file
+    print(f"records: {n_records} BAIR-schema records ({', '.join(f'{k} {f * n}' for k, (f, n) in RECORDS.items())}"
+          f"), {n_bytes} bytes, written in {time.perf_counter() - t0:.2f} s by data/records.py (host)")
+    return dirs
+
+
+def host_pipeline_rate(train_dir: str, dhp) -> None:
+    """The host pipeline alone (``NativeVideoPipeline`` on one prefetch
+    thread, BAIR raw, train mode): the first batch waits for the 1024-example
+    shuffle buffer; then examples/s over 50 batches of 16."""
+    from video_prediction_torch.data import get_dataset_class
+
+    ds = get_dataset_class("bair")(train_dir, mode="train", hparams=dhp, seed=0)
+    t0 = time.perf_counter()
+    it = ds.make_iterator(TRAIN_BATCH)
+    next(it)
+    first = time.perf_counter() - t0
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        batch = next(it)
+    dt = time.perf_counter() - t0
+    it.close()
+    check(batch["images"].shape == (TRAIN_BATCH, dhp.sequence_length, 64, 64, 3), f"host batch {batch['images'].shape}")
+    print(f"host pipeline, BAIR raw, train mode: first batch after {first:.3f} s (1024-example shuffle buffer), "
+          f"then {n * TRAIN_BATCH / dt:.1f} examples/s over {n} batches of {TRAIN_BATCH} (host, one thread)")
+
+
+def records_train_phase(dirs: dict, per_step: dict, dev) -> str:
+    """Phase 19, train: ``train``'s ``main`` on the records, fp32 with TF32
+    convs, batch 16, 3 steps and an eval firing of 8 batches on
+    ``--val_input_dir``; the feeder's first device batch against the host
+    pipeline's; the launches per train step against phase 8's; then one step
+    of the action-conditioned ``bair/ours_savp`` with ``use_state=True``.
+    Returns the run directory."""
+    import shutil
+
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import DatasetHparams, apply_overrides, zoo_dir
+    from video_prediction_torch.data import DeviceFeeder, get_dataset_class
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    set_tf32_default()
+    run_dir = os.path.join(WORK_DIR, "records_train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--dataset", "bair", "--input_dir", dirs["train"], "--val_input_dir", dirs["val"], "--model", "savp",
+            "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+            "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--max_steps", "3", "--device", "cuda",
+            "--progress_freq", "1", "--save_freq", "1000", "--eval_summary_freq", "3",
+            "--accum_eval_summary_freq", "0", "--seed", "0"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    print(f"train on records: 3 steps and an eval firing of 8 val batches, {wall:.2f} s wall (set-up, shuffle "
+          f"buffer and first steps included); losses {summary['scalars']}; eval {summary['summaries']}; "
+          f"launches {launches}")
+    check(summary["all_finite"] and summary["step"] == 3, f"train on records: {summary}")
+    check("eval/psnr" in summary["summaries"], "train on records: no eval firing")
+    # 3 train steps as phase 8's, and 8 no-grad eval rollouts
+    want = {k: 3 * n + 8 * LAUNCHES_PER_ROLLOUT.get(k, 0) for k, n in per_step.items()}
+    check(launches == want, f"train on records: launches {launches}, want {want} (phase 8 a step: {per_step})")
+
+    with open(os.path.join(run_dir, "dataset_hparams.json")) as f:
+        dhp = apply_overrides(DatasetHparams(), json.load(f))
+    ds = get_dataset_class("bair")
+    host = next(ds(dirs["train"], mode="train", hparams=dhp, seed=0).make_iterator(TRAIN_BATCH))
+    feeder = DeviceFeeder(ds(dirs["train"], mode="train", hparams=dhp, seed=0).make_iterator(TRAIN_BATCH), dev)
+    try:
+        first = next(feeder)
+        check(sorted(first) == sorted(host) == ["images"], f"first batch keys {sorted(first)}, {sorted(host)}")
+        got = first["images"].cpu().numpy()
+        check(first["images"].dtype == torch.uint8 and got.tobytes() == host["images"].tobytes(),
+              "the feeder's first device batch differs from the host pipeline's")
+    finally:
+        feeder.close()
+    print(f"feeder: first device batch {tuple(first['images'].shape)} uint8 equals the host pipeline's byte for byte")
+    host_pipeline_rate(dirs["train"], dhp)
+
+    ac_dir = os.path.join(WORK_DIR, "records_train_actions")
+    shutil.rmtree(ac_dir, ignore_errors=True)
+    K.reset_launch_counts()
+    ac = train_main(["--dataset", "bair", "--input_dir", dirs["train"], "--dataset_hparams", "use_state=True",
+                     "--model", "savp", "--model_hparams_dict",
+                     str(zoo_dir() / "bair" / "ours_savp" / "model_hparams.json"), "--output_dir", ac_dir,
+                     "--batch_size", str(TRAIN_BATCH), "--max_steps", "1", "--device", "cuda", "--progress_freq", "1",
+                     "--save_freq", "1000", "--eval_summary_freq", "0", "--accum_eval_summary_freq", "0",
+                     "--seed", "0"])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    # the actions from the records enter the generator's stem conv beside the image and z
+    stem = "generator.cell.stem.weight"
+    widths = [torch.load(os.path.join(d, "checkpoints", "params.pt"), weights_only=True)[stem].shape[1]
+              for d in (run_dir, ac_dir)]
+    print(f"action-conditioned bair/ours_savp on records (use_state=True): 1 step, losses {ac['scalars']}; "
+          f"launches {launches}; stem input channels {widths[1]} (action-free {widths[0]})")
+    check(ac["all_finite"] and ac["step"] == 1, f"action-conditioned step: {ac}")
+    check(launches == per_step, f"action-conditioned step launches {launches}, want {per_step}")
+    check(widths[1] - widths[0] == 4, f"stem input channels {widths}: the 4 action dims did not reach the model")
+    return run_dir
+
+
+def records_eval_phase(dirs: dict, run_dir: str) -> None:
+    """Phase 19: ``evaluate`` (8 x 8 samples, 16 examples) and ``generate``
+    (batch 8, 16 examples x 2 samples) from the records run directory on
+    ``test/``, with phase 11's and phase 5's checks."""
+    import numpy as np
+
+    from video_prediction_torch import evaluate, generate
+    from video_prediction_torch import kernels as K
+
+    set_tf32_default()
+    results = os.path.join(WORK_DIR, "records_eval")
+    K.reset_launch_counts()
+    summary = evaluate.main(["--checkpoint", run_dir, "--input_dir", dirs["test"], "--results_dir", results,
+                             "--device", "cuda", "--batch_size", "8", "--num_samples", "16",
+                             "--num_stochastic_samples", "8", "--samples_per_rollout", "8"])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    out, rollouts = summary["results_dir"], summary["rollouts"]
+    print(f"evaluate on test records: {rollouts} rollouts of 64, means {summary['metrics']}; launches {launches}")
+    check(out.endswith(os.path.join("bair", "savp")), f"evaluate wrote to {out}")
+    check(rollouts == 2 and summary["no_nan"], f"unexpected evaluate summary {summary}")
+    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(launches == want, f"evaluate on records: launches {launches}, want {want}")
+    check(sorted(f for f in os.listdir(out) if f.endswith(".txt")) ==
+          ["psnr_avg.txt", "psnr_max.txt", "ssim_avg.txt", "ssim_max.txt"], f"metric files {os.listdir(out)}")
+    for name in ("psnr", "ssim"):
+        best, mean = read_metric(out, f"{name}_max", (16, 10)), read_metric(out, f"{name}_avg", (16, 10))
+        check(bool(np.isfinite(best).all() and np.isfinite(mean).all()), f"{name}: non-finite values")
+        check(bool((best >= mean - 1e-6).all()), f"{name}: max below avg")
+    gifs = [f for f in os.listdir(os.path.join(out, "images")) if f.endswith(".gif")]
+    check(os.path.exists(os.path.join(out, "index.html")) and len(gifs) == 32, f"{len(gifs)} GIFs, want 32")
+
+    K.reset_launch_counts()
+    summary = generate.main(["--checkpoint", run_dir, "--input_dir", dirs["test"], "--results_dir", results,
+                             "--device", "cuda", "--batch_size", "8", "--num_samples", "16",
+                             "--num_stochastic_samples", "2"])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    rollouts = summary["rollouts"]
+    gifs = [f for f in os.listdir(summary["out_dir"]) if f.endswith(".gif")]
+    print(f"generate on test records: {rollouts} rollouts, {len(gifs)} GIFs; launches {launches}")
+    check(rollouts == 4 and summary["gifs"] == 32 and len(gifs) == 32 and summary["all_finite"],
+          f"unexpected generate summary {summary}")
+    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(launches == want, f"generate on records: launches {launches}, want {want}")
+
+
+def records_timing_phase(dirs: dict, run_dir: str, dev, ident: str) -> None:
+    """Phase 19, times on one card in one call, TF32 convs: ms per train step
+    at batch 16 on a fixed device batch and on the records through the
+    feeder, alternated (fixed, records, records, fixed; 5 steps each after 2
+    warm-up steps, CUDA-synchronised host clock); ms per evaluate batch (8 x
+    8 samples) from the records, host reading and copy included, beside the
+    same on a fixed device batch (10 batches after 3)."""
+    import statistics
+
+    from video_prediction_torch.configs.hparams import DatasetHparams, apply_overrides
+    from video_prediction_torch.data import DeviceFeeder, get_dataset_class
+    from video_prediction_torch.evaluate import BestOfN, metric_fns, sample_chunks
+    from video_prediction_torch.generate import batch_to_device
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train.state import create_train_state
+    from video_prediction_torch.train.step import make_train_step
+
+    set_tf32_default()
+    with open(os.path.join(run_dir, "dataset_hparams.json")) as f:
+        dhp = apply_overrides(DatasetHparams(), json.load(f))
+    ds = get_dataset_class("bair")
+    hp = slice_hparams().replace(batch_size=TRAIN_BATCH)
+    model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=0)
+    ts = create_train_state(model, 0, dev)
+    step = make_train_step(model)
+    feeder = DeviceFeeder(ds(dirs["train"], mode="train", hparams=dhp, seed=0).make_iterator(TRAIN_BATCH), dev)
+    times = {"fixed": [], "records": []}
+    try:
+        fixed = next(feeder)
+        for _ in range(2):
+            step(ts, fixed)
+            step(ts, next(feeder))
+        for kind in ("fixed", "records", "records", "fixed"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                scalars = step(ts, fixed if kind == "fixed" else next(feeder))
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3 / 5)
+            check(all(bool(torch.isfinite(v)) for v in scalars.values()), "timed steps gave non-finite losses")
+    finally:
+        feeder.close()
+    print(f"train step batch {TRAIN_BATCH}, TF32 convs, one model: fixed device batch "
+          f"{' / '.join(f'{t:.2f}' for t in times['fixed'])} ms, records through the feeder "
+          f"{' / '.join(f'{t:.2f}' for t in times['records'])} ms (fixed, records, records, fixed; 5 steps each) "
+          f"[{ident}]")
+    del ts, step, model
+    torch.cuda.empty_cache()
+
+    model = get_model_class("savp")(slice_hparams(), image_shape=(64, 64, 3), action_dim=0)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).eval()
+    fns = metric_fns(dev)
+    rng = torch.Generator(device=dev).manual_seed(19)
+    it = ds(dirs["test"], mode="test", hparams=dhp, seed=0).make_iterator(8)
+    fixed = batch_to_device(next(it), dev)
+    ms = {"records": [], "fixed": []}
+    with torch.inference_mode():
+        for i in range(13):
+            for kind in ("records", "fixed"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = batch_to_device(next(it), dev) if kind == "records" else fixed
+                target = batch["images"][:, hp.context_frames:].float() / 255.0
+                red = BestOfN(fns, target, hp.context_frames, keep_best=True)
+                for chunk in sample_chunks(model, batch, 8, 8, rng):
+                    red.update(chunk)
+                for v in list(red.best.values()) + list(red.mean().values()) + [red.best_gen]:
+                    v.cpu()
+                torch.cuda.synchronize()
+                if i >= 3:
+                    ms[kind].append((time.perf_counter() - t0) * 1e3)
+    it.close()
+    print(f"evaluate batch 8 x 8 samples, PSNR/SSIM, TF32 convs: from the test records {statistics.median(ms['records']):.2f}"
+          f" ms (median of 10; min {min(ms['records']):.2f}, max {max(ms['records']):.2f}), on a fixed device batch "
+          f"{statistics.median(ms['fixed']):.2f} ms (min {min(ms['fixed']):.2f}, max {max(ms['fixed']):.2f}), "
+          f"alternated [{ident}]")
+
+
+def records_phase(per_step: dict, dev, ident: str) -> None:
+    """Phase 19: the TFRecord datasets through train, evaluate and generate."""
+    import importlib.util
+
+    from video_prediction_torch import native
+
+    print(f"native codec: {'available' if native.codec_available() else 'unavailable'} (libjpeg linked by g++); "
+          f"PIL: {'present' if importlib.util.find_spec('PIL') else 'absent'}")
+    dirs = write_bair_records(os.path.join(WORK_DIR, "records"))
+    run_dir = records_train_phase(dirs, per_step, dev)
+    records_eval_phase(dirs, run_dir)
+    records_timing_phase(dirs, run_dir, dev, ident)
+
+
 def set_tf32_default() -> None:
     """cuDNN's default (TF32 convs) and PyTorch's (no TF32 matmuls), which the CLIs run under."""
     torch.backends.cudnn.allow_tf32 = True
@@ -1419,6 +1718,7 @@ def main() -> int:
 
         # 8. the training entry point at full width, with a resume
         launches = train_phase()
+        per_train_step = {k: n // TRAIN_STEPS for k, n in launches.items()}
         for entry in kernel_results:
             entry["launches"] = launches[entry["name"]]
             entry["launches_per_train_step"] = launches[entry["name"]] // TRAIN_STEPS
@@ -1464,6 +1764,12 @@ def main() -> int:
 
         # 18. bf16 times: rollout, evaluate batch, train step and its memory
         bf16_timing_phase(bf16_model, dev, ident)
+        del bf16_model
+        torch.cuda.empty_cache()
+
+        # 19. the TFRecord datasets: records written by the port, train (with
+        # the feeder and --val_input_dir), evaluate and generate on them
+        records_phase(per_train_step, dev, ident)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

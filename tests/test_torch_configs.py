@@ -1,6 +1,6 @@
 """The port's copies of the JAX package's framework-free modules stay equal
 to the originals (they are copied, not imported, because importing the JAX
-package imports jax), and the port never imports jax or flax."""
+package imports jax), and the port never imports jax, flax or tensorflow."""
 
 import dataclasses
 import inspect
@@ -87,9 +87,21 @@ def test_synthetic_batches_equal_byte_for_byte(mode, size, seq):
 
 
 def test_dataset_registry():
+    from video_prediction_torch.data import _DATASETS, register_dataset
+    from video_prediction_tpu.data import _DATASETS as J_DATASETS
+
     assert get_dataset_class("synthetic") is TSynthetic
+    assert sorted(_DATASETS) == sorted(J_DATASETS)  # all nine names
+    assert get_dataset_class("bair") is get_dataset_class("softmotion")
+    for name, cls in _DATASETS.items():
+        assert cls.__name__ == J_DATASETS[name].__name__, name
     with pytest.raises(ValueError, match="available"):
-        get_dataset_class("bair")
+        get_dataset_class("bogus")
+    register_dataset("bogus", TSynthetic)
+    try:
+        assert get_dataset_class("bogus") is TSynthetic
+    finally:
+        del _DATASETS["bogus"]
 
 
 def test_gif_encoding_equal():
@@ -123,20 +135,26 @@ def test_model_registry():
 
 
 def test_port_never_imports_jax_or_flax():
-    """Import the package and every submodule in a fresh interpreter."""
+    """Import the package and every submodule in a fresh interpreter: no jax,
+    flax, ``video_prediction_tpu`` or tensorflow module is loaded after."""
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         import video_prediction_torch as pkg
         names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        # the Python modules: native/'s ctypes libraries (lib*.so) are no extension modules
+        names = [n for n in names if importlib.util.find_spec(n).origin.endswith(".py")]
         for name in names:
             importlib.import_module(name)
-        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "video_prediction_tpu"))
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "flax", "video_prediction_tpu", "tensorflow"))
         assert len(names) > 20, names
         training = ["losses", "ops.spectral", "train.schedules", "train.state", "train.step", "train.checkpoint",
                     "train.__main__", "train.profile_step"]
         evaluation = ["metrics", "evaluate", "models.vgg", "models.lpips", "utils.html"]
-        assert not [m for m in training + evaluation if "video_prediction_torch." + m not in names], names
+        data = ["native", "data.base", "data.native_loader", "data.records", "data.loader", "data.bair", "data.kth",
+                "data.something", "data.variants", "data.convert", "data.synthetic"]
+        assert not [m for m in training + evaluation + data if "video_prediction_torch." + m not in names], names
         assert not leaked, leaked
         print(len(names))
         """

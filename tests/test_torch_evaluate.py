@@ -104,28 +104,87 @@ def _jax_evaluate(argv):
     j_evaluate.main(argv)
 
 
-@pytest.mark.parametrize("name", ["ground_truth", "repeat"])
-def test_cli_matches_the_jax_cli_on_the_baselines(name, tmp_path):
-    common = ["--model", name, "--dataset", "synthetic", "--batch_size", "2", "--num_samples", "3"]
+@pytest.fixture(scope="module")
+def record_dirs(tmp_path_factory):
+    """Test records at each dataset's own 64x64 schema, written by TensorFlow:
+    ``bair`` (raw frames, actions, states) and ``kth`` (JPEG frames by PIL),
+    30 frames, 4 records each."""
+    import io
+
+    from PIL import Image
+
+    tf = pytest.importorskip("tensorflow")
+    root = tmp_path_factory.mktemp("eval_records")
+    rng = np.random.RandomState(0)
+
+    def feature(kind, v):
+        if kind == "bytes":
+            return tf.train.Feature(bytes_list=tf.train.BytesList(value=v))
+        return tf.train.Feature(float_list=tf.train.FloatList(value=v))
+
+    dirs = {}
+    for name in ("bair", "kth"):
+        (root / name).mkdir()
+        with tf.io.TFRecordWriter(str(root / name / f"{name}.tfrecord")) as w:
+            for _ in range(4):
+                base = rng.randint(0, 200, (64, 64, 3))
+                feat = {}
+                for i in range(30):
+                    img = np.clip(base + 2 * i + rng.randint(0, 40, (64, 64, 3)), 0, 255).astype(np.uint8)
+                    if name == "bair":
+                        feat[f"{i}/image_aux1/encoded"] = feature("bytes", [img.tobytes()])
+                        feat[f"{i}/action"] = feature("float", rng.rand(4))
+                        feat[f"{i}/endeffector_pos"] = feature("float", rng.rand(3))
+                    else:
+                        buf = io.BytesIO()
+                        Image.fromarray(img).save(buf, format="JPEG", quality=95)
+                        feat[f"{i}/image/encoded"] = feature("bytes", [buf.getvalue()])
+                w.write(tf.train.Example(features=tf.train.Features(feature=feat)).SerializeToString())
+        dirs[name] = str(root / name)
+    return dirs
+
+
+@pytest.mark.parametrize("name,dataset", [
+    pytest.param("ground_truth", "synthetic", id="ground_truth"),
+    pytest.param("repeat", "synthetic", id="repeat"),
+    pytest.param("ground_truth", "bair", id="ground_truth-bair"),
+    pytest.param("repeat", "bair", id="repeat-bair"),
+    pytest.param("ground_truth", "kth", id="ground_truth-kth"),
+    pytest.param("repeat", "kth", id="repeat-kth"),
+])
+def test_cli_matches_the_jax_cli_on_the_baselines(name, dataset, tmp_path, request, monkeypatch):
+    """On the synthetic dataset with one sample; on BAIR and KTH test records
+    (``--input_dir``) with best of 2, the JAX CLI on its native backend, which
+    the port's reader equals (``tests/test_torch_data.py``)."""
+    common = ["--model", name, "--dataset", dataset, "--batch_size", "2", "--num_samples", "3"]
+    files = ["psnr.txt", "ssim.txt"]
+    if dataset != "synthetic":
+        common += ["--input_dir", request.getfixturevalue("record_dirs")[dataset], "--num_stochastic_samples", "2"]
+        files = ["psnr_avg.txt", "psnr_max.txt", "ssim_avg.txt", "ssim_max.txt"]
+        monkeypatch.setenv("VP_DATA_BACKEND", "native")
     summary = t_evaluate.main(common + ["--results_dir", str(tmp_path / "port"), "--device", "cpu"])
     _jax_evaluate(common + ["--results_dir", str(tmp_path / "jax")])
-    port, ref = tmp_path / "port" / "synthetic" / name, tmp_path / "jax" / "synthetic" / name
+    port, ref = tmp_path / "port" / dataset / name, tmp_path / "jax" / dataset / name
     assert summary["results_dir"] == str(port) and summary["no_nan"]
-    assert sorted(os.listdir(port)) == sorted(os.listdir(ref)) == ["images", "index.html", "psnr.txt", "ssim.txt"]
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref)) == ["images", "index.html"] + files
     gifs = sorted(os.listdir(ref / "images"))
     assert sorted(os.listdir(port / "images")) == gifs and len(gifs) == 6
     for f in gifs + ["../index.html"]:
         assert filecmp.cmp(port / "images" / f, ref / "images" / f, shallow=False), f
-    for f in ("psnr.txt", "ssim.txt"):
+    for f in files:
         a, b = np.loadtxt(port / f), np.loadtxt(ref / f)
         assert a.shape == b.shape == (3, 10)
-        if name == "ground_truth" and f == "psnr.txt":
+        if name == "ground_truth" and f.startswith("psnr"):
             # The port normalizes the target and the prediction with one op on
             # the device, so they are equal and the PSNR is inf. The JAX CLI
             # divides the target by 255 on the host and the prediction in XLA,
             # which multiplies by 1/255 instead: one ulp apart on 126 of the
-            # 256 byte values, an MSE near 1e-17 and about 161 dB.
-            assert np.isinf(a).all() and (b > 150.0).all()
+            # 256 byte values, an MSE near 1e-17 and about 161 dB on the
+            # synthetic frames. On the records' brighter, busier frames more
+            # pixels sit in [0.5, 1), where an ulp is 2^-24: no pixel off by
+            # more than that bounds the MSE by 2^-48, the PSNR by 144.5 dB.
+            floor = 150.0 if dataset == "synthetic" else -10.0 * np.log10(2.0**-48)
+            assert np.isinf(a).all() and (b > floor).all()
             continue
         np.testing.assert_allclose(a, b, rtol=METRIC_RTOL, atol=0, err_msg=f)
 

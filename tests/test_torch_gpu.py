@@ -2,8 +2,9 @@
 plain PyTorch versions (the backward against autograd of the plain
 version), also at the evaluate path's shapes (8 examples x 8 samples, and
 SV2P's 6 candidates), a small GPU rollout and train step against the CPU
-ones (fp32, and the bf16 model with the dtype of every launch), and SSIM on
-the card against the CPU. Every test needs a CUDA
+ones (fp32, and the bf16 model with the dtype of every launch), SSIM on
+the card against the CPU, and ``data.DeviceFeeder`` (pinned uint8 host
+buffers, the copy on a side stream). Every test needs a CUDA
 device and skips without one. This file imports no jax, so that it runs on a
 GPU machine without jax:
 
@@ -12,10 +13,14 @@ GPU machine without jax:
 (``--noconftest``: ``tests/conftest.py`` pins jax to 8 virtual CPU devices.)
 """
 
+import time
+
+import numpy as np
 import pytest
 import torch
 
 from video_prediction_torch import kernels as K
+from video_prediction_torch.data import DeviceFeeder
 from video_prediction_torch import metrics as M
 from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
 from video_prediction_torch.kernels.composite import MAX_TILE, STAGED, device_plan
@@ -407,3 +412,49 @@ def test_small_bf16_model_gpu_matches_cpu(dev, no_tf32):
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     rhs = float((ref16 - ref32).abs().max())
     assert rhs > 0.0 and float((out - ref16).abs().max()) <= 2.0 * rhs
+
+
+def test_device_feeder_batches_equal_the_host_batches(dev):
+    """20 batches: on the card byte for byte as on the host, uint8 images;
+    the host side in pinned buffers; the stream's end ends the feeder."""
+    rng = np.random.RandomState(0)
+    host = [{"images": rng.randint(0, 256, (4, 12, 64, 64, 3), np.uint8),
+             "actions": rng.rand(4, 12, 4).astype(np.float32)} for _ in range(20)]
+    feeder = DeviceFeeder(iter(host), dev)
+    try:
+        for h in host:
+            b = next(feeder)
+            assert sorted(b) == sorted(h) and b["images"].dtype == torch.uint8
+            for k in h:
+                assert b[k].device == dev and b[k].cpu().numpy().tobytes() == h[k].tobytes(), k
+        with pytest.raises(StopIteration):
+            next(feeder)
+        slots = [s for s in feeder._slots if s is not None]
+        assert slots and all(t.is_pinned() for s in slots for t in s.values())
+        assert all(s["images"].dtype == torch.uint8 for s in slots)
+    finally:
+        feeder.close()
+    assert not feeder._thread.is_alive()
+
+
+def test_device_feeder_consumer_never_sees_the_next_batch(dev):
+    """The consumer writes into each batch behind a sleep kernel on its own
+    stream and drops it: without the wait on the copy's event it could read
+    before the copy lands, and without ``record_stream`` the allocator could
+    hand the memory to the next copy, which would then land first."""
+    host = [{"images": np.full((8, 12, 64, 64, 3), i, np.uint8)} for i in range(20)]
+    feeder = DeviceFeeder(iter(host), dev)
+    seen = []
+    try:
+        for _ in host:
+            b = next(feeder)
+            torch.cuda._sleep(2_000_000)  # about 1 ms of the consumer's stream before it reads
+            x = b["images"]
+            x.add_(1)
+            seen.append(torch.stack([x.amin(), x.amax()]))
+            del b, x
+            time.sleep(0.002)  # the feeder allocates and copies the next batches meanwhile
+        torch.cuda.synchronize()
+    finally:
+        feeder.close()
+    assert [s.tolist() for s in seen] == [[i + 1, i + 1] for i in range(20)]

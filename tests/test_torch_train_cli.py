@@ -140,3 +140,74 @@ def test_params_without_discriminators_load_for_generation(runs, tmp_path):
     torch.save({**state, "bogus": torch.zeros(1)}, old)
     with pytest.raises(RuntimeError, match="unexpected"):
         load_params(str(tmp_path), model)
+
+
+# ---- TFRecords: BAIR-schema records written by TensorFlow ------------------ #
+
+
+@pytest.fixture(scope="module")
+def bair_dirs(tmp_path_factory):
+    """``train/`` (4 records) and ``val/`` (3 other records) of 30 raw 64x64
+    frames with 4-D actions and 3-D states, as ``tests/test_data.py`` writes
+    them."""
+    import numpy as np
+
+    tf = pytest.importorskip("tensorflow")
+    root = tmp_path_factory.mktemp("bair_records")
+    rng = np.random.RandomState(0)
+    for split, n in (("train", 4), ("val", 3)):
+        (root / split).mkdir()
+        with tf.io.TFRecordWriter(str(root / split / f"{split}.tfrecord")) as w:
+            for _ in range(n):
+                feat = {}
+                for i in range(30):
+                    img = rng.randint(0, 256, (64, 64, 3), np.uint8)
+                    feat[f"{i}/image_aux1/encoded"] = tf.train.Feature(
+                        bytes_list=tf.train.BytesList(value=[img.tobytes()]))
+                    feat[f"{i}/action"] = tf.train.Feature(float_list=tf.train.FloatList(value=rng.rand(4)))
+                    feat[f"{i}/endeffector_pos"] = tf.train.Feature(float_list=tf.train.FloatList(value=rng.rand(3)))
+                w.write(tf.train.Example(features=tf.train.Features(feature=feat)).SerializeToString())
+    return str(root / "train"), str(root / "val")
+
+
+def test_train_on_bair_records_evaluates_on_val_input_dir(bair_dirs, tmp_path, monkeypatch):
+    """2 steps at ngf=4 on BAIR records scaled to 32 px; the eval firing at
+    step 2 reads ``--val_input_dir``, and without it ``--input_dir``
+    (``scripts/train.py:143``); ``generate`` reads the run dir on the
+    records."""
+    from video_prediction_torch.data import loader
+    from video_prediction_torch.data.native_loader import NativeVideoPipeline
+
+    train_dir, val_dir = bair_dirs
+    opened, fed = [], []
+    pipeline_init, feeder_init = NativeVideoPipeline.__init__, loader.DeviceFeeder.__init__
+
+    def spy_pipeline(self, dataset, batch_size):
+        opened.append((dataset.mode, dataset.input_dir))
+        pipeline_init(self, dataset, batch_size)
+
+    def spy_feeder(self, host_iterator, device):
+        fed.append(str(device))
+        feeder_init(self, host_iterator, device)
+
+    monkeypatch.setattr(NativeVideoPipeline, "__init__", spy_pipeline)
+    monkeypatch.setattr(loader.DeviceFeeder, "__init__", spy_feeder)
+    argv = ["--dataset", "bair", "--input_dir", train_dir, "--dataset_hparams", "scale_size=32", "--model", "savp",
+            "--model_hparams_dict", str(ZOO), "--model_hparams", SMALL, "--batch_size", "2", "--device", "cpu",
+            "--progress_freq", "1", "--eval_summary_freq", "2", "--accum_eval_summary_freq", "0", "--seed", str(SEED)]
+    run = tmp_path / "run"
+    summary = train_main(argv + ["--val_input_dir", val_dir, "--output_dir", str(run), "--max_steps", "2"])
+    assert summary["step"] == 2 and summary["all_finite"]
+    assert {"eval/psnr", "eval/ssim"} <= set(summary["summaries"])
+    assert opened == [("train", train_dir), ("val", val_dir)] and fed == ["cpu"]
+
+    opened.clear()
+    summary = train_main(argv + ["--output_dir", str(tmp_path / "run_same_dir"), "--max_steps", "2"])
+    assert summary["all_finite"] and opened == [("train", train_dir), ("val", train_dir)]
+
+    with open(run / "options.json") as f:
+        assert json.load(f)["dataset"] == "bair"
+    gen = generate.main(["--checkpoint", str(run), "--input_dir", val_dir, "--results_dir", str(tmp_path / "gen"),
+                         "--device", "cpu", "--batch_size", "2", "--num_samples", "2"])
+    assert gen["gifs"] == 2 and gen["all_finite"]
+    assert opened[-1] == ("test", val_dir)

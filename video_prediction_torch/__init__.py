@@ -10,8 +10,10 @@ Ported so far: the SAVP prior-rollout generation path
 (``python -m video_prediction_torch.generate``), the SAVP VAE-GAN training
 step with its video SN discriminators (``python -m
 video_prediction_torch.train``) and the evaluation path with its metrics,
-the baselines and SV2P (``python -m video_prediction_torch.evaluate``). See
-``ROADMAP.md`` for what is still to come.
+the baselines and SV2P (``python -m video_prediction_torch.evaluate``), bf16
+compute and gates, and the TFRecord datasets on the JAX package's native
+backend, without TensorFlow (``data/``, ``native/``). See ``ROADMAP.md`` for
+what is still to come.
 """
 
 __version__ = "0.1.0"

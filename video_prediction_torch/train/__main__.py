@@ -3,6 +3,8 @@
     python -m video_prediction_torch.train --dataset synthetic --model savp \\
         --model_hparams_dict hparams/bair_action_free/ours_savp/model_hparams.json \\
         --output_dir RUN_DIR [--max_steps N] [--batch_size B] [--resume] [--device cuda]
+    python -m video_prediction_torch.train --dataset bair --input_dir DATA/train \\
+        --val_input_dir DATA/val --model_hparams_dict ... --output_dir RUN_DIR
 
 Port of ``scripts/train.py`` with the same flag shape, plus ``--device``:
 resolves the hparams as it does (model-class defaults, then
@@ -12,7 +14,11 @@ builds the model and its train state from ``--seed``, restores
 ``checkpoints/train_state.pt`` with ``--resume`` (the step, the model, both
 Adams and the noise generator; the data stream starts afresh from
 ``--seed``, at the batch that fixed the shapes, as ``scripts/train.py``'s
-does), then runs the train step until ``max_steps``. Every
+does), then runs the train step until ``max_steps`` on batches that a
+``data.DeviceFeeder`` thread sends to the device ahead of the step (uint8,
+through pinned memory, on a side stream). The TFRecord datasets read
+``--input_dir`` for training and ``--val_input_dir`` (default: the same
+directory) for the eval summaries. Every
 ``--progress_freq`` steps it prints ``step N: g_loss= d_loss= steps/s=
 frames/s=`` (frames per step = batch x (T - context)); every
 ``--summary_freq`` steps the loss terms and the schedule scalars (``lr``,
@@ -40,7 +46,8 @@ import torch
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--input_dir", default="", help="directory of train data (unused for synthetic)")
+    p.add_argument("--input_dir", default="", help="directory of train tfrecords (unused for synthetic)")
+    p.add_argument("--val_input_dir", default="", help="defaults to --input_dir")
     p.add_argument("--dataset", default="synthetic")
     p.add_argument("--dataset_hparams", default="", help="comma-separated k=v overrides")
     p.add_argument("--model", default="savp")
@@ -70,7 +77,7 @@ def main(argv=None) -> Dict[str, object]:
     args = parse_args(argv)
 
     from video_prediction_torch.configs.hparams import apply_overrides, load_hparams_json, parse_overrides
-    from video_prediction_torch.data import get_dataset_class
+    from video_prediction_torch.data import DeviceFeeder, get_dataset_class
     from video_prediction_torch.generate import batch_to_device
     from video_prediction_torch.models import get_model_class
     from video_prediction_torch.train import schedules
@@ -108,8 +115,8 @@ def main(argv=None) -> Dict[str, object]:
     write_options(args.output_dir, args.model, args.dataset, hp, dhp, args.seed)
 
     # ---- data, model, train state ----
-    train_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
-    batch = next(train_iter)
+    host_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
+    batch = next(host_iter)
     actions = batch.get("actions")
     # the first batch fixes the parameter shapes, as in the JAX package's init
     model = model_cls(hp, image_shape=batch["images"].shape[2:], action_dim=0 if actions is None else actions.shape[-1])
@@ -126,7 +133,8 @@ def main(argv=None) -> Dict[str, object]:
     eval_step = make_eval_step(model)
     # one persistent val iterator: successive eval firings walk on through the
     # validation set, as in the JAX CLI
-    val_iter = dataset_cls(args.input_dir, mode="val", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
+    val_dir = args.val_input_dir or args.input_dir
+    val_iter = dataset_cls(val_dir, mode="val", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
 
     # ---- loop ----
     start_step = ts.step
@@ -135,10 +143,13 @@ def main(argv=None) -> Dict[str, object]:
     scalars: Dict[str, torch.Tensor] = {}
     summaries: Dict[str, float] = {}
     all_finite = True
+    # the train stream, from the batch that fixed the shapes, on the device
+    train_iter = DeviceFeeder(_prepend(batch, host_iter), device)
     try:
+        batch = next(train_iter)
         while ts.step < hp.max_steps:
-            scalars = train_step(ts, batch_to_device(batch, device))
-            batch = next(train_iter)
+            scalars = train_step(ts, batch)
+            batch = next(train_iter)  # taken while the step runs on the device
             if args.summary_freq and ts.step % args.summary_freq == 0:
                 prev = ts.step - 1  # the step the losses were taken at
                 vals = {k: float(v) for k, v in scalars.items()}
@@ -171,12 +182,19 @@ def main(argv=None) -> Dict[str, object]:
             if args.save_freq and ts.step % args.save_freq == 0:
                 save_train_state(args.output_dir, ts)
     finally:
+        train_iter.close()
         save_train_state(args.output_dir, ts)
     final = {k: float(v) for k, v in scalars.items()}
     all_finite &= all(math.isfinite(v) for v in final.values())
     print(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
     return {"start_step": start_step, "step": ts.step, "scalars": final, "summaries": summaries,
             "all_finite": all_finite}
+
+
+def _prepend(first, rest):
+    """``first``, then the items of ``rest``; closing it closes ``rest``."""
+    yield first
+    yield from rest
 
 
 if __name__ == "__main__":
