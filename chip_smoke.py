@@ -19,10 +19,12 @@ and ``nvidia-smi``. Phases, each fatal on failure:
    at C = 8, 40 and 300 and on views that start one element past a 16-byte
    boundary (its run-time instantiation), and twice to equal bits; K3 at
    each compile-time instantiation (7 and 6 candidates, aligned tensors) and
-   at its run-time one (such views, and 33x31 with 16 candidates), with and
-   without the masks, twice to equal bits;
+   at its run-time one (such views, ``dna_l2``'s 3 candidates at the train
+   step's shapes, and 33x31 with 16 candidates), with and without the masks,
+   twice to equal bits;
 4. compare each backward kernel with autograd of its plain version, at the
-   training step's shapes (the doubled batch 2 x 16) and at odd shapes, fp32
+   training step's shapes (the doubled batch 2 x 16; K3 also at 3
+   candidates) and at odd shapes, fp32
    and bf16 (K2 also on unaligned views), and time it (K1 against one
    ``convolution_backward`` of the grouped conv, checked first; K1 and K2
    run twice to equal bits);
@@ -85,13 +87,32 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     native JPEG codec links and PIL is present, the host pipeline's
     examples/s, the train step on the records through the feeder beside the
     same model's step on a fixed device batch, and an evaluate batch from the
-    records beside one on a fixed batch.
+    records beside one on a fixed batch;
+20. the action-conditioned zoo files on phase 19's records read with
+    ``use_state=True`` (4-D actions, 3-D states): ``train``'s ``main`` at
+    full width, batch 16, TF32 convs, 3 steps each of ``--model dna``
+    (``bair/dna_l2``), ``--model sna`` (``bair/sna_l2``) and ``--model
+    savp`` (``bair/ours_gan``), with finite losses (a ``state`` term where
+    ``state_weight > 0``), the launches per step (K1 none for ``dna``) and
+    the stem conv's 3 + 4 + 3 input channels; ``evaluate`` and ``generate``
+    from each run directory on ``test/`` with phase 19's checks; the GPU
+    rollout against the CPU rollout (TF32 off, ngf=8) for each generator
+    option under ``use_states`` (dna, stp, flow, direct, GRU cells, the
+    context-frame backgrounds, learned initial states, ``deconv2d``,
+    ``max_pool_conv2d``) and one ``dna_l2`` train step under phase 9's
+    rule; ``apply_dna_kernels`` (torch ops, no hand kernel) against and
+    beside the JAX package's shifted multiply-adds, device time a call; K3
+    at 3 candidates, batch 16, forward and backward; the ``dna_l2`` train
+    step at batch 16 with its peak memory and its rollout at batch 8 and 64;
+    and the phase's wall time.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
 under ``"generation"``, and at the evaluate shapes, with phase 11's
-launches, under ``"evaluate"``); K2's times are per generator step of six
-calls. Its fields:
+launches, under ``"evaluate"``), and ``composite_k3``: K3 at 3 candidates
+and batch 16 with phase 20's ``dna`` launches and its backward under
+``"backward"``; K2's times are per generator step of six calls. Its
+fields:
 
 - ``launches``: launches in phase 8's four train steps; ``launches_per_train_step``
   and ``launches_per_rollout`` (a no-grad rollout of 11 generator steps);
@@ -381,7 +402,7 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
     # each candidate count's compile-time instantiation (aligned tensors),
     # and the run-time one (the same shape one element past a 16-byte
     # boundary, and 33x31 with 16 candidates)
-    from video_prediction_torch.kernels.composite import device_plan
+    from video_prediction_torch.kernels.composite import STAGED, device_plan
 
     errs = {"float32": 0.0, "bfloat16": 0.0}
     for k, h, w in [(k, 64, 64) for k in composite_ks] + [(16, 33, 31)]:
@@ -392,7 +413,7 @@ def kernel_phase(dev, batch: int, composite_ks=(7,)) -> list:
             ref, ref_masks = K.composite_reference(cd, lg, with_masks=True)
             for label, (ca, la) in (("", (cd, lg)), (", unaligned", (unaligned(cd), unaligned(lg)))):
                 p = device_plan(ca, la)
-                want = k if (h, w) == (64, 64) and not label else 0
+                want = k if (k, 3) in STAGED and (h, w) == (64, 64) and not label else 0
                 check(p.staged == want, f"K3 {dt} [{batch},{k},{h},{w},3]{label}: plan {p}, want staged={want}")
                 out, masks = K.composite(ca, la, with_masks=True)
                 again, no_masks = K.composite(ca, la)
@@ -551,13 +572,13 @@ def backward_phase(dev) -> list:
         return K.composite_reference(a, m)[0]
 
     err32 = 0.0
-    for (b, k, h, w, c) in [(b2, 7, 64, 64, 3), (3, 5, 17, 19, 1)]:
+    for (b, k, h, w, c) in [(b2, 7, 64, 64, 3), (b2, 3, 64, 64, 3), (3, 5, 17, 19, 1)]:
         cand, logits, grad = rand(b, k, h, w, c), randn(b, h, w, k) * 3.0, randn(b, h, w, c)
         for dt in ("float32", "bfloat16"):
             cd, lg, gr = (x.to(getattr(torch, dt)) for x in (cand, logits, grad))
             e = compare("K3 backward", K.composite_backward(cd, lg, gr),
                         plain_grads(composite_image, (cd, lg), (gr,)), ("elem", "elem"), dt, f"[{b},{k},{h},{w},{c}]")
-            if dt == "float32" and b == b2:
+            if dt == "float32" and (b, k) == (b2, 7):
                 err32 = e
     cand, logits, grad = rand(b2, 7, 64, 64, 3), randn(b2, 64, 64, 7) * 3.0, randn(b2, 64, 64, 3)
     entry = dict(
@@ -726,21 +747,22 @@ def train_phase(init_seed: int = 0) -> dict:
     return launches
 
 
-def train_cpu_vs_gpu_phase(dev) -> None:
-    """Phase 9: one train step on the CPU (plain versions) and on the GPU
-    (kernels) from the same weights, batch and noise, fp32 with TF32 off, at
-    ngf=8 (64 px, 6 frames, batch 2)."""
-    from video_prediction_torch.models import get_model_class
+def train_cpu_vs_gpu_phase(dev, model_name: str = "savp", hp=None) -> None:
+    """Phase 9 (and 20, for ``dna_l2``): one train step on the CPU (plain
+    versions) and on the GPU (kernels) from the same weights, batch and
+    noise, fp32 with TF32 off, at ngf=8 (64 px, 6 frames, batch 2) of ``hp``
+    (the flagship's by default) and model ``model_name``."""
+    from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.train.state import TrainState, make_optimizers
     from video_prediction_torch.train.step import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    hp = slice_hparams().replace(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2)
-    cpu_model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    hp = (hp or slice_hparams()).replace(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2)
+    batch = {k: v[:, :6] for k, v in synthetic_batch(2, seed=6, device="cpu").items()}
+    cpu_model = get_model_class(model_name)(hp, **input_dims(hp, batch))
     cpu_model.init_weights(torch.Generator().manual_seed(5))
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    batch = {k: v[:, :6] for k, v in synthetic_batch(2, seed=6, device="cpu").items()}
     noise = cpu_model.draw_noise(2, 6, torch.Generator().manual_seed(7))
     step = make_train_step(cpu_model)
     states = [TrainState(m, *make_optimizers(m), 0, torch.Generator()) for m in (cpu_model, gpu_model)]
@@ -779,7 +801,7 @@ def train_cpu_vs_gpu_phase(dev) -> None:
     for name, buf in cpu_model.named_buffers():
         err = float((dict(gpu_model.named_buffers())[name].cpu() - buf).abs().max())
         check(err <= 1e-5, f"spectral {name} differs by {err:.3g} after the step")
-    print(f"train step GPU vs CPU, ngf=8, batch 2, fp32 (TF32 off): {len(s_cpu)} loss terms within rel "
+    print(f"{model_name} train step GPU vs CPU, ngf=8, batch 2, fp32 (TF32 off): {len(s_cpu)} loss terms within rel "
           f"{worst:.3g} (tol {TRAIN_LOSS_RTOL}); gradient error over each leaf's max: median {rel[len(rel) // 2]:.3g}"
           f" (tol {TRAIN_GRAD_MEDIAN_TOL}), worst {rel[-1]:.3g} (tol {TRAIN_GRAD_TOL} + {TRAIN_GRAD_FLOOR} of the "
           f"largest); parameters after the step within {param_worst:.3g} where |g| is well above the tolerance")
@@ -1506,10 +1528,12 @@ def records_train_phase(dirs: dict, per_step: dict, dev) -> str:
     return run_dir
 
 
-def records_eval_phase(dirs: dict, run_dir: str) -> None:
-    """Phase 19: ``evaluate`` (8 x 8 samples, 16 examples) and ``generate``
-    (batch 8, 16 examples x 2 samples) from the records run directory on
-    ``test/``, with phase 11's and phase 5's checks."""
+def records_eval_phase(dirs: dict, run_dir: str, model: str = "savp", per_rollout: dict = LAUNCHES_PER_ROLLOUT,
+                       label: str = "") -> None:
+    """Phase 19 (and 20, for each ``model``): ``evaluate`` (8 x 8 samples, 16
+    examples) and ``generate`` (batch 8, 16 examples x 2 samples) from a run
+    directory trained on the records, on ``test/``, with phase 11's and phase
+    5's checks and ``per_rollout`` launches a rollout."""
     import numpy as np
 
     from video_prediction_torch import evaluate, generate
@@ -1524,10 +1548,10 @@ def records_eval_phase(dirs: dict, run_dir: str) -> None:
     torch.cuda.synchronize()
     launches = K.launch_counts()
     out, rollouts = summary["results_dir"], summary["rollouts"]
-    print(f"evaluate on test records: {rollouts} rollouts of 64, means {summary['metrics']}; launches {launches}")
-    check(out.endswith(os.path.join("bair", "savp")), f"evaluate wrote to {out}")
+    print(f"evaluate{label} on test records: {rollouts} rollouts of 64, means {summary['metrics']}; launches {launches}")
+    check(out.endswith(os.path.join("bair", model)), f"evaluate wrote to {out}")
     check(rollouts == 2 and summary["no_nan"], f"unexpected evaluate summary {summary}")
-    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want = {k: n * rollouts for k, n in per_rollout.items()}
     want.update({k: 0 for k in BACKWARD})
     check(launches == want, f"evaluate on records: launches {launches}, want {want}")
     check(sorted(f for f in os.listdir(out) if f.endswith(".txt")) ==
@@ -1547,10 +1571,10 @@ def records_eval_phase(dirs: dict, run_dir: str) -> None:
     launches = K.launch_counts()
     rollouts = summary["rollouts"]
     gifs = [f for f in os.listdir(summary["out_dir"]) if f.endswith(".gif")]
-    print(f"generate on test records: {rollouts} rollouts, {len(gifs)} GIFs; launches {launches}")
+    print(f"generate{label} on test records: {rollouts} rollouts, {len(gifs)} GIFs; launches {launches}")
     check(rollouts == 4 and summary["gifs"] == 32 and len(gifs) == 32 and summary["all_finite"],
           f"unexpected generate summary {summary}")
-    want = {k: n * rollouts for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want = {k: n * rollouts for k, n in per_rollout.items()}
     want.update({k: 0 for k in BACKWARD})
     check(launches == want, f"generate on records: launches {launches}, want {want}")
 
@@ -1634,8 +1658,9 @@ def records_timing_phase(dirs: dict, run_dir: str, dev, ident: str) -> None:
           f"alternated [{ident}]")
 
 
-def records_phase(per_step: dict, dev, ident: str) -> None:
-    """Phase 19: the TFRecord datasets through train, evaluate and generate."""
+def records_phase(per_step: dict, dev, ident: str) -> dict:
+    """Phase 19: the TFRecord datasets through train, evaluate and generate;
+    returns the records' split directories."""
     import importlib.util
 
     from video_prediction_torch import native
@@ -1646,6 +1671,283 @@ def records_phase(per_step: dict, dev, ident: str) -> None:
     run_dir = records_train_phase(dirs, per_step, dev)
     records_eval_phase(dirs, run_dir)
     records_timing_phase(dirs, run_dir, dev, ident)
+    return dirs
+
+
+# ---------------------------------------------------------------------------
+# the action-conditioned zoo files (phase 20)
+# ---------------------------------------------------------------------------
+AC_ZOO = (("dna", "dna_l2"), ("sna", "sna_l2"), ("savp", "ours_gan"))  # model, hparams/bair/<file>
+AC_TRAIN_STEPS = 3
+AC_STEM_CHANNELS = 3 + 4 + 3  # image, action, state; no z (nz=0)
+# one rollout a step on the single batch (nz=0: no doubled rollout); dna has
+# no CDNA transformation, so no K1; its 3 candidates (DNA, previous, scratch)
+# take K3's run-time instantiation
+AC_PER_ROLLOUT = {"dna": {**LAUNCHES_PER_ROLLOUT, "apply_cdna_kernels": 0}, "sna": LAUNCHES_PER_ROLLOUT,
+                  "savp": LAUNCHES_PER_ROLLOUT}
+# phase 20's GPU-against-CPU rollouts: the generator options, each under use_states
+AC_VARIANTS = {
+    "dna": dict(transformation="dna"),
+    "stp": dict(transformation="stp"),
+    "flow": dict(transformation="flow"),
+    "direct": dict(transformation="direct"),
+    "gru": dict(conv_rnn="gru"),
+    "context_images_background": dict(context_images_background=True),
+    "learn_initial_state": dict(learn_initial_state=True),
+    "deconv2d": dict(upsample_layer="deconv2d"),
+    "max_pool_conv2d": dict(downsample_layer="max_pool_conv2d"),
+}
+
+
+def ac_hparams(model: str, zoo: str, **extra):
+    """``model``'s defaults overridden by ``hparams/bair/<zoo>``, then ``extra``."""
+    from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
+    from video_prediction_torch.models import get_model_class
+
+    path = zoo_dir() / "bair" / zoo / "model_hparams.json"
+    return resolve_model_hparams(get_model_class(model).default_hparams(), str(path), extra=extra or None)
+
+
+def ac_train_phase(dirs: dict) -> tuple:
+    """Phase 20, train: ``train``'s ``main`` on phase 19's BAIR records with
+    ``--dataset_hparams use_state=True``, each zoo file at full width, batch
+    16, TF32 convs, 3 steps: finite losses with a ``state`` term where
+    ``state_weight > 0``, the launches per step, the stem conv's input
+    channels. Returns the run directories by model, and ``dna``'s launches."""
+    import shutil
+
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    set_tf32_default()
+    runs, dna_launches = {}, None
+    for model, zoo in AC_ZOO:
+        run_dir = os.path.join(WORK_DIR, f"ac_{zoo}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = train_main([
+            "--dataset", "bair", "--input_dir", dirs["train"], "--dataset_hparams", "use_state=True",
+            "--model", model, "--model_hparams_dict", str(zoo_dir() / "bair" / zoo / "model_hparams.json"),
+            "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--max_steps", str(AC_TRAIN_STEPS),
+            "--device", "cuda", "--progress_freq", "1", "--save_freq", "1000", "--eval_summary_freq", "0",
+            "--accum_eval_summary_freq", "0", "--seed", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        with open(os.path.join(run_dir, "model_hparams.json")) as f:
+            state_weight = json.load(f)["state_weight"]
+        stem = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)[
+            "generator.cell.stem.weight"].shape[1]
+        print(f"train {model} (bair/{zoo}) on records, use_state=True: {AC_TRAIN_STEPS} steps, {wall:.2f} s wall; "
+              f"losses {summary['scalars']}; launches {launches}; stem input channels {stem}")
+        check(summary["all_finite"] and summary["step"] == AC_TRAIN_STEPS, f"train {zoo}: {summary}")
+        check(("g/state" in summary["scalars"]) == bool(state_weight),
+              f"train {zoo}: state_weight {state_weight}, loss terms {sorted(summary['scalars'])}")
+        per_step = {**AC_PER_ROLLOUT[model], **{k: AC_PER_ROLLOUT[model][fwd] for k, fwd in BACKWARD.items()}}
+        want = {k: AC_TRAIN_STEPS * n for k, n in per_step.items()}
+        check(launches == want, f"train {zoo}: launches {launches}, want {want}")
+        check(stem == AC_STEM_CHANNELS, f"train {zoo}: stem input channels {stem}, want {AC_STEM_CHANNELS}")
+        runs[model] = run_dir
+        if model == "dna":
+            dna_launches = launches
+    return runs, dna_launches
+
+
+def ac_cpu_vs_gpu_phase(dev) -> None:
+    """Phase 20: the GPU rollout (kernels) against the CPU rollout (plain
+    versions) of the same weights, batch and z for each generator option of
+    ``AC_VARIANTS`` under ``use_states`` (``bair/ours_savp`` at ngf=8, 64 px,
+    12 frames, batch 2, TF32 off; the zero-initialized ``stp_head`` and
+    ``init_state_*`` filled with seeded values), ``gen_images`` and
+    ``gen_states`` within phase 6's tolerance; then one ``dna_l2`` train step
+    under phase 9's."""
+    from video_prediction_torch.models import get_model_class, input_dims
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = synthetic_batch(2, seed=20, device="cpu")
+    z = torch.randn(2, 11, 8, generator=torch.Generator().manual_seed(20))
+    worst = {}
+    for name, extra in AC_VARIANTS.items():
+        hp = ac_hparams("savp", "ours_savp", ngf=8, use_states=True, **extra)
+        model = get_model_class("savp")(hp, **input_dims(hp, batch))
+        g = torch.Generator().manual_seed(20)
+        model.init_weights(g)
+        with torch.no_grad():
+            for pname, p in model.named_parameters():
+                if "stp_head.weight" in pname or "init_state_" in pname:
+                    p.copy_(0.05 * torch.randn(p.shape, generator=g))
+        gpu_model = copy.deepcopy(model).to(dev).eval()
+        with torch.inference_mode():
+            ref = model.eval()(batch, zs_prior=z)
+            out = gpu_model({k: v.to(dev) for k, v in batch.items()}, zs_prior=z.to(dev))
+        errs = [float((out[k].cpu() - ref[k]).abs().max()) for k in ("gen_images", "gen_states")]
+        worst[name] = errs
+        check(all(bool(torch.isfinite(out[k]).all()) for k in ("gen_images", "gen_states")), f"{name}: not finite")
+        check(max(errs) <= ROLLOUT_TOL, f"{name} rollout GPU vs CPU: gen_images {errs[0]}, gen_states {errs[1]}")
+    print("rollout GPU vs CPU, bair/ours_savp with use_states, ngf=8, batch 2, fp32 (TF32 off), max_abs_err "
+          f"gen_images / gen_states (tol {ROLLOUT_TOL}): "
+          + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in worst.items()))
+    train_cpu_vs_gpu_phase(dev, "dna", ac_hparams("dna", "dna_l2"))
+    set_tf32_default()
+
+
+def dna_taps(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """The JAX package's form of ``apply_dna_kernels`` (``ops/cdna.py:87-115``):
+    kh*kw shifted multiply-adds, 75 eager ops a call; timed beside the port's
+    unfold form."""
+    b, h, w, kh, kw, n = kernels.shape
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    padded = torch.nn.functional.pad(image, (0, 0, pw, kw - 1 - pw, ph, kh - 1 - ph))
+    acc = torch.zeros((b, n, h, w, image.shape[-1]), dtype=torch.float32, device=image.device)
+    for i in range(kh):
+        for j in range(kw):
+            acc = acc + padded[:, None, i:i + h, j:j + w].float() * kernels[:, :, :, i, j, :].permute(0, 3, 1, 2)[..., None]
+    return acc.to(image.dtype)
+
+
+def dna_op_phase(dev, ident: str) -> None:
+    """Phase 20, ``apply_dna_kernels`` (torch ops, no hand kernel): the
+    port's unfold form against the JAX package's 25 shifted multiply-adds
+    (``dna_taps``) on the card, then the device time per call of each, in
+    turns (port, JAX form, JAX form, port), the forward at the rollout
+    batches 8 and 64 and at the train step's 16, and forward with backward
+    at 16, beside the bound. A call is several PyTorch kernels, so its time
+    is ``queued_ms``'s: CUDA events around 20 calls queued behind a sleep
+    kernel, the device's work and the gaps between its kernels, not the
+    host's pace."""
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import queued_ms
+    from video_prediction_torch.ops.cdna import apply_dna_kernels, normalize_kernels
+
+    def in_turns(call) -> str:
+        port, jax_form = [], []
+        for f in (apply_dna_kernels, dna_taps, dna_taps, apply_dna_kernels):
+            for _ in range(3):
+                call(f)
+            (port if f is apply_dna_kernels else jax_form).append(queued_ms(lambda: call(f), 20))
+        return (f"device (queued) {' / '.join(f'{t:.4f}' for t in port)} ms a call (the JAX package's shifted "
+                f"multiply-adds {' / '.join(f'{t:.4f}' for t in jax_form)} ms; in turns)")
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    for b in (8, 16, 64):
+        image = torch.rand(b, 64, 64, 3, generator=g, device=dev)
+        kern = normalize_kernels(torch.randn(b, 64, 64, 5, 5, 1, generator=g, device=dev), "relu")
+        err, ok = max_err(apply_dna_kernels(image, kern), dna_taps(image, kern), "float32")
+        check(ok, f"apply_dna_kernels disagrees with the shifted multiply-adds at batch {b}: {err}")
+        nbytes, ops = RL.dna_forward(b, 64, 64, 3)
+        print(f"apply_dna_kernels forward batch {b}: {in_turns(lambda f: f(image, kern))}; bound "
+              f"{RL.bound_ms(nbytes, ops):.5f} ms by {RL.bound_by(nbytes, ops)}; max_abs_err {err:.3g} [{ident}]")
+        if b == 16:
+            grad = torch.randn(b, 1, 64, 64, 3, generator=g, device=dev)
+            leaves = [image.requires_grad_(), kern.requires_grad_()]
+            nbytes += RL.dna_backward(b, 64, 64, 3)[0]
+            print(f"apply_dna_kernels forward and backward batch {b}: "
+                  f"{in_turns(lambda f: torch.autograd.grad(f(*leaves), leaves, grad))}; bound "
+                  f"{RL.bound_ms(nbytes):.5f} ms [{ident}]")
+
+
+def composite_k3_entry(dev, launches: dict) -> dict:
+    """Phase 20: K3 at ``dna_l2``'s 3 candidates and the train step's batch
+    16 (its run-time instantiation), forward and backward, against the plain
+    version, timed, with the launches of phase 20's ``dna`` train steps: the
+    ``kernels`` line's entry for K = 3."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import device_ms
+    from video_prediction_torch.kernels.composite import device_plan
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    b = TRAIN_BATCH
+    cand = torch.rand(b, 3, 64, 64, 3, generator=g, device=dev)
+    logits = torch.randn(b, 64, 64, 3, generator=g, device=dev) * 3.0
+    grad = torch.randn(b, 64, 64, 3, generator=g, device=dev)
+    check(device_plan(cand, logits).staged == 0, "K3 at 3 candidates should take the run-time instantiation")
+    out, _ = K.composite(cand, logits)
+    err, ok = max_err(out, K.composite_reference(cand, logits)[0], "float32")
+    check(ok, f"K3 at K=3 disagrees with its plain version: {err}")
+    berrs = []
+    for got, want in zip(K.composite_backward(cand, logits, grad),
+                         plain_grads(lambda a, m: K.composite_reference(a, m)[0], (cand, logits), (grad,))):
+        e, ok = max_err(got, want, "float32")
+        check(ok, f"K3 backward at K=3 disagrees with plain autograd: {e}")
+        berrs.append(e)
+    entry = dict(
+        name="composite_k3", route="cuda", source="video_prediction_torch/kernels/csrc/composite.cu",
+        replaces="video_prediction_tpu/ops/pallas_kernels.py:198", shapes=f"[{b},3,64,64,3], [{b},64,64,3]",
+        max_abs_err=err, ms=cuda_ms(lambda: K.composite(cand, logits)),
+        plain_ms=cuda_ms(lambda: K.composite_reference(cand, logits)),
+        device_ms=device_ms(lambda: K.composite(cand, logits), "K3"), library_ms=None,
+        launches=launches["composite"], launches_per_train_step=launches["composite"] // AC_TRAIN_STEPS,
+        launches_per_rollout=AC_PER_ROLLOUT["dna"]["composite"],
+    )
+    roofline(entry, RL.composite_forward(b, 3))
+    backward = dict(
+        max_abs_err=max(berrs), ms=cuda_ms(lambda: K.composite_backward(cand, logits, grad)),
+        plain_ms=plain_backward_ms(lambda a, m: K.composite_reference(a, m)[0], (cand, logits), (grad,)),
+        device_ms=device_ms(lambda: K.composite_backward(cand, logits, grad), "K3"),
+        launches=launches["composite_backward"],
+    )
+    entry["backward"] = roofline(backward, RL.composite_backward(b, 3))
+    print(timing_line(f"K3 at K=3 per call, fp32, batch {b}", entry))
+    print(timing_line(f"K3 backward at K=3 per call, fp32, batch {b}", backward))
+    return entry
+
+
+def ac_timing_phase(dev, ident: str) -> None:
+    """Phase 20, times (TF32 convs): the ``dna_l2`` train step at batch 16 on
+    a fixed device batch (5 steps after 2, CUDA-synchronised host clock) and
+    its peak device memory; its no-grad rollout at batch 8 and 64."""
+    from video_prediction_torch.models import get_model_class, input_dims
+    from video_prediction_torch.train.state import create_train_state
+    from video_prediction_torch.train.step import make_train_step
+
+    set_tf32_default()
+    hp = ac_hparams("dna", "dna_l2", batch_size=TRAIN_BATCH)
+    data = synthetic_batch(TRAIN_BATCH, seed=23, device=dev)
+    model = get_model_class("dna")(hp, **input_dims(hp, data))
+    ts = create_train_state(model, 0, dev)
+    step = make_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(ts, data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        scalars = step(ts, data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    check(all(bool(torch.isfinite(v)) for v in scalars.values()), "timed dna_l2 steps gave non-finite losses")
+    print(f"dna_l2 train step batch {TRAIN_BATCH}, TF32 convs: {ms:.2f} ms, {TRAIN_BATCH * 10 / ms * 1e3:.1f} "
+          f"frames/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{ident}]")
+    model.eval()
+    for bsz in (8, 64):
+        batch = synthetic_batch(bsz, seed=24, device=dev)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(batch), iters=10, warmup=3)
+        print(f"dna_l2 rollout batch {bsz}, TF32 convs: {ms:.2f} ms, {bsz * 10 / ms * 1e3:.0f} generated frames/s "
+              f"[{ident}]")
+    del ts, step, model
+    torch.cuda.empty_cache()
+
+
+def ac_phase(dirs: dict, dev, ident: str) -> dict:
+    """Phase 20: ``bair/dna_l2``, ``bair/sna_l2`` and ``bair/ours_gan`` through
+    train, evaluate and generate on the records, the generator options GPU
+    against CPU, the DNA op, K3 at 3 candidates and the times. Returns the
+    K = 3 entry of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    runs, dna_launches = ac_train_phase(dirs)
+    for model, run_dir in runs.items():
+        records_eval_phase(dirs, run_dir, model, AC_PER_ROLLOUT[model], label=f" {model}")
+    ac_cpu_vs_gpu_phase(dev)
+    dna_op_phase(dev, ident)
+    entry = composite_k3_entry(dev, dna_launches)
+    ac_timing_phase(dev, ident)
+    print(f"phase 20 (action-conditioned zoo): {time.perf_counter() - t0:.2f} s wall")
+    return entry
 
 
 def set_tf32_default() -> None:
@@ -1690,7 +1992,7 @@ def main() -> int:
         # 3. forward kernels against their plain versions, at the generation
         # and at the train step's shapes
         generation = kernel_phase(dev, BATCH)
-        kernel_results = kernel_phase(dev, 2 * TRAIN_BATCH)
+        kernel_results = kernel_phase(dev, 2 * TRAIN_BATCH, composite_ks=(7, 3))
         evaluation = kernel_phase(dev, EVAL_BATCH, composite_ks=(7, 6))
         timed = ("shapes", "max_abs_err", "ms", "plain_ms", "device_ms", "bytes", "bound_ms", "share_of_bound",
                  "library_ms")
@@ -1769,7 +2071,12 @@ def main() -> int:
 
         # 19. the TFRecord datasets: records written by the port, train (with
         # the feeder and --val_input_dir), evaluate and generate on them
-        records_phase(per_train_step, dev, ident)
+        dirs = records_phase(per_train_step, dev, ident)
+
+        # 20. the action-conditioned zoo files (dna_l2, sna_l2, ours_gan) on
+        # the records through train, evaluate and generate; the generator
+        # options GPU against CPU; the DNA op; K3 at 3 candidates
+        kernel_results.append(ac_phase(dirs, dev, ident))
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -127,11 +127,13 @@ def test_html_gallery_equal(tmp_path):
 def test_model_registry():
     from video_prediction_torch.models import _MODELS
 
-    assert sorted(_MODELS) == ["ground_truth", "repeat", "savp", "sv2p"]
+    assert sorted(_MODELS) == ["dna", "ground_truth", "repeat", "savp", "sna", "sv2p"]
     assert get_model_class("sv2p").default_hparams().latent_time_invariant
+    assert get_model_class("dna").default_hparams().transformation == "dna"
+    assert get_model_class("sna").default_hparams().first_image_background
     assert not get_model_class("repeat").trainable and get_model_class("savp").trainable
     with pytest.raises(ValueError, match="available"):
-        get_model_class("dna")
+        get_model_class("cdna")
 
 
 def test_port_never_imports_jax_or_flax():
@@ -154,7 +156,9 @@ def test_port_never_imports_jax_or_flax():
         evaluation = ["metrics", "evaluate", "models.vgg", "models.lpips", "utils.html"]
         data = ["native", "data.base", "data.native_loader", "data.records", "data.loader", "data.bair", "data.kth",
                 "data.something", "data.variants", "data.convert", "data.synthetic"]
-        assert not [m for m in training + evaluation + data if "video_prediction_torch." + m not in names], names
+        generator = ["ops.cdna", "ops.warp", "ops.rnn", "ops.layers", "models.savp", "models.model_zoo"]
+        assert not [m for m in training + evaluation + data + generator
+                    if "video_prediction_torch." + m not in names], names
         assert not leaked, leaked
         print(len(names))
         """

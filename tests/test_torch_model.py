@@ -14,6 +14,7 @@ import torch
 from video_prediction_torch.configs import hparams as thp
 from video_prediction_torch.convert import flax_to_state_dict
 from video_prediction_torch.models import get_model_class as t_get_model_class
+from video_prediction_torch.models import input_dims
 from video_prediction_torch.models.base import images_to_float
 from video_prediction_torch.models.savp import generator_num_scales as t_num_scales
 from video_prediction_torch.train.schedules import sample_use_gt_mask
@@ -156,19 +157,48 @@ def test_images_to_float():
 
 
 def test_unported_options_raise():
-    for extra in (dict(transformation="dna"), dict(learn_prior=True), dict(conv_rnn="gru"),
-                  dict(use_states=True)):
+    """What stays unported: ``learn_prior`` in any model class and with any
+    other option (the generator raises), and the image and action-conditioned
+    discriminators' and the latent and VGG losses' weights (the model builds
+    and rolls out; its losses raise)."""
+    for model, extra in (("savp", dict(learn_prior=True)), ("dna", dict(learn_prior=True)),
+                         ("sna", dict(learn_prior=True)),
+                         ("savp", dict(learn_prior=True, use_states=True, conv_rnn="gru", transformation="flow"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
-    # unported loss weights: the model builds and rolls out; its losses raise
+            t_get_model_class(model)(_hparams(thp, model=model, **extra), image_shape=(32, 32, 3))
     batch = {"images": torch.rand(1, 6, 32, 32, 3)}
-    for extra in (dict(image_sn_gan_weight=0.1), dict(acvideo_sn_vae_gan_weight=0.1), dict(z_l1_weight=1.0),
-                  dict(vgg_cdist_weight=1.0)):
+    for extra in (dict(image_sn_gan_weight=0.1), dict(image_sn_vae_gan_weight=0.1), dict(acvideo_sn_gan_weight=0.1),
+                  dict(acvideo_sn_vae_gan_weight=0.1), dict(z_l1_weight=1.0), dict(vgg_cdist_weight=1.0)):
         model = t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
         with torch.no_grad():
             assert model(batch)["gen_images"].shape == (1, 5, 32, 32, 3)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model.compute_losses(batch)
+
+
+ZOO_FILES = sorted(thp.zoo_dir().glob("*/*/model_hparams.json"))
+ZOO_MODEL = {"dna_l2": "dna", "sna_l2": "sna", "sv2p": "sv2p"}  # the rest: savp
+
+
+@pytest.mark.parametrize("path", ZOO_FILES, ids=lambda p: f"{p.parent.parent.name}/{p.parent.name}")
+def test_every_zoo_file_builds_and_rolls_out(path):
+    """Every ``hparams/*/*/model_hparams.json`` over its model class's
+    defaults, at its own widths, builds in the port and rolls out one step at
+    32 px from a batch with actions and states (the states reach the model
+    under ``use_states``)."""
+    name = ZOO_MODEL.get(path.parent.name, "savp")
+    hp = thp.resolve_model_hparams(t_get_model_class(name).default_hparams(), str(path))
+    g = torch.Generator().manual_seed(0)
+    batch = {"images": torch.rand(1, 2, 32, 32, 3, generator=g), "actions": torch.rand(1, 2, 4, generator=g),
+             "states": torch.rand(1, 2, 3, generator=g)}
+    model = t_get_model_class(name)(hp, **input_dims(hp, batch))
+    model.init_weights(g)
+    with torch.no_grad():
+        out = model(batch, generator=g)
+    assert out["gen_images"].shape == (1, 1, 32, 32, 3) and bool(torch.isfinite(out["gen_images"]).all())
+    assert ("gen_states" in out) == hp.use_states
+    assert model.generator.cell.stem.weight.shape[1] == 3 + 4 + 3 * hp.use_states + (
+        hp.nz if hp.nz and hp.where_add in ("input", "all") else 0)
 
 
 def test_clip_start_tensor_equals_int_start():

@@ -1,7 +1,8 @@
 """``video_prediction_torch.kernels.roofline``: the bytes of each kernel at
 the shapes ``chip_smoke.py`` times (K2 a generator step of six calls; the
-forward at batch 8, 32 and 64, the backward at the train step's 32), and the
-bound they give. Byte counts: each input read once, each output written
+forward at batch 8, 32 and 64, the backward at the train step's 32; K3 at
+3 candidates and the DNA op at ``dna_l2``'s batch 16), and the bound they
+give. Byte counts: each input read once, each output written
 once, fp32; the fp32 parameter tensors (K1's kernels, K2's ln_params and d
 ln_params) are counted."""
 
@@ -28,6 +29,10 @@ LN_PARAMS_STEP = 10 * 4 * (64 + 128 + 256 + 128 + 64 + 32)  # [10,C] fp32 of the
     ("K3 fwd b32", RL.composite_forward(32, 7), 16_252_928, 0, 16.25),
     ("K3 fwd b64", RL.composite_forward(64, 7), 32_505_856, 0, 32.51),
     ("K3 bwd b32", RL.composite_backward(32, 7), 30_932_992, 0, 30.93),
+    ("K3 fwd b16 K3", RL.composite_forward(16, 3), 3_932_160, 0, 3.93),
+    ("K3 bwd b16 K3", RL.composite_backward(16, 3), 7_077_888, 0, 7.08),
+    ("DNA fwd b16", RL.dna_forward(16, 64, 64, 3), 8_126_464, 0, 8.13),
+    ("DNA bwd b16", RL.dna_backward(16, 64, 64, 3), 15_466_496, 0, 15.47),
 ])
 def test_bytes(name, got, want_bytes, params_bytes, want_mb):
     """``want_bytes``: the activations' bytes, whose MB the kernel table

@@ -211,3 +211,67 @@ def test_train_on_bair_records_evaluates_on_val_input_dir(bair_dirs, tmp_path, m
                          "--device", "cpu", "--batch_size", "2", "--num_samples", "2"])
     assert gen["gifs"] == 2 and gen["all_finite"]
     assert opened[-1] == ("test", val_dir)
+
+
+def test_dna_on_bair_records_with_states_then_evaluate(bair_dirs, tmp_path):
+    """``--model dna`` with ``hparams/bair/dna_l2`` on BAIR records read with
+    ``use_state=True``: 2 steps, whose losses carry the ``state`` term; the
+    stem conv takes the image, the 4 action and the 3 state channels; then
+    ``evaluate`` on the records from the run dir."""
+    from video_prediction_torch import evaluate
+
+    train_dir, val_dir = bair_dirs
+    zoo = ZOO.parent.parent.parent / "bair" / "dna_l2" / "model_hparams.json"
+    run = tmp_path / "dna"
+    summary = train_main(["--dataset", "bair", "--input_dir", train_dir, "--dataset_hparams",
+                          "scale_size=32,use_state=True", "--model", "dna", "--model_hparams_dict", str(zoo),
+                          "--model_hparams", "ngf=4,sequence_length=5", "--output_dir", str(run), "--max_steps", "2",
+                          "--batch_size", "2", "--device", "cpu", "--progress_freq", "1", "--eval_summary_freq", "0",
+                          "--accum_eval_summary_freq", "0", "--seed", str(SEED)])
+    assert summary["step"] == 2 and summary["all_finite"]
+    assert {"g/l2", "g/state"} <= set(summary["scalars"])
+    params = torch.load(run / PARAMS_FILE, weights_only=True)
+    assert params["generator.cell.stem.weight"].shape[1] == 3 + 4 + 3
+    assert "generator.cell.dna_head.weight" in params and "generator.cell.state_head.weight" in params
+    out = evaluate.main(["--checkpoint", str(run), "--input_dir", val_dir, "--results_dir", str(tmp_path / "eval"),
+                         "--device", "cpu", "--batch_size", "2", "--num_samples", "2"])
+    assert out["rollouts"] == 1 and out["no_nan"] and out["results_dir"].endswith(os.path.join("bair", "dna"))
+
+
+def test_checkpoint_warm_starts_matching_params(tmp_path):
+    """``--checkpoint RUN_DIR`` copies the params that match by name and shape
+    from another run (``scripts/train.py:191-194``): an ``sna`` run from a
+    ``savp`` run takes the shared layers (the CDNA head, the downsampling
+    convs, the recurrent convs over h) and keeps its own init for what
+    differs in shape (the stem and the encoder's input gate convs, which take
+    3 state dims and no z; the mask head, over the top features only) and
+    for what the ``savp`` run lacks (the state head). Without the flag
+    nothing is copied."""
+    from video_prediction_torch.train.checkpoint import warm_start
+
+    savp_run, sna_run = tmp_path / "savp", tmp_path / "sna"
+    _train(savp_run, 1)
+    zoo = ZOO.parent.parent.parent / "bair" / "sna_l2" / "model_hparams.json"
+    argv = ["--dataset", "synthetic", "--model", "sna", "--model_hparams_dict", str(zoo),
+            "--model_hparams", "ngf=4,sequence_length=5", "--max_steps", "1", "--batch_size", "2", "--device", "cpu",
+            "--progress_freq", "1", "--seed", str(SEED)]
+    summary = train_main(argv + ["--output_dir", str(sna_run), "--checkpoint", str(savp_run)])
+    copied = set(summary["warm_started"])
+    assert summary["step"] == 1 and summary["all_finite"]
+    assert {"generator.cell.cdna_head.weight", "generator.cell.down1.conv.weight",
+            "generator.cell.enc_rnn1.gates_h.weight", "generator.cell.dec_rnn0.ln"} <= copied
+    assert not {"generator.cell.stem.weight", "generator.cell.enc_rnn1.gates_x.weight",
+                "generator.cell.mask_head.weight", "generator.cell.state_head.weight"} & copied
+    assert not [n for n in copied if n.startswith("discriminator.")]  # sna has none
+    assert train_main(argv + ["--output_dir", str(tmp_path / "fresh")])["warm_started"] == []
+
+    # the values: each copied tensor is the source's, every other keeps its init
+    source = torch.load(savp_run / PARAMS_FILE, weights_only=True)
+    with open(sna_run / "model_hparams.json") as f:
+        hp = apply_overrides(ModelHparams(), json.load(f))
+    model = get_model_class("sna")(hp, image_shape=(64, 64, 3), action_dim=4, state_dim=3)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    assert sorted(warm_start(str(savp_run), model)) == sorted(copied)
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, source[name] if name in copied else init[name]), name

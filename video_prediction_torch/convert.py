@@ -13,9 +13,14 @@ Mapping:
 - the flax tree's module path becomes the torch module path: ``SAVPCell_0``
   is ``cell``; the ``Conv_0`` wrapper level of ``Conv2D`` and the
   ``_SpectralKernel_0`` level of the spectral layers disappear;
-  ``Conv2D_0`` inside ``ConvPool2D``/``UpsampleConv2D`` is ``conv``;
+  ``Conv2D_0`` inside ``ConvPool2D``/``UpsampleConv2D`` is ``conv``; the
+  ``ConvTranspose_0`` level of ``ConvTranspose2D`` disappears too;
 - conv kernels HWIO -> OIHW, conv3d kernels THWIO -> OITHW, dense kernels
-  ``[in, out]`` -> ``[out, in]``; biases and norm scales as they are.
+  ``[in, out]`` -> ``[out, in]``; biases, norm scales and the generator's
+  learned initial states (``init_state_{i}``) as they are. A
+  ``ConvTranspose`` kernel maps as a conv kernel does: ``ConvTranspose2D``
+  flips it and swaps its in/out axes for ``F.conv_transpose2d`` when it
+  runs;
   ``_SplitInputConv2D``'s single ``[k,k,C1+C2,F]`` kernel under
   ``mask_head/Conv_0`` becomes one ``[F,C1+C2,k,k]`` conv weight;
 - the five LayerNorms of a ConvLSTM cell (``ln_i``, ``ln_f``, ``ln_g``,
@@ -36,7 +41,7 @@ import numpy as np
 import torch
 
 _RENAME = {"SAVPCell_0": "cell", "Conv2D_0": "conv"}
-_DROPPED = ("Conv_0", "_SpectralKernel_0")
+_DROPPED = ("Conv_0", "ConvTranspose_0", "_SpectralKernel_0")
 _LN_GATES = ("ln_i", "ln_f", "ln_g", "ln_o", "ln_c")
 
 
@@ -78,7 +83,7 @@ def flax_to_state_dict(params: Mapping[str, Any],
             else:
                 raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {arr.ndim}")
             leaf = "weight"
-        elif leaf not in ("bias", "scale"):
+        elif leaf not in ("bias", "scale") and not leaf.startswith("init_state_"):
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         out[_key(modules, leaf)] = torch.tensor(arr)
     for key, rows in ln_rows.items():

@@ -160,7 +160,7 @@ def main(argv=None) -> Dict[str, object]:
     )
     from video_prediction_torch.data import get_dataset_class
     from video_prediction_torch.generate import batch_to_device
-    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.models.base import images_to_float
     from video_prediction_torch.train.checkpoint import load_params
     from video_prediction_torch.utils.gif import save_gif
@@ -208,10 +208,7 @@ def main(argv=None) -> Dict[str, object]:
     # the first batch fixes the parameter shapes; drawn from an iterator of its
     # own, as the JAX CLI draws it, so that both walk the same test batches
     batch0 = next(dataset.make_iterator(args.batch_size))
-    actions = batch0.get("actions")
-    model = get_model_class(model_name)(
-        hp, image_shape=batch0["images"].shape[2:], action_dim=0 if actions is None else actions.shape[-1],
-    )
+    model = get_model_class(model_name)(hp, **input_dims(hp, batch0))
     if model.trainable:
         if not run_dir:
             raise SystemExit(f"model {model_name!r} is trainable; --checkpoint is required")

@@ -73,7 +73,7 @@ def main(argv=None) -> Dict[str, object]:
         parse_overrides,
     )
     from video_prediction_torch.data import get_dataset_class
-    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.train.checkpoint import load_params
     from video_prediction_torch.utils.gif import save_gif
 
@@ -103,11 +103,7 @@ def main(argv=None) -> Dict[str, object]:
     it = dataset.make_iterator(args.batch_size)
     batch0 = next(it)
     # the first batch fixes the parameter shapes, as in the JAX package's init
-    actions = batch0.get("actions")
-    model = get_model_class(model_name)(
-        hp, image_shape=batch0["images"].shape[2:],
-        action_dim=0 if actions is None else actions.shape[-1],
-    ).to(device)
+    model = get_model_class(model_name)(hp, **input_dims(hp, batch0)).to(device)
     load_params(run_dir, model, device)
     model.eval()
     rng = torch.Generator(device=device).manual_seed(args.seed)

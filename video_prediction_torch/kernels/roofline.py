@@ -1,4 +1,6 @@
-"""Least device times of the port's six kernels, from their shapes.
+"""Least device times of the port's six kernels, and of the DNA op that the
+JAX package leaves to XLA (``ops/cdna.py#apply_dna_kernels``), from their
+shapes.
 
 Pure Python (no torch): every function takes shapes and returns counts, so
 the CPU tests reach all of it. The counting rule: each input is read once
@@ -97,3 +99,17 @@ def composite_backward(b: int, k: int, h: int = 64, w: int = 64, c: int = 3, ite
     p = b * h * w
     nbytes = 2 * (p * k * c * itemsize + p * k * itemsize) + p * c * itemsize
     return nbytes, p * k * (6 + 4 * c)
+
+
+def dna_forward(b: int, h: int, w: int, c: int, k: int = 5, n: int = 1, itemsize: int = 4) -> Tuple[int, int]:
+    """(bytes, ops) of ``apply_dna_kernels``: image [B,H,W,C] and fp32
+    per-pixel kernels [B,H,W,k,k,N] in, [B,N,H,W,C] out."""
+    nbytes = b * h * w * c * itemsize + b * h * w * k * k * n * 4 + b * n * h * w * c * itemsize
+    return nbytes, 2 * k * k * n * b * h * w * c
+
+
+def dna_backward(b: int, h: int, w: int, c: int, k: int = 5, n: int = 1, itemsize: int = 4) -> Tuple[int, int]:
+    """(bytes, ops) of its backward: image, kernels and grad [B,N,H,W,C] in;
+    d image and fp32 d kernels out."""
+    image, kern = b * h * w * c * itemsize, b * h * w * k * k * n * 4
+    return 2 * image + 2 * kern + b * n * h * w * c * itemsize, 2 * 2 * k * k * n * b * h * w * c

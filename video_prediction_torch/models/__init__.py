@@ -1,20 +1,28 @@
 """Model registry (reference ``video_prediction/models/__init__.py#
-get_model_class``). The port has ``savp``, ``sv2p`` and the parameter-free
-baselines ``ground_truth`` and ``repeat``; ``dna`` and ``sna`` are still to
-be ported (ROADMAP.md)."""
+get_model_class``): name -> model class, covering the reference zoo,
+``savp``, ``dna``, ``sna``, ``sv2p`` and the parameter-free baselines
+``ground_truth`` and ``repeat``."""
 
 from video_prediction_torch.models.base import (  # noqa: F401
     GroundTruthVideoPredictionModel,
     NonTrainableVideoPredictionModel,
     RepeatVideoPredictionModel,
     VideoPredictionModel,
+    input_dims,
 )
-from video_prediction_torch.models.model_zoo import SAVPVideoPredictionModel, SV2PVideoPredictionModel  # noqa: F401
+from video_prediction_torch.models.model_zoo import (  # noqa: F401
+    DNAVideoPredictionModel,
+    SAVPVideoPredictionModel,
+    SNAVideoPredictionModel,
+    SV2PVideoPredictionModel,
+)
 
 _MODELS = {
     "ground_truth": GroundTruthVideoPredictionModel,
     "repeat": RepeatVideoPredictionModel,
     "savp": SAVPVideoPredictionModel,
+    "dna": DNAVideoPredictionModel,
+    "sna": SNAVideoPredictionModel,
     "sv2p": SV2PVideoPredictionModel,
 }
 

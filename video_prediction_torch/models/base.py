@@ -14,8 +14,10 @@ are still to be ported (ROADMAP.md); ``compute_losses`` raises for their loss
 weights, and the generator serves such a run all the same.
 
 Conventions as in the JAX package: ``batch`` holds ``images [B,T,H,W,C]``
-(uint8, or float in [0,1]) and optionally ``actions [B,T or T-1,na]``;
-``gen_images [B,T-1,H,W,C]`` aligns with ``images[:, 1:]``. Where the JAX
+(uint8, or float in [0,1]) and optionally ``actions [B,T or T-1,na]`` and
+``states [B,T,ns]`` (read under ``use_states``); ``gen_images
+[B,T-1,H,W,C]`` aligns with ``images[:, 1:]``, ``gen_states [B,T-1,ns]``
+with ``states[:, 1:]``. Where the JAX
 package draws noise from a key, the port takes it as an input (``zs_prior``
 for the eval rollout; the ``noise`` dict of ``draw_noise`` for training) or
 draws it from an explicit ``torch.Generator``.
@@ -59,6 +61,19 @@ def normalize_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return batch
 
 
+def input_dims(hp: ModelHparams, batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The shapes a batch fixes, as the first batch does in the JAX package's
+    ``init_variables``: ``image_shape`` (H, W, C), ``action_dim`` (0 without
+    actions) and ``state_dim`` (0 unless ``use_states`` and the batch has
+    states). The model constructor's keyword arguments."""
+    actions, states = batch.get("actions"), batch.get("states")
+    return {
+        "image_shape": tuple(batch["images"].shape[2:]),
+        "action_dim": 0 if actions is None else actions.shape[-1],
+        "state_dim": states.shape[-1] if hp.use_states and states is not None else 0,
+    }
+
+
 _UNPORTED_LOSS_WEIGHTS = ("image_sn_gan_weight", "image_sn_vae_gan_weight", "acvideo_sn_gan_weight",
                           "acvideo_sn_vae_gan_weight", "z_l1_weight", "vgg_cdist_weight")
 
@@ -80,17 +95,19 @@ class VideoPredictionModel(nn.Module):
     ask for (``discriminator["video"]`` for the prior rollout,
     ``discriminator["video_vae"]`` for the posterior one).
 
-    ``image_shape`` (H, W, C) and ``action_dim`` (0 when the dataset has no
-    actions) fix the parameter shapes, as the first batch does in the JAX
-    package's ``init_variables``; the discriminators' dense layers take the
-    clip of ``min(clip_length, sequence_length - 1)`` frames. Actions reach
-    the generator whenever the batch has them, even under action-free
-    hparams, as in the JAX package.
+    ``image_shape`` (H, W, C), ``action_dim`` (0 when the dataset has no
+    actions) and ``state_dim`` (0 unless ``use_states`` and the dataset has
+    states) fix the parameter shapes, as the first batch does in the JAX
+    package's ``init_variables`` (``input_dims``); the discriminators' dense
+    layers take the clip of ``min(clip_length, sequence_length - 1)``
+    frames. Actions reach the generator whenever the batch has them, even
+    under action-free hparams, as in the JAX package.
     """
 
     trainable = True
 
-    def __init__(self, hparams: ModelHparams, *, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0):
+    def __init__(self, hparams: ModelHparams, *, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0,
+                 state_dim: int = 0):
         super().__init__()
         hp = self.hparams = hparams
         if hp.latent_time_invariant and hp.learn_prior:
@@ -98,7 +115,7 @@ class VideoPredictionModel(nn.Module):
                              "(the in-cell prior is per-step by construction)")
         # the compute dtype; None: that of the inputs (fp32)
         dtype = torch.bfloat16 if hp.compute_dtype == "bfloat16" else None
-        self.generator = SAVPGenerator(hparams, image_shape, action_dim, dtype=dtype)
+        self.generator = SAVPGenerator(hparams, image_shape, action_dim, state_dim, dtype=dtype)
         self.posterior = (
             PosteriorEncoder(image_shape[-1], nz=hparams.nz, nef=hparams.nef,
                              time_invariant=hparams.latent_time_invariant, dtype=dtype)
@@ -122,16 +139,19 @@ class VideoPredictionModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Initialize as flax does: lecun-normal conv and dense kernels, zero
-        biases, unit norm scales (ConvLSTM ``ln`` rows: scale 1, bias 0), and
-        each spectral ``u`` a normalized Gaussian draw."""
+        """Initialize as flax does: lecun-normal conv and dense kernels (zero
+        where the layer asks, ``Dense(zero_init=True)``), zero biases and
+        learned initial states, unit norm scales (ConvLSTM ``ln`` rows: scale
+        1, bias 0), and each spectral ``u`` a normalized Gaussian draw."""
         for module in self.modules():
             for name, p in module.named_parameters(recurse=False):
-                if name == "weight":  # conv OIHW or dense [out, in]
+                if name == "weight" and getattr(module, "zero_init", False):
+                    p.zero_()
+                elif name == "weight":  # conv OIHW or dense [out, in]
                     fan_in = math.prod(p.shape[1:])
                     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
-                elif name == "bias":
+                elif name == "bias" or name.startswith("init_state_"):
                     p.zero_()
                 elif name == "scale":
                     p.fill_(1.0)
@@ -147,6 +167,8 @@ class VideoPredictionModel(nn.Module):
         kw = {}
         if batch.get("actions") is not None:
             kw["actions"] = batch["actions"]
+        if self.hparams.use_states and batch.get("states") is not None:
+            kw["states"] = batch["states"]
         return kw
 
     def draw_noise(self, batch: int, seq_len: int, generator: Optional[torch.Generator] = None,
@@ -312,6 +334,11 @@ class VideoPredictionModel(nn.Module):
             g_losses["l2"] = hp.l2_weight * L.l2_loss(recon_images, target)
         if hp.tv_weight:
             g_losses["tv"] = hp.tv_weight * L.total_variation(recon_images)
+        if hp.state_weight and "gen_states" in out and batch.get("states") is not None:
+            # the posterior rollout's states where the doubled rollout ran
+            # (JAX base.py:446-449: none when only the posterior rollout ran)
+            g_losses["state"] = hp.state_weight * L.l2_loss(out.get("gen_states_enc", out["gen_states"]),
+                                                            batch["states"][:, 1:])
         if self.has_vae and hp.kl_weight:
             anneal = schedules.kl_weight(step, hp)
             g_losses["kl"] = hp.kl_weight * anneal * L.kl_loss(out["zs_mu"], out["zs_logvar"])
@@ -385,7 +412,8 @@ class NonTrainableVideoPredictionModel(VideoPredictionModel):
 
     trainable = False
 
-    def __init__(self, hparams: ModelHparams, *, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0):
+    def __init__(self, hparams: ModelHparams, *, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0,
+                 state_dim: int = 0):
         nn.Module.__init__(self)
         self.hparams = hparams
         self.generator = None

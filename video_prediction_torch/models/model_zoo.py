@@ -1,8 +1,9 @@
 """Concrete model classes of the reference zoo.
 
-Port of ``video_prediction_tpu/models/model_zoo.py``. The port has ``savp``
-and ``sv2p``; ``dna`` and ``sna`` need the ``dna`` transformation and the
-state head, which are still to be ported (ROADMAP.md).
+Port of ``video_prediction_tpu/models/model_zoo.py``: ``savp``, ``dna``,
+``sna`` and ``sv2p``, each the shared generator and losses under its own
+default hparams (the reference keeps four generator implementations whose
+differences are these knobs).
 """
 
 from __future__ import annotations
@@ -35,6 +36,62 @@ class SAVPVideoPredictionModel(VideoPredictionModel):
             dependent_mask=True,
             schedule_sampling="inverse_sigmoid",
             schedule_sampling_k=900.0,
+        )
+
+
+class DNAVideoPredictionModel(VideoPredictionModel):
+    """Finn et al. 2016 action-conditioned DNA/CDNA predictor.
+
+    Reference: ``models/dna_model.py#DNAVideoPredictionModel``.
+    """
+
+    name = "dna"
+
+    @classmethod
+    def default_hparams(cls) -> ModelHparams:
+        return ModelHparams(
+            l1_weight=0.0,
+            l2_weight=1.0,
+            nz=0,
+            transformation="dna",
+            kernel_normalization="relu",  # Finn 2016 relu-normalized kernels
+            num_transformed_images=0,
+            first_image_background=False,
+            prev_image_background=True,
+            generate_scratch_image=True,
+            dependent_mask=False,
+            schedule_sampling="inverse_sigmoid",
+            schedule_sampling_k=900.0,
+            use_states=True,
+            state_weight=1e-4,
+        )
+
+
+class SNAVideoPredictionModel(VideoPredictionModel):
+    """Ebert et al. 2017 skip-connection neural advection (occlusion-aware).
+
+    Reference: ``models/sna_model.py#SNAVideoPredictionModel``.
+    """
+
+    name = "sna"
+
+    @classmethod
+    def default_hparams(cls) -> ModelHparams:
+        return ModelHparams(
+            l1_weight=0.0,
+            l2_weight=1.0,
+            nz=0,
+            transformation="cdna",
+            kernel_normalization="relu",  # Finn-style CDNA normalization
+            num_transformed_images=4,
+            first_image_background=True,  # the defining SNA skip
+            prev_image_background=True,
+            generate_scratch_image=True,
+            dependent_mask=False,
+            schedule_sampling="inverse_sigmoid",
+            schedule_sampling_k=900.0,
+            use_states=True,
+            state_weight=1e-4,
         )
 
 

@@ -1,53 +1,68 @@
-"""SAVP generator: ConvLSTM encoder-decoder with CDNA transformation kernels
-and masked compositing.
+"""SAVP generator: ConvLSTM (or ConvGRU) encoder-decoder with transformation
+kernels and masked compositing.
 
 Port of ``video_prediction_tpu/models/savp.py`` (``SAVPCell``,
-``SAVPGenerator``, ``generator_num_scales``; reference ``savp_model.py``).
-The JAX package scans the cell over time with ``nn.scan``; here the time
-loop is a Python loop. Per step the cell calls kernel K1 once (CDNA,
-``ops/cdna.py``), kernel K2 once per ConvLSTM cell (``ops/rnn.py``) and
-kernel K3 once (compositing, ``kernels/composite.py``).
+``SAVPGenerator``, ``generator_num_scales``; reference ``savp_model.py``,
+``dna_model.py``, ``sna_model.py``). The JAX package scans the cell over time
+with ``nn.scan``; here the time loop is a Python loop. Per step the cell
+calls kernel K2 once per ConvLSTM cell with LayerNorm (``ops/rnn.py``),
+kernel K1 once per CDNA frame (``ops/cdna.py``) and kernel K3 once where
+more than one candidate is composited (``kernels/composite.py``).
 
-Ported: the ``cdna`` transformation, the ``prev``/``first``/``scratch``
-backgrounds, dependent and independent masks, ``where_add``, action
-conditioning, LSTM cells with or without LayerNorm, fp32 or bf16 compute
-(``compute_dtype``) and gate maths (``gate_dtype``). The other
-transformations, ``learn_prior``, ``use_states``, ``learn_initial_state``,
-``context_images_background`` and GRU cells raise ``NotImplementedError``
-(ROADMAP.md, queue 1). ``remat``, ``remat_policy``, ``remat_prevent_cse``
-and ``scan_unroll`` steer how JAX lowers its scan and mean nothing to a
-Python loop, save one choice that follows the JAX condition
-(``savp.py:364-366``): with ``scan_unroll == 0`` (and not ``remat`` with
-``remat_prevent_cse``) the dependent mask head runs as two convs over the
-slices of its kernel plus an add (``_SplitInputConv2D``), else as one conv
-over the concat. The two forms have the same parameters and agree within
-fp32; in bf16 they round differently. The JAX package's two compositing
-forms (fused sum and einsum, ``savp.py:381-390``) are the same fp32 maths;
-both are K3 here.
+Ported: every option of the JAX generator but ``learn_prior`` (which raises
+``NotImplementedError``; ROADMAP.md, queue 1): the ``cdna``, ``dna``,
+``stp``, ``flow`` and ``direct`` transformations (DNA, STP and flow as torch
+ops, ``ops/cdna.py`` and ``ops/warp.py``: the JAX package leaves them to
+XLA); the ``prev``/``first``/``context``/``scratch`` backgrounds; dependent
+and independent masks; ``where_add``; action and low-dim state conditioning
+with the linear state head; LSTM cells with or without LayerNorm and GRU
+cells; learned initial states; the four up- and downsample layers; fp32 or
+bf16 compute (``compute_dtype``) and gate maths (``gate_dtype``).
+``remat``, ``remat_policy``, ``remat_prevent_cse`` and ``scan_unroll``
+steer how JAX lowers its scan and mean nothing to a Python loop, save one
+choice that follows the JAX condition (``savp.py:364-366``): with
+``scan_unroll == 0`` (and not ``remat`` with ``remat_prevent_cse``) the
+dependent mask head runs as two convs over the slices of its kernel plus an
+add (``_SplitInputConv2D``), else as one conv over the concat. The two forms
+have the same parameters and agree within fp32; in bf16 they round
+differently. The JAX package's two compositing forms (fused sum and einsum,
+``savp.py:381-390``) are the same fp32 maths; both are K3 here.
+
+The low-dim state (``use_states``, JAX ``savp.py:195-232``, :394-401,
+:457, :475-479): the carry holds the rolled-out state, started from
+``states[:, 0]``; each step takes the ground-truth state where the
+scheduled-sampling mask takes the ground-truth image, conditions the cell on
+``[action, state]`` (tiled after the image, and at every encoder level under
+``where_add == "all"``), and, where actions are given, advances the state by
+``state_head``, a fp32 dense layer on ``[state, action]``, whose outputs are
+``gen_states``.
 
 Dtypes (``video_prediction_tpu/models/savp.py``): with ``compute_dtype``
-bfloat16 the convs, the norms (their statistics in fp32), the ConvLSTM
-states and the CDNA head run in bf16; the images stay fp32. The CDNA
-kernels are normalized in fp32, so K1 takes fp32 images and kernels
-(``:285-288``); the scratch image's sigmoid runs in bf16 and is cast to the
-image dtype (``:345-346``); the mask head reads the candidates cast to the
-compute dtype (``:369``, ``:376``); its logits are cast to fp32, exactly,
-for K3, whose softmax and sum are fp32 (``:381-391``).
+bfloat16 the convs, the norms (their statistics in fp32), the recurrent
+states and the CDNA, DNA, STP and flow heads run in bf16; the images, the
+low-dim state and its head stay fp32. The transformation kernels, affine
+parameters and flows are cast to fp32 before they are applied, so K1 takes
+fp32 images and kernels (``:285-288``); the scratch image's sigmoid runs in
+bf16 and is cast to the image dtype (``:345-346``); the mask head reads the
+candidates cast to the compute dtype (``:369``, ``:376``); its logits are
+cast to fp32, exactly, for K3, whose softmax and sum are fp32
+(``:381-391``).
 
 Module names follow the flax parameter tree (``stem``, ``down1``,
-``enc_rnn1``, ..., ``mask_head``) so that ``convert.py`` maps it directly.
+``enc_rnn1``, ..., ``mask_head``, ``state_head``, ``init_state_0``) so that
+``convert.py`` maps it directly.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from video_prediction_torch.configs.hparams import ModelHparams
 from video_prediction_torch.kernels.composite import composite
-from video_prediction_torch.ops.cdna import apply_cdna_kernels, normalize_kernels
+from video_prediction_torch.ops.cdna import apply_cdna_kernels, apply_dna_kernels, normalize_kernels
 from video_prediction_torch.ops.layers import (
     Conv2D,
     Dense,
@@ -62,7 +77,8 @@ from video_prediction_torch.ops.layers import (
     split_bias,
     tile_concat,
 )
-from video_prediction_torch.ops.rnn import ConvLSTMCell
+from video_prediction_torch.ops.rnn import ConvGRUCell, ConvLSTMCell
+from video_prediction_torch.ops.warp import apply_affine_kernels, image_warp
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 
@@ -82,17 +98,8 @@ def generator_num_scales(height: int, width: int) -> int:
 
 def check_supported(hp: ModelHparams) -> None:
     """Raise ``NotImplementedError`` for hparams outside the ported slice."""
-    unsupported = {
-        "transformation": hp.transformation != "cdna",
-        "learn_prior": hp.learn_prior,
-        "use_states": hp.use_states,
-        "learn_initial_state": hp.learn_initial_state,
-        "context_images_background": hp.context_images_background,
-        "conv_rnn": hp.conv_rnn != "lstm",
-    }
-    for name, bad in unsupported.items():
-        if bad:
-            raise NotImplementedError(f"{name}={getattr(hp, name)!r} {_NOT_PORTED}")
+    if hp.learn_prior:
+        raise NotImplementedError(f"learn_prior={hp.learn_prior!r} {_NOT_PORTED}")
 
 
 def split_input_conv(conv: Conv2D, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -106,16 +113,29 @@ def split_input_conv(conv: Conv2D, a: torch.Tensor, b: torch.Tensor) -> torch.Te
     return add_bias(conv2d_nhwc(cast(a, dt), w[:, :c1], fused) + conv2d_nhwc(cast(b, dt), w[:, c1:]), after)
 
 
+def _leaves(rnn_states: list) -> List[torch.Tensor]:
+    """The recurrent states' tensors in flax's flattened order: ``(c, h)`` of
+    each LSTM cell, ``h`` of each GRU cell, encoder first."""
+    return [t for st in rnn_states for t in (st if isinstance(st, tuple) else (st,))]
+
+
+def _unflatten(rnn_states: list, leaves: Sequence[torch.Tensor]) -> list:
+    it = iter(leaves)
+    return [tuple(next(it) for _ in st) if isinstance(st, tuple) else next(it) for st in rnn_states]
+
+
 class SAVPCell(nn.Module):
     """One generator timestep (reference ``savp_model.py#SAVPCell.call``).
 
-    state = (rnn_states, gen_image, last_images)
-    x     = {image, use_gt, first_image, z?, action?}
-    out   = {gen_image, masks?, kernels?}
+    state = (rnn_states, gen_image, last_images, current_state or None)
+    x     = {image, use_gt, first_image, context_images?, z?, action?, state?}
+    out   = {gen_image, gen_state?, masks?, kernels?, flows?}
+
+    ``action_dim`` and ``state_dim`` (0: none) fix the conditioning widths.
     """
 
     def __init__(self, hparams: ModelHparams, num_scales: int, image_channels: int, action_dim: int = 0,
-                 dtype: Dtype = None):
+                 state_dim: int = 0, dtype: Dtype = None):
         super().__init__()
         check_supported(hparams)
         hp = self.hparams = hparams
@@ -123,7 +143,8 @@ class SAVPCell(nn.Module):
         self.dtype = dtype
         gate_dtype = torch.bfloat16 if hp.gate_dtype == "bfloat16" else torch.float32
         ngf, c = hp.ngf, image_channels
-        self.action_dim = action_dim
+        self.action_dim, self.state_dim = action_dim, state_dim
+        cond_dim = action_dim + state_dim
         z_dim = hp.nz if hp.nz > 0 else 0
         z_all = z_dim if hp.where_add == "all" else 0
         norm = get_norm_layer(hp.norm_layer)
@@ -131,37 +152,67 @@ class SAVPCell(nn.Module):
         up = get_upsample_layer(hp.upsample_layer)
         self.act = get_activation(hp.activation_layer)
 
-        def rnn(in_features: int, features: int) -> ConvLSTMCell:
-            return ConvLSTMCell(in_features, features, use_norm=hp.conv_rnn_norm, gate_conv=hp.lstm_gate_conv,
-                                dtype=dtype, gate_dtype=gate_dtype)
+        def rnn(in_features: int, features: int) -> nn.Module:
+            if hp.conv_rnn == "lstm":
+                return ConvLSTMCell(in_features, features, use_norm=hp.conv_rnn_norm, gate_conv=hp.lstm_gate_conv,
+                                    dtype=dtype, gate_dtype=gate_dtype)
+            if hp.conv_rnn == "gru":
+                return ConvGRUCell(in_features, features, dtype=dtype)
+            raise ValueError(f"unknown conv_rnn {hp.conv_rnn!r}")
 
-        # channel order of every concat follows savp.py: input = image, cond,
-        # z (:228-232); encoder level = h, z, cond (:251-254); decoder = up(h),
-        # skip, z (:268-270)
-        stem_in = c + action_dim + (z_dim if hp.where_add in ("input", "all") else 0)
+        # channel order of every concat follows savp.py: input = image,
+        # [action, state], z (:228-232); encoder level = h, z, [action, state]
+        # (:251-254); decoder = up(h), skip, z (:268-270)
+        stem_in = c + cond_dim + (z_dim if hp.where_add in ("input", "all") else 0)
         self.stem = Conv2D(stem_in, ngf, 3, dtype=dtype)
         self.stem_norm = norm(ngf, dtype)
         for s in range(1, num_scales + 1):
             feats = ngf * 2**s
-            self.add_module(f"down{s}", down(feats // 2, feats, dtype))
+            self.add_module(f"down{s}", down(feats // 2, feats, dtype=dtype))
             self.add_module(f"down{s}_norm", norm(feats, dtype))
-            cond_all = action_dim if hp.where_add == "all" else 0
+            cond_all = cond_dim if hp.where_add == "all" else 0
             self.add_module(f"enc_rnn{s}", rnn(feats + z_all + cond_all, feats))
         for s in range(num_scales - 1, -1, -1):
             feats = ngf * 2**s
-            self.add_module(f"up{s}", up(2 * feats, feats, dtype))
+            self.add_module(f"up{s}", up(2 * feats, feats, dtype=dtype))
             self.add_module(f"up{s}_norm", norm(feats, dtype))
             z_dec = z_dim if hp.where_add in ("all", "middle") else 0
             self.add_module(f"dec_rnn{s}", rnn(2 * feats + z_dec, feats))
 
+        # the candidates, in savp.py's order (:277-346): the transformed
+        # images, prev, first (or the context frames), scratch
         kh, kw = hp.kernel_size
         n_trans = hp.num_transformed_images
+        bottleneck = ngf * 2**num_scales
         num_masks = 0
-        if n_trans > 0:
-            # GAP over the bottleneck, then Dense(kh*kw*N) (savp.py:283-289)
-            self.cdna_head = Dense(ngf * 2**num_scales, kh * kw * n_trans, dtype=dtype)
-            num_masks += n_trans * hp.last_frames
-        num_masks += int(hp.prev_image_background) + int(hp.first_image_background)
+        if hp.transformation == "cdna":
+            if n_trans > 0:
+                # GAP over the bottleneck, then Dense(kh*kw*N) (savp.py:283-289)
+                self.cdna_head = Dense(bottleneck, kh * kw * n_trans, dtype=dtype)
+                num_masks += n_trans * hp.last_frames
+        elif hp.transformation == "dna":
+            # per-pixel kernels from the top features, N = 1 (:295-302)
+            self.dna_head = Conv2D(ngf, kh * kw, 3, dtype=dtype)
+            num_masks += 1
+        elif hp.transformation == "stp":
+            if n_trans > 0:
+                # GAP, Dense(100), the activation, Dense(6N) zero-initialized
+                # (each transform starts at the identity warp; :303-322)
+                self.stp_fc = Dense(bottleneck, 100, dtype=dtype)
+                self.stp_head = Dense(100, 6 * n_trans, dtype=dtype, zero_init=True)
+                num_masks += n_trans * hp.last_frames
+        elif hp.transformation == "flow":
+            # N flows of the current image from the top features (:323-328)
+            self.flow_head = Conv2D(ngf, 2 * n_trans, 3, dtype=dtype)
+            num_masks += n_trans
+        elif hp.transformation != "direct":
+            raise ValueError(f"unknown transformation {hp.transformation!r}")
+        num_masks += int(hp.prev_image_background)
+        # the context frames subsume the first image (:336-343)
+        if hp.context_images_background:
+            num_masks += hp.context_frames
+        elif hp.first_image_background:
+            num_masks += 1
         self.has_scratch = hp.generate_scratch_image or num_masks == 0
         if self.has_scratch:
             self.scratch_head = Conv2D(ngf, c, 3, dtype=dtype)
@@ -172,8 +223,11 @@ class SAVPCell(nn.Module):
             self.mask_head = Conv2D(mask_in, num_masks, 3, dtype=dtype)
         # the JAX package's ``fused_composite`` (savp.py:364-366)
         self.split_mask_input = hp.dependent_mask and hp.scan_unroll == 0 and not (hp.remat and hp.remat_prevent_cse)
+        if action_dim and state_dim:
+            # the linear state predictor on [state, action], fp32 (no dtype; :394-401)
+            self.state_head = Dense(state_dim + action_dim, state_dim)
 
-    def rnn_cells(self) -> List[ConvLSTMCell]:
+    def rnn_cells(self) -> List[nn.Module]:
         """Encoder cells (scales 1..S), then decoder cells (scales S-1..0)."""
         enc = [getattr(self, f"enc_rnn{s}") for s in range(1, self.num_scales + 1)]
         dec = [getattr(self, f"dec_rnn{s}") for s in range(self.num_scales - 1, -1, -1)]
@@ -187,18 +241,21 @@ class SAVPCell(nn.Module):
             for cell, s in zip(self.rnn_cells(), scales)
         ]
 
-    def forward(self, state: Tuple[list, torch.Tensor, list], x: Dict[str, torch.Tensor],
-                output_aux: bool = False):
+    def forward(self, state: tuple, x: Dict[str, torch.Tensor], output_aux: bool = False):
         hp = self.hparams
-        rnn_states, gen_image, last_images = state
+        rnn_states, gen_image, last_images, current_state = state
         use_gt = x["use_gt"]  # [B] bool
         image = torch.where(use_gt[:, None, None, None], x["image"], gen_image)
         b, hgt, wid, c = image.shape
         last_images = last_images[1:] + [image]  # the last `last_frames` inputs
         aux: Dict[str, torch.Tensor] = {}
 
+        if current_state is not None and x.get("state") is not None:
+            # the ground-truth state where the ground-truth image is taken (:195-202)
+            current_state = torch.where(use_gt[:, None], cast(x["state"], current_state.dtype), current_state)
         z = x.get("z")
-        cond = x.get("action")
+        cond_vecs = [v for v in (x.get("action"), current_state) if v is not None]
+        cond = torch.cat(cond_vecs, dim=-1) if cond_vecs else None
         inputs = cast(image, self.dtype or image.dtype)
         if cond is not None:
             inputs = tile_concat(inputs, cond)
@@ -231,24 +288,38 @@ class SAVPCell(nn.Module):
             new_states.append(st)
         feat_top = h
 
-        # ---- candidates, in savp.py's order: cdna x N, prev, first, scratch ----
+        # ---- candidates [B,K,H,W,C], in savp.py's order ----
+        kh, kw = hp.kernel_size
+        n_trans = hp.num_transformed_images
         parts = []
-        if hp.num_transformed_images > 0:
-            kh, kw = hp.kernel_size
+        if hp.transformation == "cdna" and n_trans > 0:
             raw = self.cdna_head(bottleneck.mean(dim=(1, 2)))
             # row-major [kh, kw, N] reshape, as flax's; normalized in fp32
-            kernels = normalize_kernels(cast(raw.reshape(b, kh, kw, hp.num_transformed_images), torch.float32),
-                                        hp.kernel_normalization)
+            kernels = normalize_kernels(cast(raw.reshape(b, kh, kw, n_trans), torch.float32), hp.kernel_normalization)
             aux["kernels"] = kernels
             for f in range(hp.last_frames):
                 parts.append(apply_cdna_kernels(last_images[-(f + 1)], kernels))  # [B,N,H,W,C]
+        elif hp.transformation == "dna":
+            raw = cast(self.dna_head(feat_top), torch.float32).reshape(b, hgt, wid, kh, kw, 1)
+            parts.append(apply_dna_kernels(image, normalize_kernels(raw, hp.kernel_normalization)))  # [B,1,H,W,C]
+        elif hp.transformation == "stp" and n_trans > 0:
+            hfc = self.act(self.stp_fc(bottleneck.mean(dim=(1, 2))))
+            affine = cast(self.stp_head(hfc), torch.float32).reshape(b, n_trans, 6)
+            for f in range(hp.last_frames):
+                parts.append(apply_affine_kernels(last_images[-(f + 1)], affine))  # [B,N,H,W,C]
+        elif hp.transformation == "flow":
+            flows = cast(self.flow_head(feat_top), torch.float32).reshape(b, hgt, wid, 2, n_trans)
+            aux["flows"] = flows
+            parts.extend(image_warp(image, flows[..., i])[:, None] for i in range(n_trans))
         if hp.prev_image_background:
             parts.append(image[:, None])
-        if hp.first_image_background:
+        if hp.context_images_background:
+            parts.append(x["context_images"])  # [B,ctx,H,W,C]
+        elif hp.first_image_background:
             parts.append(x["first_image"][:, None])
         if self.has_scratch:
             parts.append(cast(torch.sigmoid(self.scratch_head(feat_top)), image.dtype)[:, None])
-        candidates = torch.cat(parts, dim=1)  # [B,K,H,W,C]
+        candidates = torch.cat(parts, dim=1)
 
         # ---- compositing ----
         if self.num_masks == 1:
@@ -272,29 +343,40 @@ class SAVPCell(nn.Module):
                 aux["masks"] = masks
 
         out = {"gen_image": gen_image_new, **aux}
-        return (new_states, gen_image_new, last_images), out
+        if current_state is not None and x.get("action") is not None:
+            # the next state from the rolled-out [state, action] (:395-401)
+            current_state = self.state_head(torch.cat([current_state, x["action"]], dim=-1))
+            out["gen_state"] = current_state
+        return (new_states, gen_image_new, last_images, current_state), out
 
 
 class SAVPGenerator(nn.Module):
     """Full-rollout generator: runs ``SAVPCell`` over time.
 
-    ``forward(images [B,T,H,W,C], use_gt [T-1,B], zs [B,T-1,nz]?, actions?)
-    -> {gen_images [B,T-1,H,W,C], masks?, kernels?}``. Predictions are for
-    frames 1..T-1 (``gen_images`` aligns with ``images[:, 1:]``).
+    ``forward(images [B,T,H,W,C], use_gt [T-1,B], zs [B,T-1,nz]?, actions?,
+    states?) -> {gen_images [B,T-1,H,W,C], gen_states?, masks?, kernels?,
+    flows?}``. Predictions are for frames 1..T-1 (``gen_images`` aligns with
+    ``images[:, 1:]``); ``states`` is read only under ``use_states``.
 
-    ``image_shape`` (H, W, C) and ``action_dim`` fix the parameter shapes,
-    as the first batch does for flax's lazy init. ``dtype`` is the compute
-    dtype (None: that of the images); the states are kept in it.
+    ``image_shape`` (H, W, C), ``action_dim`` and ``state_dim`` fix the
+    parameter shapes, as the first batch does for flax's lazy init. ``dtype``
+    is the compute dtype (None: that of the images); the recurrent states are
+    kept in it. With ``learn_initial_state`` each state tensor starts from a
+    parameter ``init_state_{i}`` ``[1,h,w,f]`` (fp32, zero-initialized, in
+    ``_leaves`` order) broadcast over the batch (JAX ``savp.py:440-455``).
     """
 
     def __init__(self, hparams: ModelHparams, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0,
-                 dtype: Dtype = None):
+                 state_dim: int = 0, dtype: Dtype = None):
         super().__init__()
         self.hparams = hparams
         self.image_shape = tuple(image_shape)
         self.dtype = dtype
         hgt, wid, c = self.image_shape
-        self.cell = SAVPCell(hparams, generator_num_scales(hgt, wid), c, action_dim, dtype)
+        self.cell = SAVPCell(hparams, generator_num_scales(hgt, wid), c, action_dim, state_dim, dtype)
+        if hparams.learn_initial_state:
+            for i, leaf in enumerate(_leaves(self.cell.init_rnn_states(1, hgt, wid, torch.device("cpu")))):
+                self.register_parameter(f"init_state_{i}", nn.Parameter(torch.zeros(leaf.shape)))
 
     def forward(
         self,
@@ -302,33 +384,45 @@ class SAVPGenerator(nn.Module):
         use_gt: torch.Tensor,
         zs: Optional[torch.Tensor] = None,
         actions: Optional[torch.Tensor] = None,
+        states: Optional[torch.Tensor] = None,
         output_aux: bool = False,
     ) -> Dict[str, torch.Tensor]:
         hp = self.hparams
         b, t, hgt, wid, c = images.shape
         if (hgt, wid, c) != self.image_shape:
             raise ValueError(f"generator built for {self.image_shape} images, got {tuple(images.shape)}")
-        if (actions is None) != (self.cell.action_dim == 0):
-            raise ValueError(f"generator built for action_dim={self.cell.action_dim}, "
-                             f"got actions {None if actions is None else tuple(actions.shape)}")
+        if not hp.use_states:
+            states = None
+        for name, given, dim in (("action", actions, self.cell.action_dim), ("state", states, self.cell.state_dim)):
+            if (given is None) != (dim == 0):
+                raise ValueError(f"generator built for {name}_dim={dim}, "
+                                 f"got {name}s {None if given is None else tuple(given.shape)}")
+        rnn_states = self.cell.init_rnn_states(b, hgt, wid, images.device, self.dtype or images.dtype)
+        if hp.learn_initial_state:
+            rnn_states = _unflatten(rnn_states, [
+                cast(getattr(self, f"init_state_{i}"), leaf.dtype).expand(leaf.shape).contiguous()
+                for i, leaf in enumerate(_leaves(rnn_states))
+            ])
         first_image = images[:, 0]
-        state = (
-            self.cell.init_rnn_states(b, hgt, wid, images.device, self.dtype or images.dtype),
-            first_image,
-            [first_image] * hp.last_frames,
-        )
+        state = (rnn_states, first_image, [first_image] * hp.last_frames, None if states is None else states[:, 0])
         outs = []
         for step in range(t - 1):
             x = {"image": images[:, step], "use_gt": use_gt[step], "first_image": first_image}
+            if hp.context_images_background:
+                x["context_images"] = images[:, : hp.context_frames]
             if zs is not None and hp.nz > 0:
                 x["z"] = zs[:, step]
             if actions is not None:
                 x["action"] = actions[:, step]
+            if states is not None:
+                x["state"] = states[:, step]
             state, out = self.cell(state, x, output_aux=output_aux)
             outs.append(out)
         result = {"gen_images": torch.stack([o["gen_image"] for o in outs], dim=1)}
+        if "gen_state" in outs[0]:
+            result["gen_states"] = torch.stack([o["gen_state"] for o in outs], dim=1)
         if output_aux:
-            for k in ("masks", "kernels"):
+            for k in ("masks", "kernels", "flows"):
                 if k in outs[0]:
                     result[k] = torch.stack([o[k] for o in outs], dim=1)
         return result

@@ -10,7 +10,7 @@ kernel (``kernels/ln_gate.py``).
 Parameter layouts are PyTorch's: conv weights OIHW (flax keeps HWIO), dense
 weights ``[out, in]`` (flax ``[in, out]``); ``convert.py`` maps between them.
 The model's ordinary convolutions were XLA's in the JAX package, not Pallas,
-and stay ``F.conv2d`` here.
+and stay ``F.conv2d`` (``F.conv_transpose2d``, ``deconv2d``) here.
 
 Mixed precision follows flax's ``dtype`` rule. Parameters are fp32. A layer
 built with ``dtype=torch.bfloat16`` casts its input and its parameters to
@@ -22,6 +22,7 @@ fp32 and return their ``dtype`` (or the promotion, when None).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -79,15 +80,26 @@ def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=alpha)
 
 
-def avg_pool2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2 average pooling over NHWC, stride 2, VALID (reference ``ops.py#pool2d``)."""
-    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
+def pool2d(x: torch.Tensor, pool_size: int = 2, mode: str = "avg") -> torch.Tensor:
+    """Pooling over NHWC, window = stride, VALID (reference ``ops.py#pool2d``)."""
+    pools = {"avg": F.avg_pool2d, "max": F.max_pool2d}
+    if mode not in pools:
+        raise ValueError(f"unknown pool mode {mode!r} (want 'avg'|'max')")
+    return pools[mode](x.permute(0, 3, 1, 2), pool_size).permute(0, 2, 3, 1).contiguous()
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour x2 upsample of NHWC."""
+def upsample2d(x: torch.Tensor, scale: int = 2, method: str = "nearest") -> torch.Tensor:
+    """Spatial upsample of NHWC by an integer ``scale``: ``nearest`` by
+    repetition; ``bilinear`` as ``jax.image.resize`` upsamples (half-pixel
+    centres, an edge pixel's outer neighbour weighted out, which for an
+    integer upsample is ``align_corners=False`` clamping)."""
     b, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+    if method == "nearest":
+        return x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c).reshape(b, h * scale, w * scale, c)
+    if method == "bilinear":
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=(h * scale, w * scale), mode="bilinear", align_corners=False)
+        return y.permute(0, 2, 3, 1).contiguous()
+    raise ValueError(f"unknown upsample method {method!r}")
 
 
 def tile_concat(x: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
@@ -121,11 +133,15 @@ class Conv2D(nn.Module):
 
 
 class Dense(nn.Module):
-    """Fully connected layer (reference ``ops.py#dense``), weight ``[out, in]``."""
+    """Fully connected layer (reference ``ops.py#dense``), weight ``[out, in]``.
+    ``zero_init``: the weight starts at zero (flax ``kernel_init=zeros``),
+    not lecun-normal (``VideoPredictionModel.init_weights``)."""
 
-    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype: Dtype = None):
+    def __init__(self, in_features: int, features: int, use_bias: bool = True, dtype: Dtype = None,
+                 zero_init: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.zero_init = zero_init
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -135,28 +151,74 @@ class Dense(nn.Module):
         return add_bias(F.linear(cast(x, dt), cast(self.weight, dt), fused), after)
 
 
-class ConvPool2D(nn.Module):
-    """Conv-then-pool downsampling (reference ``ops.py#conv_pool2d``): 3x3
-    SAME conv, then 2x2 average pool, VALID."""
+def _transpose_pads(k: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of the dilated input in ``lax.conv_transpose``
+    with ``padding="SAME"`` along one axis (``_conv_transpose_padding``)."""
+    total = k + stride - 2
+    before = k - 1 if stride > k - 1 else -(-total // 2)
+    return before, total - before
 
-    def __init__(self, in_features: int, features: int, dtype: Dtype = None):
+
+class ConvTranspose2D(nn.Module):
+    """Transposed conv (reference ``ops.py#deconv2d``) as flax's
+    ``nn.ConvTranspose`` with ``padding="SAME"`` and ``transpose_kernel=False``
+    computes it: the input dilated by the stride, padded by ``_transpose_pads``
+    (2 before and 1 after for k=3, stride 2) and cross-correlated with the
+    kernel as it is; output ``stride`` times the input size.
+
+    The weight is OIHW, the flax kernel mapped as any conv's. It runs as
+    ``F.conv_transpose2d``, which pads k-1 on both sides and correlates with
+    the kernel flipped and its in/out axes swapped: the forward passes the
+    weight so, then crops the padding flax does not add."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, strides: int = 2,
+                 use_bias: bool = True, dtype: Dtype = None):
         super().__init__()
-        self.conv = Conv2D(in_features, features, 3, dtype=dtype)
+        self.strides = strides
+        self.dtype = dtype
+        self.pads = _transpose_pads(kernel_size, strides)
+        if max(self.pads) > kernel_size - 1:
+            raise ValueError(f"kernel {kernel_size} with stride {strides}: SAME padding {self.pads} is past k-1")
+        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return avg_pool2x2(self.conv(x))
+        dt = layer_dtype(self.dtype, x, self.weight)
+        fused, after = split_bias(self.bias, dt)
+        w = cast(self.weight, dt).transpose(0, 1).flip(2, 3)
+        y = F.conv_transpose2d(cast(x, dt).permute(0, 3, 1, 2), w, fused, stride=self.strides)
+        k = self.weight.shape[-1]
+        a, b = k - 1 - self.pads[0], k - 1 - self.pads[1]  # conv_transpose2d's padding past flax's
+        y = y[:, :, a : y.shape[2] - b, a : y.shape[3] - b]
+        return add_bias(y.permute(0, 2, 3, 1).contiguous(), after)
+
+
+class ConvPool2D(nn.Module):
+    """Conv-then-pool downsampling (reference ``ops.py#conv_pool2d``): 3x3
+    SAME conv, then 2x2 ``pool_mode`` (average or max) pooling, VALID."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, pool_mode: str = "avg",
+                 dtype: Dtype = None):
+        super().__init__()
+        self.pool_mode = pool_mode
+        self.conv = Conv2D(in_features, features, kernel_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return pool2d(self.conv(x), 2, self.pool_mode)
 
 
 class UpsampleConv2D(nn.Module):
     """Resize-then-conv upsampling (reference ``ops.py#upsample_conv2d``):
-    nearest x2, then 3x3 SAME conv."""
+    x2 by ``method`` (nearest or bilinear), then 3x3 SAME conv."""
 
-    def __init__(self, in_features: int, features: int, dtype: Dtype = None):
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, method: str = "nearest",
+                 dtype: Dtype = None):
         super().__init__()
-        self.conv = Conv2D(in_features, features, 3, dtype=dtype)
+        self.method = method
+        self.conv = Conv2D(in_features, features, kernel_size, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(upsample2x(x))
+        return self.conv(upsample2d(x, 2, self.method))
 
 
 class GroupNorm(nn.Module):
@@ -237,14 +299,24 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def get_upsample_layer(name: str) -> Callable[..., nn.Module]:
-    """Upsample registry (reference ``ops.py#get_upsample_layer``)."""
+    """Upsample registry (reference ``ops.py#get_upsample_layer``); returns a
+    constructor taking the input and output channel counts and ``dtype=``."""
     if name == "upsample_conv2d":
         return UpsampleConv2D
-    raise NotImplementedError(f"upsample layer {name!r} is not ported yet (ROADMAP.md, queue 1)")
+    if name == "deconv2d":
+        return ConvTranspose2D
+    if name == "bilinear_conv2d":
+        return functools.partial(UpsampleConv2D, method="bilinear")
+    raise ValueError(f"unknown upsample layer {name!r}")
 
 
 def get_downsample_layer(name: str) -> Callable[..., nn.Module]:
-    """Downsample registry (reference ``ops.py#get_downsample_layer``)."""
+    """Downsample registry (reference ``ops.py#get_downsample_layer``), as
+    ``get_upsample_layer``; ``conv2d`` is a 3x3 SAME conv of stride 2."""
     if name == "conv_pool2d":
         return ConvPool2D
-    raise NotImplementedError(f"downsample layer {name!r} is not ported yet (ROADMAP.md, queue 1)")
+    if name == "max_pool_conv2d":
+        return functools.partial(ConvPool2D, pool_mode="max")
+    if name == "conv2d":
+        return functools.partial(Conv2D, kernel_size=3, strides=2)
+    raise ValueError(f"unknown downsample layer {name!r}")

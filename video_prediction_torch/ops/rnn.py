@@ -5,7 +5,8 @@ Port of ``video_prediction_tpu/ops/rnn.py#ConvLSTMCell`` (reference
 ``use_norm`` the gate maths after it (four per-gate LayerNorms, sigmoid/tanh,
 cell update, cell LayerNorm, output gate) is kernel K2 (``kernels/ln_gate.py``).
 Without norm no TPU kernel covers the gate maths, and it stays torch ops.
-``ConvGRUCell`` is still to be ported (ROADMAP.md).
+``ConvGRUCell`` (JAX ``rnn.py:123-153``) runs no kernel: two convs and fp32
+gate maths in torch ops, as XLA runs them.
 
 Dtypes as in the JAX cell (``video_prediction_tpu/ops/rnn.py:59-121``): the
 gate convs run in ``dtype`` (the compute dtype; the split form adds its two
@@ -94,3 +95,28 @@ class ConvLSTMCell(nn.Module):
             h_new = torch.sigmoid(o) * torch.tanh(c_new)
         c_new, h_new = cast(c_new, c.dtype), cast(h_new, h.dtype)
         return (c_new, h_new), h_new
+
+
+class ConvGRUCell(nn.Module):
+    """Conv GRU cell over NHWC tensors (reference ``rnn_ops.py#Conv2DGRUCell``);
+    state ``h`` ``[B,H,W,F]``, one tensor. ``gates`` (2F: reset r, update u)
+    over ``concat([x, h])`` with +1.0 on both before the sigmoid, then
+    ``candidate`` over ``concat([x, r * h])``; the gate maths in fp32, ``h``
+    cast back to its own dtype."""
+
+    def __init__(self, in_features: int, features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.features = features
+        self.gates = Conv2D(in_features + features, 2 * features, KERNEL_SIZE, dtype=dtype)
+        self.candidate = Conv2D(in_features + features, features, KERNEL_SIZE, dtype=dtype)
+
+    def initial_state(self, batch: int, height: int, width: int, device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return torch.zeros((batch, height, width, self.features), device=device, dtype=dtype)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        ru = torch.sigmoid(cast(self.gates(torch.cat([x, cast(h, x.dtype)], dim=-1)), torch.float32) + 1.0)
+        r, u = torch.split(ru, self.features, dim=-1)
+        cand = self.candidate(torch.cat([x, cast(cast(r, h.dtype) * h, x.dtype)], dim=-1))
+        h_new = cast(u * cast(h, torch.float32) + (1.0 - u) * torch.tanh(cast(cand, torch.float32)), h.dtype)
+        return h_new, h_new

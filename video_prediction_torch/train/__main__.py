@@ -2,7 +2,7 @@
 
     python -m video_prediction_torch.train --dataset synthetic --model savp \\
         --model_hparams_dict hparams/bair_action_free/ours_savp/model_hparams.json \\
-        --output_dir RUN_DIR [--max_steps N] [--batch_size B] [--resume] [--device cuda]
+        --output_dir RUN_DIR [--max_steps N] [--batch_size B] [--resume] [--checkpoint RUN_DIR] [--device cuda]
     python -m video_prediction_torch.train --dataset bair --input_dir DATA/train \\
         --val_input_dir DATA/val --model_hparams_dict ... --output_dir RUN_DIR
 
@@ -14,7 +14,11 @@ builds the model and its train state from ``--seed``, restores
 ``checkpoints/train_state.pt`` with ``--resume`` (the step, the model, both
 Adams and the noise generator; the data stream starts afresh from
 ``--seed``, at the batch that fixed the shapes, as ``scripts/train.py``'s
-does), then runs the train step until ``max_steps`` on batches that a
+does), or else, with ``--checkpoint RUN_DIR``, warm-starts from another
+run's ``checkpoints/params.pt``: every parameter whose name and shape match
+is copied, the rest keep their initial values, and the step, the Adams and
+the spectral ``u`` buffers start afresh (``scripts/train.py:191-194``,
+``checkpoint.py#_merge_matching``); then runs the train step until ``max_steps`` on batches that a
 ``data.DeviceFeeder`` thread sends to the device ahead of the step (uint8,
 through pinned memory, on a side stream). The TFRecord datasets read
 ``--input_dir`` for training and ``--val_input_dir`` (default: the same
@@ -55,6 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--model_hparams_dict", default="", help="JSON file of model hparams")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--resume", action="store_true", help="resume from the train state in output_dir")
+    p.add_argument("--checkpoint", default="", help="warm-start the params matching by name and shape from "
+                   "this run dir's checkpoints/params.pt (--resume takes precedence)")
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--batch_size", type=int, default=0, help="0 -> hparams.batch_size")
     p.add_argument("--max_steps", type=int, default=0, help="0 -> hparams.max_steps")
@@ -72,19 +78,21 @@ def main(argv=None) -> Dict[str, object]:
     """Run the CLI. Returns a summary: the ``start_step`` and final ``step``,
     the last step's ``scalars`` (floats), the last ``summaries`` of each
     kind (``--summary_freq``'s scalars, and the ``eval/*`` and
-    ``accum_eval/*`` means, floats by tag), and whether every loss printed or
-    returned was finite (``all_finite``)."""
+    ``accum_eval/*`` means, floats by tag), the names of the parameters
+    ``--checkpoint`` copied (``warm_started``), and whether every loss
+    printed or returned was finite (``all_finite``)."""
     args = parse_args(argv)
 
     from video_prediction_torch.configs.hparams import apply_overrides, load_hparams_json, parse_overrides
     from video_prediction_torch.data import DeviceFeeder, get_dataset_class
     from video_prediction_torch.generate import batch_to_device
-    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.train import schedules
     from video_prediction_torch.train.checkpoint import (
         has_train_state,
         load_train_state,
         save_train_state,
+        warm_start,
         write_options,
     )
     from video_prediction_torch.train.state import create_train_state, param_count, split_params
@@ -117,18 +125,21 @@ def main(argv=None) -> Dict[str, object]:
     # ---- data, model, train state ----
     host_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
     batch = next(host_iter)
-    actions = batch.get("actions")
     # the first batch fixes the parameter shapes, as in the JAX package's init
-    model = model_cls(hp, image_shape=batch["images"].shape[2:], action_dim=0 if actions is None else actions.shape[-1])
+    model = model_cls(hp, **input_dims(hp, batch))
     ts = create_train_state(model, args.seed, device)
     g_params, d_params = split_params(model)
     print(f"device: {device}; generator params: {param_count(g_params):,}; "
           f"discriminator params: {param_count(d_params):,}")
+    warm_started = []
     if args.resume and has_train_state(args.output_dir):
         # the whole train state; the data stream is not replayed up to the
         # step: training goes on from the batch above, as in the JAX CLI
         load_train_state(args.output_dir, ts)
         print(f"resumed from step {ts.step}")
+    elif args.checkpoint:
+        warm_started = warm_start(args.checkpoint, ts.model)
+        print(f"warm-started {len(warm_started)} of {len(list(ts.model.parameters()))} params from {args.checkpoint}")
     train_step = make_train_step(model)
     eval_step = make_eval_step(model)
     # one persistent val iterator: successive eval firings walk on through the
@@ -188,7 +199,7 @@ def main(argv=None) -> Dict[str, object]:
     all_finite &= all(math.isfinite(v) for v in final.values())
     print(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
     return {"start_step": start_step, "step": ts.step, "scalars": final, "summaries": summaries,
-            "all_finite": all_finite}
+            "warm_started": warm_started, "all_finite": all_finite}
 
 
 def _prepend(first, rest):

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -58,6 +58,26 @@ def load_params(run_dir: str, model: nn.Module, device: Optional[torch.device] =
     if missing or unexpected:
         raise RuntimeError(f"params checkpoint {path} does not fit the model: missing {missing}, "
                            f"unexpected {unexpected}")
+
+
+def warm_start(run_dir: str, model: nn.Module) -> List[str]:
+    """Copy into ``model`` each parameter of ``run_dir``'s
+    ``checkpoints/params.pt`` whose name and shape match one of its own, as
+    the JAX package's ``checkpoint.py#_merge_matching`` merges a restored
+    params tree into a fresh one; the others, and the buffers (spectral
+    ``u``, outside the JAX params tree), keep their values. Returns the names
+    copied."""
+    path = os.path.join(run_dir, PARAMS_FILE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no params checkpoint at {path}")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    copied = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name in saved and saved[name].shape == p.shape:
+                p.copy_(saved[name])
+                copied.append(name)
+    return copied
 
 
 def write_options(run_dir: str, model_name: str, dataset_name: str, hparams: ModelHparams,

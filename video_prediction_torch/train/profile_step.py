@@ -155,7 +155,7 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
     from video_prediction_torch.data.synthetic import SyntheticVideoDataset
     from video_prediction_torch.generate import batch_to_device
-    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.train.state import create_train_state
     from video_prediction_torch.train.step import make_train_step
 
@@ -169,9 +169,7 @@ def main(argv=None) -> Dict[str, object]:
                                extra=dict(batch_size=args.batch_size))
     raw = next(SyntheticVideoDataset(mode="train", seed=SEED).make_iterator(hp.batch_size))
     data = batch_to_device({k: v[:, : hp.sequence_length] for k, v in raw.items()}, device)
-    actions = data.get("actions")
-    model = get_model_class("savp")(hp, image_shape=tuple(data["images"].shape[2:]),
-                                    action_dim=0 if actions is None else actions.shape[-1])
+    model = get_model_class("savp")(hp, **input_dims(hp, data))
     ts = create_train_state(model, SEED, device)
     step = make_train_step(model)
 
