@@ -104,7 +104,23 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     beside the JAX package's shifted multiply-adds, device time a call; K3
     at 3 candidates, batch 16, forward and backward; the ``dna_l2`` train
     step at batch 16 with its peak memory and its rollout at batch 8 and 64;
-    and the phase's wall time.
+    and the phase's wall time;
+21. the training objectives: ``bair/ours_savp`` with ``learn_prior``,
+    ``z_l1_weight``, the image and acvideo SN-GAN and SN-VAE-GAN weights and
+    ``vgg_cdist_weight`` (phase 14's seeded VGG16 ``.npz``), "bair/ours_savp+
+    objectives": ``train``'s ``main`` on phase 19's records (with their
+    actions), full width, batch 16, TF32 convs, 3 steps and a resumed 4th,
+    with every loss term (``kl``, ``z_l1``, ``vgg_cdist``, the GAN, VAE-GAN,
+    feature-matching and discriminator terms of the six discriminators),
+    finite, and phase 8's launches a step; ``evaluate`` (best of 8) and
+    ``generate`` from its run directory with phase 19's checks; one train
+    step GPU against CPU (TF32 off, ngf=8) of each objective alone under
+    phase 9's rule (``z_l1``'s median leaf within 5e-4, measured, and read
+    again beside the flagship's with PyTorch's own convs) and one
+    ``learn_prior`` eval rollout within 1e-5; the train step at batch 16
+    (median of 7) with its peak memory beside the flagship's, and the
+    ``learn_prior`` rollout at batch 8 and 64 beside the flagship's, in
+    turns; and the phase's wall time.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -116,6 +132,8 @@ fields:
 
 - ``launches``: launches in phase 8's four train steps; ``launches_per_train_step``
   and ``launches_per_rollout`` (a no-grad rollout of 11 generator steps);
+  ``objectives``: ``launches`` in phase 21's four train steps and
+  ``launches_per_train_step``;
 - ``max_abs_err``: fp32 kernel against plain version;
 - ``device_ms``: the kernel's own device time per call (K2: per step), the
   durations of its device events (the backward with its reduce kernel) from
@@ -747,11 +765,13 @@ def train_phase(init_seed: int = 0) -> dict:
     return launches
 
 
-def train_cpu_vs_gpu_phase(dev, model_name: str = "savp", hp=None) -> None:
-    """Phase 9 (and 20, for ``dna_l2``): one train step on the CPU (plain
-    versions) and on the GPU (kernels) from the same weights, batch and
-    noise, fp32 with TF32 off, at ngf=8 (64 px, 6 frames, batch 2) of ``hp``
-    (the flagship's by default) and model ``model_name``."""
+def train_cpu_vs_gpu_phase(dev, model_name: str = "savp", hp=None, median_tol: float = TRAIN_GRAD_MEDIAN_TOL) -> float:
+    """Phase 9 (and 20, for ``dna_l2``, and 21, for each objective): one
+    train step on the CPU (plain versions) and on the GPU (kernels) from the
+    same weights, batch and noise, fp32 with TF32 off, at ngf=8 (64 px, 6
+    frames, batch 2) of ``hp`` (the flagship's by default) and model
+    ``model_name``; the median leaf's gradient within ``median_tol``.
+    Returns that median."""
     from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.train.state import TrainState, make_optimizers
     from video_prediction_torch.train.step import make_train_step
@@ -770,10 +790,10 @@ def train_cpu_vs_gpu_phase(dev, model_name: str = "savp", hp=None) -> None:
     s_gpu = step(states[1], {k: v.to(dev) for k, v in batch.items()},
                  {k: v.to(dev) if torch.is_tensor(v) else v for k, v in noise.items()})
     check(sorted(s_cpu) == sorted(s_gpu), f"loss terms differ: {sorted(s_cpu)} vs {sorted(s_gpu)}")
-    worst = 0.0
+    worst_loss = 0.0
     for k in s_cpu:
         a, b = float(s_cpu[k]), float(s_gpu[k])
-        worst = max(worst, abs(a - b) / max(abs(a), 1e-12))
+        worst_loss = max(worst_loss, abs(a - b) / max(abs(a), 1e-12))
         check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(a) + 1e-7, f"loss {k}: CPU {a} vs GPU {b}")
     lr = cpu_model.hparams.lr
     params = dict(gpu_model.named_parameters())
@@ -784,7 +804,7 @@ def train_cpu_vs_gpu_phase(dev, model_name: str = "savp", hp=None) -> None:
         scale = float(g_cpu.abs().max())
         err = float((g_gpu - g_cpu).abs().max())
         if scale > TRAIN_GRAD_FLOOR * gmax:
-            rel.append(err / scale)
+            rel.append((err / scale, name))
         check(err <= TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * gmax, f"gradient of {name}: max |dg| {err:.3g}, "
               f"max |g| {scale:.3g}")
         # Adam's first step moves each weight by lr * g / (|g| + 1e-8), at
@@ -797,14 +817,17 @@ def train_cpu_vs_gpu_phase(dev, model_name: str = "savp", hp=None) -> None:
         check(bool((diff[settled] <= 1e-6 + 0.01 * lr).all()) and bool((diff <= 2.0 * lr + 1e-6).all()),
               f"parameter {name} after the step differs by {float(diff.max()):.3g}")
     rel.sort()
-    check(rel[len(rel) // 2] <= TRAIN_GRAD_MEDIAN_TOL, f"median leaf gradient error {rel[len(rel) // 2]:.3g}")
+    median = rel[len(rel) // 2][0]
+    worst = ", ".join(f"{n} {r:.3g}" for r, n in rel[-3:])
+    check(median <= median_tol, f"median leaf gradient error {median:.3g} (worst leaves {worst})")
     for name, buf in cpu_model.named_buffers():
         err = float((dict(gpu_model.named_buffers())[name].cpu() - buf).abs().max())
         check(err <= 1e-5, f"spectral {name} differs by {err:.3g} after the step")
     print(f"{model_name} train step GPU vs CPU, ngf=8, batch 2, fp32 (TF32 off): {len(s_cpu)} loss terms within rel "
-          f"{worst:.3g} (tol {TRAIN_LOSS_RTOL}); gradient error over each leaf's max: median {rel[len(rel) // 2]:.3g}"
-          f" (tol {TRAIN_GRAD_MEDIAN_TOL}), worst {rel[-1]:.3g} (tol {TRAIN_GRAD_TOL} + {TRAIN_GRAD_FLOOR} of the "
+          f"{worst_loss:.3g} (tol {TRAIN_LOSS_RTOL}); gradient error over each leaf's max: median {median:.3g}"
+          f" (tol {median_tol}), worst {worst} (tol {TRAIN_GRAD_TOL} + {TRAIN_GRAD_FLOOR} of the "
           f"largest); parameters after the step within {param_worst:.3g} where |g| is well above the tolerance")
+    return median
 
 
 def train_timing_phase(dev, ident: str) -> None:
@@ -1950,6 +1973,212 @@ def ac_phase(dirs: dict, dev, ident: str) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# the training objectives (phase 21)
+# ---------------------------------------------------------------------------
+# bair/ours_savp+objectives: the bair/ours_savp zoo file with every objective
+# the JAX package has beyond it switched on (the vgg_weights_path is phase
+# 14's seeded .npz)
+OBJECTIVES = dict(learn_prior=True, z_l1_weight=1.0, image_sn_gan_weight=0.1, image_sn_vae_gan_weight=0.1,
+                  acvideo_sn_gan_weight=0.1, acvideo_sn_vae_gan_weight=0.1, vgg_cdist_weight=1.0)
+OBJ_TRAIN_STEPS = 4  # 3 steps, then a resumed 4th
+OBJ_G_TERMS = sorted(["l1", "vgg_cdist", "kl", "z_l1"] + [f"{d}_{k}" for d in ("acvideo", "image", "video")
+                                                          for k in ("gan", "vae_gan", "vae_gan_feat")])
+OBJ_D_TERMS = sorted(f"{d}_{k}_{s}" for d in ("acvideo", "image", "video") for k in ("gan", "vae_gan")
+                     for s in ("real", "fake"))
+# phase 21's GPU-against-CPU train steps: each objective alone on bair/ours_savp
+# without its video GANs, the KL unannealed so that it enters
+OBJ_ALONE = {
+    "learn_prior": dict(learn_prior=True),
+    "z_l1": dict(z_l1_weight=1.0),
+    "image_gan": dict(image_sn_gan_weight=0.1, image_sn_vae_gan_weight=0.1),
+    "acvideo_gan": dict(acvideo_sn_gan_weight=0.1, acvideo_sn_vae_gan_weight=0.1),
+    "vgg_cdist": dict(vgg_cdist_weight=1.0),
+}
+# z_l1 alone: the median leaf within 5e-4, not phase 9's 1e-4. Its gradient
+# reaches the generator through the posterior's instance norms of the
+# generated frames and amplifies the convs' rounding more than the
+# flagship's: on an H100 at ngf=8 (TF32 off) its median leaf read 1.37e-4
+# with cuDNN's convs and 8.17e-4 with PyTorch's own, the flagship's 3.84e-5
+# with PyTorch's own, its loss terms within 1e-7 either way, and every leaf
+# within phase 9's 1e-2 (worst 5.4e-3). Phase 21 measures it again with
+# PyTorch's own convs (``objectives_cpu_vs_gpu_phase``)
+Z_L1_GRAD_MEDIAN_TOL = 5e-4
+# the learn_prior eval rollout GPU against CPU (TF32 off), gen_images, the
+# prior's statistics and the z it took
+LEARN_PRIOR_ROLLOUT_TOL = 1e-5
+
+
+def objectives_hparams(vgg_path: str, **extra):
+    """``bair/ours_savp`` with ``OBJECTIVES`` and ``vgg_path``, then ``extra``."""
+    return ac_hparams("savp", "ours_savp", **OBJECTIVES, vgg_weights_path=vgg_path, **extra)
+
+
+def objectives_train_phase(dirs: dict, vgg_path: str) -> tuple:
+    """Phase 21, train: ``train``'s ``main`` on phase 19's BAIR records read
+    with ``use_state=True`` (so with their 4-D actions; the model leaves the
+    states unused) with ``bair/ours_savp`` and every objective, batch 16, TF32
+    convs, 3 steps, then ``--resume`` to a 4th: finite losses, every term,
+    the launches per step against phase 8's. Returns the run directory and
+    the launches of the 4 steps."""
+    import shutil
+
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    set_tf32_default()
+    run_dir = os.path.join(WORK_DIR, "objectives")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    overrides = ",".join(f"{k}={v}" for k, v in OBJECTIVES.items()) + f",vgg_weights_path={vgg_path}"
+    argv = ["--dataset", "bair", "--input_dir", dirs["train"], "--dataset_hparams", "use_state=True",
+            "--model", "savp", "--model_hparams_dict", str(zoo_dir() / "bair" / "ours_savp" / "model_hparams.json"),
+            "--model_hparams", overrides, "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH),
+            "--device", "cuda", "--progress_freq", "1", "--save_freq", "1000", "--eval_summary_freq", "0",
+            "--accum_eval_summary_freq", "0", "--seed", "0"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_main(argv + ["--max_steps", str(OBJ_TRAIN_STEPS - 1)])
+    resumed = train_main(argv + ["--max_steps", str(OBJ_TRAIN_STEPS), "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    scalars = resumed["scalars"]
+    print(f"train bair/ours_savp+objectives on records: {OBJ_TRAIN_STEPS - 1} steps then a resumed "
+          f"{OBJ_TRAIN_STEPS}th, {wall:.2f} s wall; losses {scalars}; launches {launches}")
+    check(first["all_finite"] and resumed["all_finite"], "train with the objectives gave non-finite losses")
+    check((resumed["start_step"], resumed["step"]) == (OBJ_TRAIN_STEPS - 1, OBJ_TRAIN_STEPS),
+          f"the resumed run did not continue: {resumed}")
+    g_terms = sorted(k[2:] for k in scalars if k.startswith("g/"))
+    d_terms = sorted(k[2:] for k in scalars if k.startswith("d/"))
+    check(g_terms == OBJ_G_TERMS and d_terms == OBJ_D_TERMS, f"loss terms g {g_terms}, d {d_terms}")
+    # one doubled-batch rollout (prior and posterior) and its backward a step, as phase 8
+    want = {k: n * OBJ_TRAIN_STEPS for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
+    check(launches == want, f"train with the objectives: launches {launches}, want {want}")
+    params = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)
+    check(any(k.startswith("generator.cell.prior.") for k in params) and not any("vgg" in k for k in params),
+          "the checkpoint should hold the learned prior and no VGG weights")
+    return run_dir, launches
+
+
+def objectives_cpu_vs_gpu_phase(dev, vgg_path: str) -> None:
+    """Phase 21: one train step of each objective alone (``OBJ_ALONE``) on the
+    CPU and on the GPU under phase 9's rule (``z_l1``'s median leaf under
+    ``Z_L1_GRAD_MEDIAN_TOL``), and one ``learn_prior`` eval
+    rollout of the all-objectives model, GPU against CPU within
+    ``LEARN_PRIOR_ROLLOUT_TOL``, ngf=8, 64 px, TF32 off."""
+    from video_prediction_torch.models import get_model_class, input_dims
+
+    alone = {}
+    for name, extra in OBJ_ALONE.items():
+        if "vgg_cdist_weight" in extra:
+            extra = dict(extra, vgg_weights_path=vgg_path)
+        print(f"objective alone: {name}")
+        alone[name] = ac_hparams("savp", "ours_savp", video_sn_gan_weight=0.0, video_sn_vae_gan_weight=0.0,
+                                 kl_anneal="none", **extra)
+        train_cpu_vs_gpu_phase(dev, "savp", alone[name],
+                               Z_L1_GRAD_MEDIAN_TOL if name == "z_l1" else TRAIN_GRAD_MEDIAN_TOL)
+    # the measurement behind Z_L1_GRAD_MEDIAN_TOL: z_l1 and the flagship with
+    # PyTorch's own convs in place of cuDNN's, read and not held to a median
+    torch.backends.cudnn.enabled = False
+    try:
+        print("z_l1 alone and the flagship, PyTorch's own convs (cuDNN off):")
+        medians = {name: train_cpu_vs_gpu_phase(dev, "savp", hp, 1.0)
+                   for name, hp in (("z_l1", alone["z_l1"]), ("flagship", slice_hparams()))}
+    finally:
+        torch.backends.cudnn.enabled = True
+    print(f"median leaf gradient error with PyTorch's own convs: z_l1 {medians['z_l1']:.3g}, flagship "
+          f"{medians['flagship']:.3g} ({medians['z_l1'] / medians['flagship']:.1f} times)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hp = objectives_hparams(vgg_path, ngf=8, nef=8, ndf=8)
+    batch = synthetic_batch(2, seed=21, device="cpu")
+    model = get_model_class("savp")(hp, **input_dims(hp, batch))
+    model.init_weights(torch.Generator().manual_seed(21))
+    gpu_model = copy.deepcopy(model).to(dev).eval()
+    eps = torch.randn(2, 11, 8, generator=torch.Generator().manual_seed(21))
+    with torch.inference_mode():
+        ref = model.eval()(batch, zs_prior=eps)
+        out = gpu_model({k: v.to(dev) for k, v in batch.items()}, zs_prior=eps.to(dev))
+    keys = ("gen_images", "prior_mu", "prior_logvar", "zs_sampled_prior")
+    errs = {k: float((out[k].cpu() - ref[k]).abs().max()) for k in keys}
+    print(f"learn_prior rollout GPU vs CPU, all objectives, ngf=8, batch 2, fp32 (TF32 off): max_abs_err {errs} "
+          f"(tol {LEARN_PRIOR_ROLLOUT_TOL})")
+    check(all(bool(torch.isfinite(out[k]).all()) for k in keys), "learn_prior rollout: not finite")
+    check(max(errs.values()) <= LEARN_PRIOR_ROLLOUT_TOL, f"learn_prior rollout GPU vs CPU: {errs}")
+    set_tf32_default()
+
+
+def objectives_timing_phase(dev, ident: str, vgg_path: str) -> None:
+    """Phase 21, times (TF32 convs): the train step of ``bair/ours_savp+objectives``
+    and of the flagship at batch 16 on a fixed device batch (median of 7 steps
+    after 2, each a CUDA-synchronised host clock) with the objectives' peak
+    device memory; the no-grad ``learn_prior`` rollout at batch 8 and 64
+    beside the flagship's, in turns."""
+    import statistics
+
+    from video_prediction_torch.models import get_model_class, input_dims
+    from video_prediction_torch.train.state import create_train_state
+    from video_prediction_torch.train.step import make_train_step
+
+    set_tf32_default()
+    data = synthetic_batch(TRAIN_BATCH, seed=25, device=dev)
+    models = {}
+    for label, hp in (("objectives", objectives_hparams(vgg_path, batch_size=TRAIN_BATCH)),
+                      ("flagship", slice_hparams().replace(batch_size=TRAIN_BATCH))):
+        model = get_model_class("savp")(hp, **input_dims(hp, data))
+        ts = create_train_state(model, 0, dev)
+        step = make_train_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step(ts, data)
+        times = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scalars = step(ts, data)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(all(bool(torch.isfinite(v)) for v in scalars.values()), f"timed {label} steps gave non-finite losses")
+        ms = statistics.median(times)
+        print(f"{label} train step batch {TRAIN_BATCH}, TF32 convs: median {ms:.2f} ms of 7 "
+              f"({min(times):.2f}-{max(times):.2f}), {TRAIN_BATCH * 10 / ms * 1e3:.1f} frames/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{ident}]")
+        models[label] = model.eval()
+        del ts, step
+    for bsz in (8, 64):
+        batch = synthetic_batch(bsz, seed=26, device=dev)
+        eps = torch.randn(bsz, 11, 8, device=dev, generator=torch.Generator(device=dev).manual_seed(26))
+        turns = {label: [] for label in models}
+        for label in ("objectives", "flagship", "flagship", "objectives"):
+            with torch.inference_mode():
+                turns[label].append(cuda_ms(lambda: models[label](batch, zs_prior=eps), iters=10, warmup=3))
+        print(f"rollout batch {bsz}, TF32 convs, in turns: learn_prior (objectives) "
+              f"{' / '.join(f'{t:.2f}' for t in turns['objectives'])} ms, flagship "
+              f"{' / '.join(f'{t:.2f}' for t in turns['flagship'])} ms [{ident}]")
+    del models
+    torch.cuda.empty_cache()
+
+
+def objectives_phase(dirs: dict, dev, ident: str, vgg_path: str, kernel_results: list) -> None:
+    """Phase 21: ``bair/ours_savp+objectives`` through train (with a resume),
+    evaluate and generate on the records; each objective GPU against CPU; the
+    times. Adds the launches of its 4 train steps to each kernel's entry of
+    the ``kernels`` line under ``"objectives"``."""
+    t0 = time.perf_counter()
+    run_dir, launches = objectives_train_phase(dirs, vgg_path)
+    for entry in kernel_results:
+        if entry["name"] in launches:
+            entry["objectives"] = {"launches": launches[entry["name"]],
+                                   "launches_per_train_step": launches[entry["name"]] // OBJ_TRAIN_STEPS}
+    records_eval_phase(dirs, run_dir, "savp", LAUNCHES_PER_ROLLOUT, label=" objectives")
+    objectives_cpu_vs_gpu_phase(dev, vgg_path)
+    objectives_timing_phase(dev, ident, vgg_path)
+    print(f"phase 21 (training objectives): {time.perf_counter() - t0:.2f} s wall")
+
+
 def set_tf32_default() -> None:
     """cuDNN's default (TF32 convs) and PyTorch's (no TF32 matmuls), which the CLIs run under."""
     torch.backends.cudnn.allow_tf32 = True
@@ -2077,6 +2306,11 @@ def main() -> int:
         # the records through train, evaluate and generate; the generator
         # options GPU against CPU; the DNA op; K3 at 3 candidates
         kernel_results.append(ac_phase(dirs, dev, ident))
+
+        # 21. bair/ours_savp with every objective (learned prior, image and
+        # acvideo discriminators, z_l1, vgg_cdist) through train, evaluate
+        # and generate on the records; each objective GPU against CPU; times
+        objectives_phase(dirs, dev, ident, vgg_path, kernel_results)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

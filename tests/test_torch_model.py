@@ -156,24 +156,39 @@ def test_images_to_float():
     assert images_to_float(f) is f
 
 
-def test_unported_options_raise():
-    """What stays unported: ``learn_prior`` in any model class and with any
-    other option (the generator raises), and the image and action-conditioned
-    discriminators' and the latent and VGG losses' weights (the model builds
-    and rolls out; its losses raise)."""
-    for model, extra in (("savp", dict(learn_prior=True)), ("dna", dict(learn_prior=True)),
-                         ("sna", dict(learn_prior=True)),
-                         ("savp", dict(learn_prior=True, use_states=True, conv_rnn="gru", transformation="flow"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_get_model_class(model)(_hparams(thp, model=model, **extra), image_shape=(32, 32, 3))
-    batch = {"images": torch.rand(1, 6, 32, 32, 3)}
-    for extra in (dict(image_sn_gan_weight=0.1), dict(image_sn_vae_gan_weight=0.1), dict(acvideo_sn_gan_weight=0.1),
-                  dict(acvideo_sn_vae_gan_weight=0.1), dict(z_l1_weight=1.0), dict(vgg_cdist_weight=1.0)):
-        model = t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
+def test_jax_refusals_hold():
+    """The only errors left are the JAX package's own, raised by both:
+    ``latent_time_invariant`` with ``learn_prior`` (``ValueError``),
+    ``vgg_cdist_weight`` without VGG16 weights (``FileNotFoundError``,
+    ``tests/test_model_variants.py:293-296``) and the acvideo discriminator
+    without actions (``ValueError``, ``tests/test_model_train.py:179-182``);
+    the options the port refused before build and roll out, ``learn_prior``
+    in every model class and beside the other generator options."""
+    with pytest.raises(ValueError, match="learn_prior"):
+        t_get_model_class("savp")(_hparams(thp, latent_time_invariant=True, learn_prior=True), image_shape=(32, 32, 3))
+    with pytest.raises(ValueError, match="learn_prior"):
+        j_get_model_class("savp")(_hparams(jhp, latent_time_invariant=True, learn_prior=True))
+    for module, build in ((thp, lambda hp: t_get_model_class("savp")(hp, image_shape=(32, 32, 3))),
+                          (jhp, lambda hp: j_get_model_class("savp")(hp))):
+        for path in ("", "/nonexistent/vgg16.npz"):
+            with pytest.raises(FileNotFoundError):
+                build(_hparams(module, vgg_cdist_weight=1.0, vgg_weights_path=path))
+    for extra in (dict(acvideo_sn_gan_weight=0.1), dict(acvideo_sn_vae_gan_weight=0.1)):
+        with pytest.raises(ValueError, match="action-conditioned"):
+            t_get_model_class("savp")(_hparams(thp, **extra), image_shape=(32, 32, 3))
+        jmodel = j_get_model_class("savp")(_hparams(jhp, **extra))
+        with pytest.raises(ValueError, match="action-conditioned"):
+            jmodel.init_variables(jax.random.PRNGKey(0), {"images": jnp.zeros((1, 6, 32, 32, 3))})
+    batch = {"images": torch.rand(1, 6, 32, 32, 3), "actions": torch.rand(1, 6, 4)}
+    for model, extra in (("savp", {}), ("dna", dict(nz=4)), ("sna", dict(nz=4)),
+                         ("savp", dict(use_states=True, conv_rnn="gru", transformation="flow"))):
+        hp = _hparams(thp, model=model, learn_prior=True, **extra)
+        tmodel = t_get_model_class(model)(hp, image_shape=(32, 32, 3), action_dim=4)
+        tmodel.init_weights(torch.Generator().manual_seed(0))
         with torch.no_grad():
-            assert model(batch)["gen_images"].shape == (1, 5, 32, 32, 3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.compute_losses(batch)
+            out = tmodel(batch, generator=torch.Generator().manual_seed(1))
+        assert out["gen_images"].shape == (1, 5, 32, 32, 3) and bool(torch.isfinite(out["gen_images"]).all())
+        assert out["prior_mu"].shape == out["zs_sampled_prior"].shape == (1, 5, 4)
 
 
 ZOO_FILES = sorted(thp.zoo_dir().glob("*/*/model_hparams.json"))

@@ -20,14 +20,20 @@ Mapping:
   learned initial states (``init_state_{i}``) as they are. A
   ``ConvTranspose`` kernel maps as a conv kernel does: ``ConvTranspose2D``
   flips it and swaps its in/out axes for ``F.conv_transpose2d`` when it
-  runs;
+  runs; ``Local2D``'s rank-6 ``kernel`` and ``SeparableLocal2D``'s
+  ``vertical``/``horizontal`` keep their names and the JAX layout, which
+  the port's layers read as they are;
   ``_SplitInputConv2D``'s single ``[k,k,C1+C2,F]`` kernel under
   ``mask_head/Conv_0`` becomes one ``[F,C1+C2,k,k]`` conv weight;
 - the five LayerNorms of a ConvLSTM cell (``ln_i``, ``ln_f``, ``ln_g``,
   ``ln_o``, ``ln_c``) pack into its ``ln`` ``[10, C]``: scale then bias for
   i, f, g, o, c — the rows kernel K2 reads;
 - each spectral ``u`` becomes the ``u`` buffer of its layer
-  (``discriminator.video.sn_conv3d0.u``).
+  (``discriminator.video.sn_conv3d0.u``), for every discriminator and its
+  ``_vae`` twin (``image``, ``video``, ``acvideo``); the learned prior's
+  leaves under ``SAVPCell_0/prior`` become ``generator.cell.prior``; the
+  frozen VGG16 of ``vgg_cdist_weight`` is outside ``params`` and outside the
+  ``state_dict``.
 
 Any subtree converts the same way (one layer's or one discriminator's
 params give that module's ``state_dict``).
@@ -73,7 +79,9 @@ def flax_to_state_dict(params: Mapping[str, Any],
         if modules and modules[-1] in _LN_GATES:
             ln_rows.setdefault(_key(modules[:-1], "ln"), {})[(modules[-1], leaf)] = arr
             continue
-        if leaf == "kernel":
+        if leaf == "kernel" and arr.ndim == 6:
+            pass  # Local2D's [H,W,kh,kw,Cin,Cout]: the port keeps the JAX layout and the name
+        elif leaf == "kernel":
             if arr.ndim == 5:
                 arr = arr.transpose(4, 3, 0, 1, 2)  # THWIO -> OITHW
             elif arr.ndim == 4:
@@ -83,7 +91,7 @@ def flax_to_state_dict(params: Mapping[str, Any],
             else:
                 raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {arr.ndim}")
             leaf = "weight"
-        elif leaf not in ("bias", "scale") and not leaf.startswith("init_state_"):
+        elif leaf not in ("bias", "scale", "vertical", "horizontal") and not leaf.startswith("init_state_"):
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
         out[_key(modules, leaf)] = torch.tensor(arr)
     for key, rows in ln_rows.items():

@@ -2,16 +2,24 @@
 
 Port of ``video_prediction_tpu/models/base.py`` (reference
 ``models/base_model.py``): ``images_to_float``, ``normalize_batch``,
-``VideoPredictionModel`` with the generator, the posterior encoder (per step,
-or one z per sequence with ``latent_time_invariant``) and the video SN
-discriminators, ``forward`` (eval prior rollout, and the training rollouts:
-posterior only, or prior and posterior as one doubled batch), ``_clip``,
-``apply_discriminator``, ``compute_losses`` and ``metrics_fn``; and the
-parameter-free baselines ``GroundTruthVideoPredictionModel`` and
-``RepeatVideoPredictionModel``. The image and action-conditioned
-discriminators, ``learn_prior``, ``z_l1_weight`` and ``vgg_cdist_weight``
-are still to be ported (ROADMAP.md); ``compute_losses`` raises for their loss
-weights, and the generator serves such a run all the same.
+``VideoPredictionModel`` with the generator (and, under ``learn_prior``, its
+in-cell learned prior), the posterior encoder (per step, or one z per
+sequence with ``latent_time_invariant``), the image, video and
+action-conditioned SN discriminators and the frozen VGG16 of
+``vgg_cdist_weight``; ``forward`` (eval prior rollout, and the training
+rollouts: posterior only, or prior and posterior as one doubled batch),
+``_clip``, ``apply_discriminator``, ``compute_losses`` (every term of the
+JAX package: l1, l2, tv, state, vgg_cdist, kl, z_l1 and each
+discriminator's GAN, VAE-GAN and feature-matching terms) and
+``metrics_fn``; and the parameter-free baselines
+``GroundTruthVideoPredictionModel`` and ``RepeatVideoPredictionModel``.
+Every option of the JAX package's ``ModelHparams`` builds; the errors left
+are the JAX package's own (``latent_time_invariant`` with ``learn_prior``,
+``vgg_cdist_weight`` without weights, the acvideo discriminator without
+actions). The TPU-only knobs ``remat``, ``remat_policy``,
+``remat_prevent_cse``, ``scan_unroll`` and ``disc_conv3d_taps`` steer how
+XLA lowers the same maths; the port accepts them and computes the same
+result (``models/savp.py``, ``ops/spectral.py``).
 
 Conventions as in the JAX package: ``batch`` holds ``images [B,T,H,W,C]``
 (uint8, or float in [0,1]) and optionally ``actions [B,T or T-1,na]`` and
@@ -40,8 +48,14 @@ import torch.nn as nn
 from video_prediction_torch import losses as L
 from video_prediction_torch import metrics as M
 from video_prediction_torch.configs.hparams import ModelHparams
-from video_prediction_torch.models.networks import PosteriorEncoder, VideoSNDiscriminator
+from video_prediction_torch.models.networks import (
+    ACVideoSNDiscriminator,
+    ImageSNDiscriminator,
+    PosteriorEncoder,
+    VideoSNDiscriminator,
+)
 from video_prediction_torch.models.savp import SAVPGenerator
+from video_prediction_torch.models.vgg import VGGMetric
 from video_prediction_torch.ops.rnn import ConvLSTMCell
 from video_prediction_torch.ops.spectral import SpectralLayer, l2_normalize
 from video_prediction_torch.train import schedules
@@ -74,16 +88,9 @@ def input_dims(hp: ModelHparams, batch: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
-_UNPORTED_LOSS_WEIGHTS = ("image_sn_gan_weight", "image_sn_vae_gan_weight", "acvideo_sn_gan_weight",
-                          "acvideo_sn_vae_gan_weight", "z_l1_weight", "vgg_cdist_weight")
-
-
-def check_losses_supported(hp: ModelHparams) -> None:
-    """Raise ``NotImplementedError`` for a training objective the port lacks."""
-    for name in _UNPORTED_LOSS_WEIGHTS:
-        if getattr(hp, name):
-            raise NotImplementedError(f"{name}={getattr(hp, name)!r} is not ported yet (ROADMAP.md, queue 1)")
-
+# the discriminators by name, in the sorted order the JAX package runs them
+DISCRIMINATORS = ("acvideo", "image", "video")
+ACVIDEO_NEEDS_ACTIONS = "acvideo_sn_gan_weight requires an action-conditioned dataset"
 
 # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -91,9 +98,11 @@ _TRUNC_STD = 0.87962566103423978
 
 class VideoPredictionModel(nn.Module):
     """Video prediction model (SAVP family): generator plus, when ``nz > 0``,
-    the posterior encoder, plus the video SN discriminators the GAN weights
-    ask for (``discriminator["video"]`` for the prior rollout,
-    ``discriminator["video_vae"]`` for the posterior one).
+    the posterior encoder, plus the SN discriminators the GAN weights ask
+    for: ``discriminator[name]`` (``image``, ``video``, ``acvideo``) when
+    either of its weights is set, run on the prior rollout, and
+    ``discriminator[name + "_vae"]`` for the posterior rollout when its
+    VAE-GAN weight is (the JAX package's ``params["discriminator"]`` keys).
 
     ``image_shape`` (H, W, C), ``action_dim`` (0 when the dataset has no
     actions) and ``state_dim`` (0 unless ``use_states`` and the dataset has
@@ -102,6 +111,14 @@ class VideoPredictionModel(nn.Module):
     layers take the clip of ``min(clip_length, sequence_length - 1)``
     frames. Actions reach the generator whenever the batch has them, even
     under action-free hparams, as in the JAX package.
+
+    ``vgg_cdist_weight`` loads the VGG16 trunk from ``vgg_weights_path``
+    (``FileNotFoundError`` without it, as the JAX package) and keeps it
+    frozen outside the module tree, as the JAX package keeps it outside
+    ``params``: it is in no ``parameters()``, ``state_dict()``, checkpoint
+    or optimizer, ``init_weights`` does not reach it, and ``compute_losses``
+    moves it to the batch's device. It runs with autograd on, so the loss's
+    gradient reaches the generator through it.
     """
 
     trainable = True
@@ -122,11 +139,22 @@ class VideoPredictionModel(nn.Module):
             if hparams.nz > 0 else None
         )
         self.discriminator = nn.ModuleDict()
-        clip_shape = (min(hp.clip_length, hp.sequence_length - 1), image_shape[0], image_shape[1])
-        if hp.video_sn_gan_weight:
-            self.discriminator["video"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf, dtype)
-        if hp.video_sn_vae_gan_weight:
-            self.discriminator["video_vae"] = VideoSNDiscriminator(image_shape[-1], clip_shape, hp.ndf, dtype)
+        h, w, c = image_shape
+        clip_shape = (min(hp.clip_length, hp.sequence_length - 1), h, w)
+        constructors = {
+            "image": lambda: ImageSNDiscriminator(c, (h, w), hp.ndf, dtype),
+            "video": lambda: VideoSNDiscriminator(c, clip_shape, hp.ndf, dtype),
+            "acvideo": lambda: ACVideoSNDiscriminator(c, action_dim, clip_shape, hp.ndf, dtype),
+        }
+        for name in DISCRIMINATORS:
+            if self._gan_weight(name) or self._vae_gan_weight(name):
+                if name == "acvideo" and not action_dim:
+                    raise ValueError(f"{ACVIDEO_NEEDS_ACTIONS} (the model was built with action_dim=0)")
+                self.discriminator[name] = constructors[name]()
+                if self._vae_gan_weight(name):
+                    self.discriminator[name + "_vae"] = constructors[name]()
+        # a plain object, not a module: outside parameters() and state_dict()
+        self.vgg = VGGMetric(hp.vgg_weights_path or None) if hp.vgg_cdist_weight else None
 
     @classmethod
     def default_hparams(cls) -> ModelHparams:
@@ -137,18 +165,29 @@ class VideoPredictionModel(nn.Module):
     def has_vae(self) -> bool:
         return self.hparams.nz > 0
 
+    def _gan_weight(self, name: str) -> float:
+        return getattr(self.hparams, f"{name}_sn_gan_weight")
+
+    def _vae_gan_weight(self, name: str) -> float:
+        return getattr(self.hparams, f"{name}_sn_vae_gan_weight")
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Initialize as flax does: lecun-normal conv and dense kernels (zero
-        where the layer asks, ``Dense(zero_init=True)``), zero biases and
-        learned initial states, unit norm scales (ConvLSTM ``ln`` rows: scale
-        1, bias 0), and each spectral ``u`` a normalized Gaussian draw."""
+        where the layer asks, ``Dense(zero_init=True)``), the same on the
+        JAX-layout kernels of ``Local2D`` and ``SeparableLocal2D`` (flax's
+        ``variance_scaling(1, "fan_in", "truncated_normal")``, fan-in the
+        product of every axis but the last), zero biases and learned initial
+        states, unit norm scales (ConvLSTM ``ln`` rows: scale 1, bias 0), and
+        each spectral ``u`` a normalized Gaussian draw."""
         for module in self.modules():
             for name, p in module.named_parameters(recurse=False):
                 if name == "weight" and getattr(module, "zero_init", False):
                     p.zero_()
-                elif name == "weight":  # conv OIHW or dense [out, in]
-                    fan_in = math.prod(p.shape[1:])
+                elif name in ("weight", "kernel", "vertical", "horizontal"):
+                    # PyTorch layouts (conv OI..., dense [out, in]) put the output axis
+                    # first, the JAX-layout kernels last
+                    fan_in = math.prod(p.shape[1:] if name == "weight" else p.shape[:-1])
                     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                     nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=generator)
                 elif name == "bias" or name.startswith("init_state_"):
@@ -177,7 +216,9 @@ class VideoPredictionModel(nn.Module):
         the teacher-forcing mask's uniforms ``use_gt_u [T-1,B]``, the
         posterior's reparameterization noise ``eps_q`` and the prior draws
         ``z_p`` (each ``[B,T-1,nz]``, or ``[B,1,nz]`` with
-        ``latent_time_invariant``, when stochastic) and the start of the
+        ``latent_time_invariant``, when stochastic; under ``learn_prior``
+        ``z_p`` is the learned prior's reparameterization noise, as the JAX
+        package's ``eps_p`` takes the same key) and the start of the
         discriminator clip ``clip_start`` (a 0-d long tensor on ``device``,
         never read on the host, so the step queues without a sync)."""
         hp = self.hparams
@@ -204,21 +245,29 @@ class VideoPredictionModel(nn.Module):
 
         Eval (``train=False``): returns ``gen_images`` of the prior rollout
         and, when stochastic, ``zs_mu``/``zs_logvar`` from the posterior and
-        the unit-Gaussian prior draws ``zs_sampled_prior`` that drove it.
-        ``zs_prior`` ``[B,T-1,nz]`` (``[B,1,nz]`` with
-        ``latent_time_invariant``: one z per sequence, broadcast over the
-        rollout) is used as given; otherwise it is drawn from ``generator`` (a
-        ``torch.Generator`` on the batch's device). The latent statistics stay
-        un-broadcast, so the KL sees the sequence-level quantities.
+        the prior draws ``zs_sampled_prior`` that drove it. ``zs_prior``
+        ``[B,T-1,nz]`` (``[B,1,nz]`` with ``latent_time_invariant``: one z
+        per sequence, broadcast over the rollout) is used as given; otherwise
+        it is drawn from ``generator`` (a ``torch.Generator`` on the batch's
+        device). Under ``learn_prior`` it is the learned prior's
+        reparameterization noise instead, and the rollout also returns
+        ``prior_mu``/``prior_logvar``, with ``zs_sampled_prior`` the z the
+        cell took. The latent statistics stay un-broadcast, so the KL sees
+        the sequence-level quantities.
 
         Train: the teacher-forcing mask is sampled at ``step`` from
         ``noise["use_gt_u"]`` and the posterior z is ``mu + exp(logvar/2) *
         noise["eps_q"]`` (``noise`` as ``draw_noise`` gives it, drawn from
-        ``generator`` when None). With a GAN weight on the prior rollout the
-        prior (``noise["z_p"]``) and posterior rollouts run as one generator
-        call on a doubled batch and come back as ``gen_images`` and
-        ``gen_images_enc``; otherwise only the posterior rollout runs and
-        ``gen_images`` is it.
+        ``generator`` when None). When a loss needs the prior rollout (a GAN
+        weight on it, or ``z_l1_weight``; JAX ``base.py:302-306``) the prior
+        (``noise["z_p"]``, or the learned prior with it as noise) and
+        posterior rollouts run as one generator call on a doubled batch and
+        come back as ``gen_images`` and ``gen_images_enc``; otherwise only
+        the posterior rollout runs and ``gen_images`` is it. Under
+        ``learn_prior`` ``prior_mu``/``prior_logvar`` are those of the
+        posterior rollout, which conditions on the frames the posterior sees
+        (JAX ``base.py:358-368``), and ``zs_sampled_prior`` the prior
+        rollout's z.
         """
         hp = self.hparams
         batch = normalize_batch(batch)
@@ -238,6 +287,7 @@ class VideoPredictionModel(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         mu_q, logvar_q = self.posterior(images)
         out["zs_mu"], out["zs_logvar"] = mu_q, logvar_q
+        learn_prior = bool(hp.learn_prior)
 
         def bz(z: torch.Tensor) -> torch.Tensor:  # a sequence-level z over every rollout step
             return z.expand(z.shape[0], t - 1, hp.nz)
@@ -247,25 +297,51 @@ class VideoPredictionModel(nn.Module):
                 zs_prior = torch.randn(mu_q.shape, generator=generator, device=images.device)
             elif tuple(zs_prior.shape) != tuple(mu_q.shape):
                 raise ValueError(f"zs_prior must be {tuple(mu_q.shape)}, got {tuple(zs_prior.shape)}")
-            out["zs_sampled_prior"] = zs_prior
-            out.update(self.generator(images, use_gt, zs=bz(zs_prior), output_aux=output_aux, **gen_kwargs))
-            return out
+            if learn_prior:
+                out.update(self.generator(images, use_gt, prior_eps=zs_prior, output_aux=output_aux, **gen_kwargs))
+            else:
+                out["zs_sampled_prior"] = zs_prior
+                out.update(self.generator(images, use_gt, zs=bz(zs_prior), output_aux=output_aux, **gen_kwargs))
+            return self._canonical_prior(out)
 
         z_q = mu_q + torch.exp(0.5 * logvar_q) * noise["eps_q"]
-        z_p = noise["z_p"]
-        out["zs_sampled_prior"] = z_p
-        if "video" in self.discriminator:
+        z_p = noise["z_p"]  # under learn_prior: the prior's reparameterization noise
+        if not learn_prior:
+            out["zs_sampled_prior"] = z_p
+        need_prior_rollout = hp.z_l1_weight > 0 or any(self._gan_weight(name) for name in DISCRIMINATORS)
+        if need_prior_rollout:
             # the prior and posterior rollouts as one doubled batch
-            gout = self.generator(
-                torch.cat([images, images]), torch.cat([use_gt, use_gt], dim=1), zs=torch.cat([bz(z_p), bz(z_q)]),
-                output_aux=output_aux, **{k: torch.cat([v, v]) for k, v in gen_kwargs.items()},
-            )
+            kwargs2 = {k: torch.cat([v, v]) for k, v in gen_kwargs.items()}
+            if learn_prior:
+                # first half: the in-cell prior's z; second half: the posterior's
+                zs2 = torch.cat([torch.zeros_like(z_q), z_q])
+                kwargs2["prior_eps"] = torch.cat([z_p, torch.zeros_like(z_p)])
+                kwargs2["use_prior_z"] = torch.arange(2 * b, device=images.device) < b
+            else:
+                zs2 = torch.cat([bz(z_p), bz(z_q)])
+            gout = self.generator(torch.cat([images, images]), torch.cat([use_gt, use_gt], dim=1), zs=zs2,
+                                  output_aux=output_aux, **kwargs2)
             for k, v in gout.items():
                 out[k], out[k + "_enc"] = v[:b], v[b:]
         else:
             gout = self.generator(images, use_gt, zs=bz(z_q), output_aux=output_aux, **gen_kwargs)
             out.update({k + "_enc": v for k, v in gout.items()})
             out["gen_images"] = gout["gen_images"]  # the posterior rollout doubles as the main output
+        return self._canonical_prior(out)
+
+    def _canonical_prior(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The learned prior's outputs under the names the losses read (JAX
+        ``base.py:358-368``): the posterior rollout's ``prior_*_enc`` as
+        ``prior_*`` where it ran, the prior rollout's ``z_used`` as
+        ``zs_sampled_prior``."""
+        if not self.hparams.learn_prior:
+            return out
+        if "prior_mu_enc" in out:
+            out["prior_mu"] = out.pop("prior_mu_enc")
+            out["prior_logvar"] = out.pop("prior_logvar_enc")
+        if "z_used" in out:
+            out["zs_sampled_prior"] = out.pop("z_used")
+        out.pop("z_used_enc", None)
         return out
 
     # ------------------------------------------------------------------ #
@@ -280,18 +356,29 @@ class VideoPredictionModel(nn.Module):
         start = torch.as_tensor(start, device=frames.device).clamp(0, tm1 - clip_len)
         return frames.index_select(1, start + torch.arange(clip_len, device=frames.device))
 
-    def apply_discriminator(self, key: str, clips: torch.Tensor, update_spectral: bool
+    @staticmethod
+    def _transition_actions(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The actions aligned with the target frames ``images[:, 1:]`` (action
+        t drives the t -> t+1 transition): the acvideo discriminator's input."""
+        actions = batch.get("actions")
+        if actions is None:
+            raise ValueError(f"{ACVIDEO_NEEDS_ACTIONS} (batch has no 'actions')")
+        return actions[:, : batch["images"].shape[1] - 1]
+
+    def apply_discriminator(self, key: str, clips: torch.Tensor, update_spectral: bool,
+                            extra: Tuple[torch.Tensor, ...] = ()
                             ) -> Tuple[torch.Tensor, List[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
-        """Run ``discriminator[key]`` on ``clips``: ``(logits, features,
-        new_u)``. With ``update_spectral`` the discriminator's own
-        parameters take gradients and the advanced ``u`` vectors come back;
-        without, it runs on detached parameters (its gradients flow only
-        into ``clips``) from the same stored ``u``, and ``new_u`` is None."""
+        """Run ``discriminator[key]`` on ``clips`` and the ``extra`` inputs
+        (the acvideo discriminator's action clip): ``(logits, features,
+        new_u)``. With ``update_spectral`` the discriminator's own parameters
+        take gradients and the advanced ``u`` vectors come back; without, it
+        runs on detached parameters (its gradients flow only into the
+        inputs) from the same stored ``u``, and ``new_u`` is None."""
         disc = self.discriminator[key]
         if update_spectral:
-            return disc(clips)
+            return disc(clips, *extra)
         params = {name: p.detach() for name, p in disc.named_parameters()}
-        logits, feats, _ = torch.func.functional_call(disc, params, (clips,))
+        logits, feats, _ = torch.func.functional_call(disc, params, (clips, *extra))
         return logits, feats, None
 
     # ------------------------------------------------------------------ #
@@ -314,9 +401,18 @@ class VideoPredictionModel(nn.Module):
         ``g_loss`` and ``d_loss``, and ``new_state["spectral"][key][layer]``,
         the advanced ``u`` of each discriminator from its update path (the
         train step stores them).
+
+        The terms, in the JAX package's order (``base.py:419-531``): l1, l2,
+        tv and state on the posterior rollout; ``vgg_cdist``, ``weight *
+        mean(1 - VGG cosine(recon, target))``; the KL against the unit
+        Gaussian or, under ``learn_prior``, the learned prior's statistics;
+        ``z_l1``, the L1 between the posterior mean of the prior rollout's
+        frames (re-encoded after the first ground-truth frame) and the z that
+        made them; then for each discriminator in sorted order its GAN
+        terms on the prior rollout and its ``_vae`` twin's on the posterior
+        rollout.
         """
         hp = self.hparams
-        check_losses_supported(hp)
         batch = normalize_batch(batch)
         images = batch["images"]
         target = images[:, 1:]
@@ -339,9 +435,18 @@ class VideoPredictionModel(nn.Module):
             # (JAX base.py:446-449: none when only the posterior rollout ran)
             g_losses["state"] = hp.state_weight * L.l2_loss(out.get("gen_states_enc", out["gen_states"]),
                                                             batch["states"][:, 1:])
+        if self.vgg is not None:
+            self.vgg.module.to(images.device)  # a no-op once there
+            g_losses["vgg_cdist"] = hp.vgg_cdist_weight * (1.0 - self.vgg(recon_images, target)).mean()
         if self.has_vae and hp.kl_weight:
             anneal = schedules.kl_weight(step, hp)
-            g_losses["kl"] = hp.kl_weight * anneal * L.kl_loss(out["zs_mu"], out["zs_logvar"])
+            g_losses["kl"] = hp.kl_weight * anneal * L.kl_loss(out["zs_mu"], out["zs_logvar"],
+                                                               out.get("prior_mu"), out.get("prior_logvar"))
+        if self.has_vae and hp.z_l1_weight:
+            # the latent cycle: the prior rollout re-encoded (after ground-truth
+            # frame 0) gives back the z that made it (JAX base.py:464-473)
+            mu_hat, _ = self.posterior(torch.cat([images[:, :1], gen_images], dim=1))
+            g_losses["z_l1"] = hp.z_l1_weight * L.l1_loss(mu_hat, out["zs_sampled_prior"])
 
         new_spectral: Dict[str, Dict[str, torch.Tensor]] = {}
         if len(self.discriminator):
@@ -350,24 +455,27 @@ class VideoPredictionModel(nn.Module):
 
             def run_pair(key: str, fake_frames: torch.Tensor, weight: float, prefix: str) -> None:
                 fake_clip = self._clip(fake_frames, start)
+                extra = (self._clip(self._transition_actions(batch), start),) if key.startswith("acvideo") else ()
                 # D update path: real and detached fake in one call; advances u
                 both = torch.cat([real_clip, fake_clip.detach()])
-                logits_both, feats_both, new_spectral[key] = self.apply_discriminator(key, both, True)
+                logits_both, feats_both, new_spectral[key] = self.apply_discriminator(
+                    key, both, True, tuple(torch.cat([e, e]) for e in extra))
                 logits_real, logits_fake = logits_both.chunk(2)
                 d_losses[f"{prefix}_real"] = weight * L.gan_loss(logits_real, 1.0, hp.gan_loss_type)
                 d_losses[f"{prefix}_fake"] = weight * L.gan_loss(logits_fake, 0.0, hp.gan_loss_type)
                 # G update path: detached D parameters, the old u
-                logits_g, feats_g, _ = self.apply_discriminator(key, fake_clip, False)
+                logits_g, feats_g, _ = self.apply_discriminator(key, fake_clip, False, extra)
                 g_losses[prefix] = weight * L.gan_loss(logits_g, 1.0, hp.gan_loss_type)
                 feat_w = hp.vae_gan_feature_l2_weight if key.endswith("_vae") else hp.gan_feature_l2_weight
                 if feat_w:
                     feats_real = [f.chunk(2)[0].detach() for f in feats_both]
                     g_losses[prefix + "_feat"] = feat_w * L.feature_matching_loss(feats_real, feats_g)
 
-            if "video" in self.discriminator:
-                run_pair("video", gen_images, hp.video_sn_gan_weight, "video_gan")
-            if "video_vae" in self.discriminator and "gen_images_enc" in out:
-                run_pair("video_vae", out["gen_images_enc"], hp.video_sn_vae_gan_weight, "video_vae_gan")
+            for name in DISCRIMINATORS:  # sorted, as the JAX package runs them
+                if name in self.discriminator and self._gan_weight(name):
+                    run_pair(name, gen_images, self._gan_weight(name), f"{name}_gan")
+                if name + "_vae" in self.discriminator and "gen_images_enc" in out:
+                    run_pair(name + "_vae", out["gen_images_enc"], self._vae_gan_weight(name), f"{name}_vae_gan")
 
         zero = torch.zeros((), device=images.device)
         g_total = sum(g_losses.values()) if g_losses else zero

@@ -9,15 +9,15 @@ calls kernel K2 once per ConvLSTM cell with LayerNorm (``ops/rnn.py``),
 kernel K1 once per CDNA frame (``ops/cdna.py``) and kernel K3 once where
 more than one candidate is composited (``kernels/composite.py``).
 
-Ported: every option of the JAX generator but ``learn_prior`` (which raises
-``NotImplementedError``; ROADMAP.md, queue 1): the ``cdna``, ``dna``,
+Ported: every option of the JAX generator: the ``cdna``, ``dna``,
 ``stp``, ``flow`` and ``direct`` transformations (DNA, STP and flow as torch
 ops, ``ops/cdna.py`` and ``ops/warp.py``: the JAX package leaves them to
 XLA); the ``prev``/``first``/``context``/``scratch`` backgrounds; dependent
 and independent masks; ``where_add``; action and low-dim state conditioning
 with the linear state head; LSTM cells with or without LayerNorm and GRU
-cells; learned initial states; the four up- and downsample layers; fp32 or
-bf16 compute (``compute_dtype``) and gate maths (``gate_dtype``).
+cells; learned initial states; the four up- and downsample layers; the
+learned prior (``learn_prior``); fp32 or bf16 compute (``compute_dtype``)
+and gate maths (``gate_dtype``).
 ``remat``, ``remat_policy``, ``remat_prevent_cse`` and ``scan_unroll``
 steer how JAX lowers its scan and mean nothing to a Python loop, save one
 choice that follows the JAX condition (``savp.py:364-366``): with
@@ -36,6 +36,17 @@ scheduled-sampling mask takes the ground-truth image, conditions the cell on
 ``where_add == "all"``), and, where actions are given, advances the state by
 ``state_head``, a fp32 dense layer on ``[state, action]``, whose outputs are
 ``gen_states``.
+
+The learned prior (``learn_prior``, JAX ``savp.py:205-219``, :480-490):
+``LearnedPrior`` (``cell.prior``, ``models/networks.py``) runs in every
+step on the frame the cell consumes, the ground truth or the cell's own
+last prediction, never a later ground-truth frame; ``z_prior = mu +
+exp(logvar / 2) * prior_eps``, the reparameterization noise ``prior_eps
+[B,T-1,nz]`` given (zeros when None). Without ``zs`` the cell takes
+``z_prior``; with ``zs`` it takes ``z_prior`` for the samples where
+``use_prior_z [B]`` is set and ``zs`` elsewhere (``zs`` everywhere when
+None). The rollout returns ``prior_mu``, ``prior_logvar`` and the z the
+cell took, ``z_used``, each ``[B,T-1,nz]``.
 
 Dtypes (``video_prediction_tpu/models/savp.py``): with ``compute_dtype``
 bfloat16 the convs, the norms (their statistics in fp32), the recurrent
@@ -62,6 +73,7 @@ import torch.nn as nn
 
 from video_prediction_torch.configs.hparams import ModelHparams
 from video_prediction_torch.kernels.composite import composite
+from video_prediction_torch.models.networks import LearnedPrior
 from video_prediction_torch.ops.cdna import apply_cdna_kernels, apply_dna_kernels, normalize_kernels
 from video_prediction_torch.ops.layers import (
     Conv2D,
@@ -80,8 +92,6 @@ from video_prediction_torch.ops.layers import (
 from video_prediction_torch.ops.rnn import ConvGRUCell, ConvLSTMCell
 from video_prediction_torch.ops.warp import apply_affine_kernels, image_warp
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
-
 
 def _static_log2(n: int) -> int:
     k = 0
@@ -94,12 +104,6 @@ def generator_num_scales(height: int, width: int) -> int:
     """Encoder/decoder scale count for an input resolution: bottleneck at
     8x8 — 3 scales for 64 px, 4 for 128 px, at least 1."""
     return max(1, min(4, _static_log2(min(height, width)) - 3))
-
-
-def check_supported(hp: ModelHparams) -> None:
-    """Raise ``NotImplementedError`` for hparams outside the ported slice."""
-    if hp.learn_prior:
-        raise NotImplementedError(f"learn_prior={hp.learn_prior!r} {_NOT_PORTED}")
 
 
 def split_input_conv(conv: Conv2D, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,8 +132,10 @@ class SAVPCell(nn.Module):
     """One generator timestep (reference ``savp_model.py#SAVPCell.call``).
 
     state = (rnn_states, gen_image, last_images, current_state or None)
-    x     = {image, use_gt, first_image, context_images?, z?, action?, state?}
-    out   = {gen_image, gen_state?, masks?, kernels?, flows?}
+    x     = {image, use_gt, first_image, context_images?, z?, action?, state?,
+             prior_eps?, use_prior_z?}
+    out   = {gen_image, gen_state?, prior_mu?, prior_logvar?, z_used?, masks?,
+             kernels?, flows?}
 
     ``action_dim`` and ``state_dim`` (0: none) fix the conditioning widths.
     """
@@ -137,7 +143,6 @@ class SAVPCell(nn.Module):
     def __init__(self, hparams: ModelHparams, num_scales: int, image_channels: int, action_dim: int = 0,
                  state_dim: int = 0, dtype: Dtype = None):
         super().__init__()
-        check_supported(hparams)
         hp = self.hparams = hparams
         self.num_scales = num_scales
         self.dtype = dtype
@@ -151,6 +156,9 @@ class SAVPCell(nn.Module):
         down = get_downsample_layer(hp.downsample_layer)
         up = get_upsample_layer(hp.upsample_layer)
         self.act = get_activation(hp.activation_layer)
+        self.learn_prior = bool(hp.learn_prior and hp.nz > 0)
+        if self.learn_prior:
+            self.prior = LearnedPrior(c, hp.nz, hp.nef // 2 or 16, dtype=dtype)
 
         def rnn(in_features: int, features: int) -> nn.Module:
             if hp.conv_rnn == "lstm":
@@ -254,6 +262,13 @@ class SAVPCell(nn.Module):
             # the ground-truth state where the ground-truth image is taken (:195-202)
             current_state = torch.where(use_gt[:, None], cast(x["state"], current_state.dtype), current_state)
         z = x.get("z")
+        if self.learn_prior:
+            # p(z_t | the frame the cell consumes) (:205-219)
+            mu_p, logvar_p = self.prior(image)
+            aux["prior_mu"], aux["prior_logvar"] = mu_p, logvar_p
+            z_prior = mu_p + torch.exp(0.5 * logvar_p) * x["prior_eps"]
+            z = z_prior if z is None else torch.where(x["use_prior_z"][:, None], z_prior, z)
+            aux["z_used"] = z
         cond_vecs = [v for v in (x.get("action"), current_state) if v is not None]
         cond = torch.cat(cond_vecs, dim=-1) if cond_vecs else None
         inputs = cast(image, self.dtype or image.dtype)
@@ -354,8 +369,9 @@ class SAVPGenerator(nn.Module):
     """Full-rollout generator: runs ``SAVPCell`` over time.
 
     ``forward(images [B,T,H,W,C], use_gt [T-1,B], zs [B,T-1,nz]?, actions?,
-    states?) -> {gen_images [B,T-1,H,W,C], gen_states?, masks?, kernels?,
-    flows?}``. Predictions are for frames 1..T-1 (``gen_images`` aligns with
+    states?, prior_eps?, use_prior_z?) -> {gen_images [B,T-1,H,W,C],
+    gen_states?, prior_mu?, prior_logvar?, z_used?, masks?, kernels?,
+    flows?}`` (the prior's inputs and outputs under ``learn_prior``). Predictions are for frames 1..T-1 (``gen_images`` aligns with
     ``images[:, 1:]``); ``states`` is read only under ``use_states``.
 
     ``image_shape`` (H, W, C), ``action_dim`` and ``state_dim`` fix the
@@ -385,6 +401,8 @@ class SAVPGenerator(nn.Module):
         zs: Optional[torch.Tensor] = None,
         actions: Optional[torch.Tensor] = None,
         states: Optional[torch.Tensor] = None,
+        prior_eps: Optional[torch.Tensor] = None,
+        use_prior_z: Optional[torch.Tensor] = None,
         output_aux: bool = False,
     ) -> Dict[str, torch.Tensor]:
         hp = self.hparams
@@ -403,6 +421,11 @@ class SAVPGenerator(nn.Module):
                 cast(getattr(self, f"init_state_{i}"), leaf.dtype).expand(leaf.shape).contiguous()
                 for i, leaf in enumerate(_leaves(rnn_states))
             ])
+        if self.cell.learn_prior:
+            if prior_eps is None:
+                prior_eps = torch.zeros(b, t - 1, hp.nz, device=images.device)
+            if zs is not None and use_prior_z is None:
+                use_prior_z = torch.zeros(b, dtype=torch.bool, device=images.device)  # the given zs win
         first_image = images[:, 0]
         state = (rnn_states, first_image, [first_image] * hp.last_frames, None if states is None else states[:, 0])
         outs = []
@@ -416,11 +439,18 @@ class SAVPGenerator(nn.Module):
                 x["action"] = actions[:, step]
             if states is not None:
                 x["state"] = states[:, step]
+            if self.cell.learn_prior:
+                x["prior_eps"] = prior_eps[:, step]
+                if zs is not None:
+                    x["use_prior_z"] = use_prior_z
             state, out = self.cell(state, x, output_aux=output_aux)
             outs.append(out)
         result = {"gen_images": torch.stack([o["gen_image"] for o in outs], dim=1)}
         if "gen_state" in outs[0]:
             result["gen_states"] = torch.stack([o["gen_state"] for o in outs], dim=1)
+        for k in ("prior_mu", "prior_logvar", "z_used"):
+            if k in outs[0]:
+                result[k] = torch.stack([o[k] for o in outs], dim=1)
         if output_aux:
             for k in ("masks", "kernels", "flows"):
                 if k in outs[0]:

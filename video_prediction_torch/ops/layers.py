@@ -10,7 +10,10 @@ kernel (``kernels/ln_gate.py``).
 Parameter layouts are PyTorch's: conv weights OIHW (flax keeps HWIO), dense
 weights ``[out, in]`` (flax ``[in, out]``); ``convert.py`` maps between them.
 The model's ordinary convolutions were XLA's in the JAX package, not Pallas,
-and stay ``F.conv2d`` (``F.conv_transpose2d``, ``deconv2d``) here.
+and stay ``F.conv2d`` (``F.conv_transpose2d``, ``deconv2d``; ``F.conv3d``,
+``Conv3D``) here. The locally connected layers, which no model uses
+(``Local2D``, ``SeparableLocal2D``), keep the JAX layout of their per-pixel
+kernels and run as one ``F.unfold`` and one product, accumulated in fp32.
 
 Mixed precision follows flax's ``dtype`` rule. Parameters are fp32. A layer
 built with ``dtype=torch.bfloat16`` casts its input and its parameters to
@@ -75,6 +78,75 @@ def conv2d_nhwc(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv3d_nthwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                 strides: Tuple[int, int, int] = (1, 1, 1)) -> torch.Tensor:
+    """SAME 3-D convolution of NTHWC ``x`` with an OITHW ``weight`` (padding
+    asymmetric where the stride asks for it, so ``F.pad`` and no
+    ``padding=``); NTHWC out."""
+    pads = []
+    for size, k, s in reversed(list(zip(x.shape[1:4], weight.shape[2:], strides))):
+        pads.extend(_same_pads(size, k, s))  # F.pad wants the last axis (W) first
+    xc = x.permute(0, 4, 1, 2, 3)
+    if xc.dtype == torch.bfloat16:
+        # cuDNN's bf16 conv3d backward takes a direct kernel for a
+        # channels-last input at some shapes: sn_conv3d2 (32 -> 64, 3x3x3)
+        # on 128 clips ran 295 ms forward and backward, 3.2 ms from a
+        # contiguous NCDHW copy; the other five move by under 1.7 ms
+        # either way with the copy (H100, kernels/bench.py#conv3d_layouts)
+        xc = xc.contiguous()
+    y = F.conv3d(F.pad(xc, pads), weight, bias, stride=tuple(strides))
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def local2d_apply(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Locally connected 2-D convolution (reference ``ops.py#local2d``): each
+    output pixel has its own ``kh x kw x Cin x Cout`` kernel, SAME padding.
+    ``x [B,H,W,Cin]``, ``kernel [H,W,kh,kw,Cin,Cout]`` (the JAX layout),
+    ``bias [Cout]``; accumulated in fp32 and returned in ``x``'s dtype, as
+    ``video_prediction_tpu/ops/layers.py#local2d_apply``. One ``F.unfold``
+    of the padded input and one product over the patch axis, batched over
+    the pixels."""
+    b, h, w, cin = x.shape
+    hh, ww, kh, kw, cin2, cout = kernel.shape
+    if (hh, ww, cin2) != (h, w, cin):
+        raise ValueError(f"kernel {tuple(kernel.shape)} does not fit input {tuple(x.shape)}")
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    xp = F.pad(cast(x, torch.float32).permute(0, 3, 1, 2), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    patches = F.unfold(xp, (kh, kw))  # [B, Cin*kh*kw, H*W], (c, i, j) order
+    k = cast(kernel, torch.float32).permute(0, 1, 4, 2, 3, 5).reshape(h * w, cin * kh * kw, cout)
+    acc = torch.einsum("bqp,pqd->bpd", patches, k).reshape(b, h, w, cout)
+    if bias is not None:
+        acc = acc + cast(bias, torch.float32)
+    return cast(acc, x.dtype)
+
+
+def separable_local2d_apply(x: torch.Tensor, vertical: torch.Tensor, horizontal: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Separable locally connected 2-D convolution, depthwise (reference
+    ``ops.py#separable_local2d``): each output pixel's ``kh x kw`` kernel of
+    channel c is ``K[i, j] = sum_r vertical[i, r] horizontal[j, r]``.
+    ``x [B,H,W,C]``, ``vertical [H,W,kh,R,C]``, ``horizontal [H,W,kw,R,C]``
+    (the JAX layout), ``bias [C]``; fp32 accumulation, ``x``'s dtype out, as
+    ``video_prediction_tpu/ops/layers.py#separable_local2d_apply``. The
+    factorization is per output pixel, so the composed kernel is applied to
+    the patches (two 1-D passes would read untied weights at shifted
+    pixels)."""
+    b, h, w, c = x.shape
+    hh, ww, kh, r, c2 = vertical.shape
+    hh2, ww2, kw, r2, c3 = horizontal.shape
+    if (hh, ww, c2) != (h, w, c) or (hh2, ww2, r2, c3) != (h, w, r, c):
+        raise ValueError(f"vertical {tuple(vertical.shape)} / horizontal {tuple(horizontal.shape)} "
+                         f"do not fit input {tuple(x.shape)}")
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    composed = torch.einsum("hwirc,hwjrc->chwij", cast(vertical, torch.float32), cast(horizontal, torch.float32))
+    xp = F.pad(cast(x, torch.float32).permute(0, 3, 1, 2), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    patches = F.unfold(xp, (kh, kw)).reshape(b, c, kh * kw, h * w)
+    acc = torch.einsum("bcqp,cpq->bpc", patches, composed.reshape(c, h * w, kh * kw)).reshape(b, h, w, c)
+    if bias is not None:
+        acc = acc + cast(bias, torch.float32)
+    return cast(acc, x.dtype)
+
+
 def lrelu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     """Leaky ReLU (reference default slope 0.2: ``ops.py#lrelu``)."""
     return F.leaky_relu(x, negative_slope=alpha)
@@ -130,6 +202,64 @@ class Conv2D(nn.Module):
         dt = layer_dtype(self.dtype, x, self.weight)
         fused, after = split_bias(self.bias, dt)
         return add_bias(conv2d_nhwc(cast(x, dt), cast(self.weight, dt), fused, self.strides), after)
+
+
+class Conv3D(nn.Module):
+    """3-D convolution over NTHWC clips, SAME padding, weight OITHW
+    (reference ``ops.py#conv3d``; the JAX package's ``Conv3D``, which no
+    model uses; the video discriminators use ``spectral.SpectralConv3D``)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Tuple[int, int, int] = (3, 3, 3),
+                 strides: Tuple[int, int, int] = (1, 1, 1), use_bias: bool = True, dtype: Dtype = None):
+        super().__init__()
+        self.strides = tuple(strides)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = layer_dtype(self.dtype, x, self.weight)
+        fused, after = split_bias(self.bias, dt)
+        return add_bias(conv3d_nthwc(cast(x, dt), cast(self.weight, dt), fused, self.strides), after)
+
+
+class Local2D(nn.Module):
+    """Locally connected conv layer (reference ``ops.py#local2d``; no model
+    uses it): ``kernel [H,W,k,k,Cin,Cout]`` in the JAX layout (so the
+    parameter count grows with H x W), ``bias [Cout]``; computes in
+    ``dtype`` (the input's when None) as ``local2d_apply`` does. ``H`` and
+    ``W`` fix the parameter shapes, as the first input does for flax."""
+
+    def __init__(self, height: int, width: int, in_features: int, features: int, kernel_size: int = 3,
+                 use_bias: bool = True, dtype: Dtype = None):
+        super().__init__()
+        self.dtype = dtype
+        k = kernel_size
+        self.kernel = nn.Parameter(torch.empty(height, width, k, k, in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return local2d_apply(cast(x, self.dtype or x.dtype), self.kernel, self.bias)
+
+
+class SeparableLocal2D(nn.Module):
+    """Separable locally connected conv layer (reference
+    ``ops.py#separable_local2d``; no model uses it): per-pixel depthwise
+    kernels of rank ``rank``, ``vertical`` and ``horizontal`` ``[H,W,k,rank,C]``
+    in the JAX layout, ``bias [C]``; computes in ``dtype`` (the input's when
+    None) as ``separable_local2d_apply`` does."""
+
+    def __init__(self, height: int, width: int, features: int, kernel_size: int = 3, rank: int = 1,
+                 use_bias: bool = True, dtype: Dtype = None):
+        super().__init__()
+        self.dtype = dtype
+        shape = (height, width, kernel_size, rank, features)
+        self.vertical = nn.Parameter(torch.empty(shape))
+        self.horizontal = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return separable_local2d_apply(cast(x, self.dtype or x.dtype), self.vertical, self.horizontal, self.bias)
 
 
 class Dense(nn.Module):

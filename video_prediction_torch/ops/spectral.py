@@ -1,7 +1,7 @@
 """Spectral normalization (SN-GAN, Miyato et al. 2018).
 
 Port of ``video_prediction_tpu/ops/spectral.py`` (``spectral_normalize``,
-``SpectralConv3D``, ``SpectralDense``). Written here rather than taken from
+``SpectralConv2D``, ``SpectralConv3D``, ``SpectralDense``). Written here rather than taken from
 ``torch.nn.utils.spectral_norm``, which runs its power iteration under
 ``no_grad``: as in the JAX package the gradient flows through the power
 iteration and only the stored ``u`` is cut.
@@ -26,7 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from video_prediction_torch.ops.layers import add_bias, cast, split_bias
+from video_prediction_torch.ops.layers import add_bias, cast, conv2d_nhwc, conv3d_nthwc, split_bias
+from video_prediction_torch.ops.layers import _same_pads as same_pads  # noqa: F401 (TF SAME padding, kernels/bench.py)
 
 SN_EPS = 1e-12
 
@@ -87,17 +88,33 @@ class SpectralDense(SpectralLayer):
         return add_bias(F.linear(x, w, fused), after), u_new
 
 
-def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """(before, after) padding of TF/XLA ``SAME``: pad = max((out-1)*s + k - in, 0), before = pad // 2."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
+class SpectralConv2D(SpectralLayer):
+    """2-D convolution over NHWC with a spectrally normalized ``[O, I, k, k]``
+    weight, TF ``SAME`` padding and a square ``strides`` (reference
+    ``conv2d(..., use_spectral_norm=True)``; the image discriminator's). The
+    power iteration's matrix is the weight with its output axis last, as in
+    ``SpectralConv3D``: its rows come in another order than the JAX
+    package's ``[-1, out]`` reshape of the HWIO kernel, which moves neither
+    sigma nor the advanced ``u``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3, strides: int = 1,
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__((features, in_features, kernel_size, kernel_size), use_bias, dtype)
+        self.strides = strides
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        w, u_new = self.normalized_weight()
+        x, w, fused, after = self.operands(x, w)
+        return add_bias(conv2d_nhwc(x, w, fused, self.strides), after), u_new
 
 
 class SpectralConv3D(SpectralLayer):
     """3-D convolution over ``NTHWC`` clips with a spectrally normalized
-    ``[O, I, T, H, W]`` weight, TF ``SAME`` padding (asymmetric where the
-    stride asks for it, so ``F.pad`` and no ``padding=``), output ``NTHWC``."""
+    ``[O, I, T, H, W]`` weight, TF ``SAME`` padding (``layers.conv3d_nthwc``),
+    output ``NTHWC``. The JAX package's ``use_taps`` (``disc_conv3d_taps``)
+    computes the same convolution as time-shifted 2-D convolutions, a choice
+    of XLA lowering that does not change the result: the port accepts the
+    hparam and runs the direct convolution."""
 
     def __init__(self, in_features: int, features: int, kernel_size: Sequence[int] = (3, 3, 3),
                  strides: Sequence[int] = (1, 1, 1), use_bias: bool = True, dtype: Optional[torch.dtype] = None):
@@ -107,18 +124,5 @@ class SpectralConv3D(SpectralLayer):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         w, u_new = self.normalized_weight()
-        pads = []
-        for size, k, s in reversed(list(zip(x.shape[1:4], self.kernel_size, self.strides))):
-            pads.extend(same_pads(size, k, s))  # F.pad wants the last axis (W) first
         x, w, fused, after = self.operands(x, w)
-        xc = x.permute(0, 4, 1, 2, 3)
-        if xc.dtype == torch.bfloat16:
-            # cuDNN's bf16 conv3d backward takes a direct kernel for a
-            # channels-last input at some shapes: sn_conv3d2 (32 -> 64, 3x3x3)
-            # on 128 clips ran 295 ms forward and backward, 3.2 ms from a
-            # contiguous NCDHW copy; the other five move by under 1.7 ms
-            # either way with the copy (H100, kernels/bench.py#conv3d_layouts)
-            xc = xc.contiguous()
-        xc = F.pad(xc, pads)
-        y = F.conv3d(xc, w, fused, stride=self.strides)
-        return add_bias(y.permute(0, 2, 3, 4, 1), after), u_new
+        return add_bias(conv3d_nthwc(x, w, fused, self.strides), after), u_new
