@@ -120,7 +120,28 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     ``learn_prior`` eval rollout within 1e-5; the train step at batch 16
     (median of 7) with its peak memory beside the flagship's, and the
     ``learn_prior`` rollout at batch 8 and 64 beside the flagship's, in
-    turns; and the phase's wall time.
+    turns; and the phase's wall time;
+22. the port's benchmark (``python -m video_prediction_torch.bench``): first
+    K1 and K3 (fp32) and K2 (bf16) forward at the shapes of its generation
+    row (batch 64 x 4 samples = 256) against their plain versions under
+    phase 3's tolerances, timed as phase 3 times them (K1 also against its
+    yardstick); every kernel its train rows launch, at each row's doubled
+    batch (32, 64, 128) in the row's dtype (K1 and K3 fp32, K2 bf16),
+    forward against its plain version and backward against autograd of its
+    plain version under phases 3 and 4's tolerances; one GPU train step of
+    its batch-16 row's configuration
+    (merged gate convs, bf16 compute and gates, ``scan_unroll=0``) at ngf=8
+    against the CPU's under phase 17's rule; then its ``main`` at its
+    defaults (train rows at batch 16, 32 and 64, the generation row), which
+    prints its JSON line: each row's launches a train step (K1 11/11, K2
+    66/66, K3 11/11) and finite losses, K2 launched only in bf16, ``mfu``
+    and ``mfu_model`` in (0, 1], ``device_kind`` the ``nvidia-smi`` name,
+    the generation row's launches a rollout and a finite ``acc``;
+23. ``python -m video_prediction_torch.train.profile_step --model dna
+    --model_hparams_dict hparams/bair/dna_l2/model_hparams.json --tf32`` at
+    batch 16: a whole window (no ``shortfall``), finite losses, the trace
+    kept under ``build/chip_smoke/profile_dna``, K3's device time and none
+    of K1's; its top kernels and summary printed.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -158,7 +179,15 @@ fields:
   128), each with ``device_ms`` (a step of six calls; ``per_width_ms`` a
   call at each width), ``ms`` and ``plain_ms`` (a step, as above),
   ``bytes``, ``bound_ms``, ``share_of_bound`` and ``max_abs_err`` against
-  the plain version, and ``launches`` (phase 17's three train steps).
+  the plain version, and ``launches`` (phase 17's three train steps);
+- ``bench``: ``launches`` in phase 22's run of the bench (3 x 2 x 30 or 20
+  timed steps, and the steps around them, and 31 rollouts of 256),
+  ``max_abs_err_by_row_batch`` (the largest error against the plain version
+  at each train row's doubled batch) and, for
+  the forward kernels, the batch-256 figures of phase 22 (``shapes``,
+  ``max_abs_err``, ``ms``, ``plain_ms``, ``device_ms``, ``bytes``,
+  ``bound_ms``, ``bound_by``, ``share_of_bound``, ``library_ms``; K2 bf16 a
+  step of six calls, with ``per_width_ms``).
 
 The line before it is the ``nvidia-smi`` identity, and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -1252,25 +1281,27 @@ def term_floor(name: str, value: float) -> float:
     return 0.0
 
 
-def bf16_step_readings(dev, seed: int) -> dict:
-    """One train step of ``ours_savp_tpu`` at ngf=8 (64 px, 6 frames, batch
-    2, the KL at full weight from step 0), TF32 off, with weights, batch and
+def bf16_step_readings(dev, seed: int, hp=None, keys=None) -> dict:
+    """One train step of ``hp`` (default ``ours_savp_tpu`` at ngf=8: 64 px, 6
+    frames, batch 2, the KL at full weight from step 0), TF32 off, with
+    weights, batch (its ``keys``, default all: images, actions, states) and
     noise from ``seed``: on the CPU in fp32 and bf16 (plain versions) and on
     the GPU in bf16 (kernels). Returns ``{"terms": {name: (cpu32, cpu16,
     gpu16)}, "leaves": {name: (max|GPU bf16 - CPU bf16|, max|CPU bf16 - CPU
     fp32|, max|CPU fp32|)}}``."""
-    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.models import get_model_class, input_dims
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    hp = tpu_hparams().replace(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2, kl_anneal="none")
-    cpu16 = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    if hp is None:
+        hp = tpu_hparams().replace(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2, kl_anneal="none")
+    batch = {k: v[:, :6] for k, v in synthetic_batch(2, seed=seed, device="cpu").items() if keys is None or k in keys}
+    cpu16 = get_model_class("savp")(hp, **input_dims(hp, batch))
     cpu16.init_weights(torch.Generator().manual_seed(seed))
     cpu32 = get_model_class("savp")(hp.replace(compute_dtype="float32", gate_dtype="float32"),
-                                    image_shape=(64, 64, 3), action_dim=4)
+                                    **input_dims(hp, batch))
     cpu32.load_state_dict(cpu16.state_dict())
     gpu16 = copy.deepcopy(cpu16).to(dev)
-    batch = {k: v[:, :6] for k, v in synthetic_batch(2, seed=seed, device="cpu").items()}
     noise = cpu16.draw_noise(2, 6, torch.Generator().manual_seed(seed + 1))
     runs = {}
     for key, m, on in (("cpu32", cpu32, "cpu"), ("cpu16", cpu16, "cpu"), ("gpu16", gpu16, dev)):
@@ -1288,11 +1319,12 @@ def bf16_step_readings(dev, seed: int) -> dict:
                            float(g32[n].abs().max())) for n in sorted(g16)}}
 
 
-def bf16_step_check(dev, seed: int) -> None:
+def bf16_step_check(dev, seed: int, hp=None, keys=None, label: str = "") -> None:
     """Phase 17's second part: the GPU bf16 step against the CPU's, each
     loss term by BF16_RATIO plus ``term_floor``, each gradient leaf by
-    BF16_GRAD_RATIO plus one rounding of its largest fp32 entry."""
-    r = bf16_step_readings(dev, seed)
+    BF16_GRAD_RATIO plus one rounding of its largest fp32 entry
+    (``bf16_step_readings`` of ``hp`` and ``keys``)."""
+    r = bf16_step_readings(dev, seed, hp, keys)
     term_ratios, leaf_ratios = {}, {}
     for t, (c32, c16, g16) in r["terms"].items():
         check(math.isfinite(g16), f"bf16 step (seed {seed}): loss {t} is not finite")
@@ -1310,7 +1342,7 @@ def bf16_step_check(dev, seed: int) -> None:
                               f"max {BF16_ROUNDING * scale:.3g}")
         leaf_ratios[n] = lhs / rhs if rhs else 0.0
     worst = sorted(leaf_ratios.items(), key=lambda kv: -kv[1])[:3]
-    print(f"train step GPU vs CPU, ngf=8, batch 2, bf16 (TF32 off), seed {seed}: {len(term_ratios)} loss terms and "
+    print(f"train step GPU vs CPU{label}, ngf=8, batch 2, bf16 (TF32 off), seed {seed}: {len(term_ratios)} loss terms and "
           f"{len(leaf_ratios)} gradient leaves each within its rule; share of the allowed difference used by the "
           f"worst term {max(term_ratios.values()):.3f}; largest leaf ratios max|GPU - CPU bf16| / max|CPU bf16 - "
           f"fp32| {', '.join(f'{n} {v:.2f}' for n, v in worst)} (rule {BF16_GRAD_RATIO}); per term (CPU fp32, "
@@ -2179,6 +2211,230 @@ def objectives_phase(dirs: dict, dev, ident: str, vgg_path: str, kernel_results:
     print(f"phase 21 (training objectives): {time.perf_counter() - t0:.2f} s wall")
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: the port's bench (python -m video_prediction_torch.bench) and
+# the dna_l2 profile
+# ---------------------------------------------------------------------------
+BENCH_GEN_BATCH = 256  # the bench's generation row: 64 examples x 4 samples in one rollout
+BENCH_ROWS = ("batch16", "batch32", "batch64")
+# the bench's train rows run K1-K3 forward and backward once a generator step each
+BENCH_PER_STEP = {**LAUNCHES_PER_ROLLOUT, **{k: LAUNCHES_PER_ROLLOUT[fwd] for k, fwd in BACKWARD.items()}}
+
+
+def bench_kernel_entries(dev) -> dict:
+    """Phase 22, first: K1 and K3 (fp32) and K2 (bf16, the bench's gates)
+    forward at the shapes of the bench's generation row (batch 256), each
+    against its plain version under phase 3's tolerances, then timed: device
+    time (K2 a generator step of six calls), host-paced ``ms`` and
+    ``plain_ms``, bytes and bound; K1 also against its grouped-conv
+    yardstick. Returns {wrapper: entry}."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import device_ms, ln_gate_step_ms, ln_gate_widths, ln_inputs
+
+    b = BENCH_GEN_BATCH
+    g = torch.Generator(device=dev).manual_seed(b)
+    entries = {}
+
+    image = torch.rand(b, 64, 64, 3, generator=g, device=dev)
+    kern = torch.softmax(torch.randn(b, 25, 4, generator=g, device=dev), dim=1).reshape(b, 5, 5, 4).contiguous()
+    err, ok = max_err(K.apply_cdna_kernels(image, kern), K.apply_cdna_kernels_reference(image, kern), "float32")
+    check(ok, f"K1 fp32 at batch {b} disagrees with its plain version: {err}")
+    e = dict(shapes=f"[{b},64,64,3]x[{b},5,5,4]", max_abs_err=err,
+             ms=cuda_ms(lambda: K.apply_cdna_kernels(image, kern), iters=20),
+             plain_ms=cuda_ms(lambda: K.apply_cdna_kernels_reference(image, kern), iters=5, warmup=1),
+             device_ms=device_ms(lambda: K.apply_cdna_kernels(image, kern), "K1"))
+    x, wt = cdna_as_grouped_conv(image, kern)
+    with NoTF32():
+        lib = cdna_library_forward(x, wt, b * 3).view(b, 3, 4, 64, 64).permute(0, 2, 3, 4, 1)
+        lerr, lok = max_err(lib, K.apply_cdna_kernels(image, kern), "float32")
+        check(lok, f"K1's grouped-conv yardstick disagrees with K1 at batch {b}: {lerr}")
+        e["library_ms"] = device_ms(lambda: cdna_library_forward(x, wt, b * 3))
+    entries["apply_cdna_kernels"] = roofline(e, RL.cdna_forward(b, 64, 64, 3))
+    del image, kern, x, wt, lib
+
+    err, ms, plain_ms = 0.0, {}, {}
+    for cdim, px in sorted(set(RL.LN_GATE_STEP)):
+        z, c, lnp, _, _ = ln_inputs(g, b * px * px, cdim, dev, torch.bfloat16)
+        errs = [max_err(o, r, "bfloat16") for o, r in zip(K.fused_ln_gate(z, c, lnp),
+                                                           K.fused_ln_gate_reference(z, c, lnp))]
+        check(all(ok for _, ok in errs), f"K2 bf16 at batch {b} C={cdim} disagrees with its plain version: {errs}")
+        err = max(err, *(e for e, _ in errs))
+        ms[cdim] = cuda_ms(lambda: K.fused_ln_gate(z, c, lnp), iters=10)
+        plain_ms[cdim] = cuda_ms(lambda: K.fused_ln_gate_reference(z, c, lnp), iters=3, warmup=1)
+        del z, c
+    widths = ln_gate_widths(lambda z, c, lnp, *_: K.fused_ln_gate(z, c, lnp), b, dev, 10, dtype=torch.bfloat16)
+    e = dict(shapes=f"bf16, R={', '.join(str(b * px * px) for _, px in sorted(set(RL.LN_GATE_STEP)))} at "
+                    f"C={', '.join(str(c) for c, _ in sorted(set(RL.LN_GATE_STEP)))}, 6 calls a step",
+             max_abs_err=err, ms=ln_gate_step_ms(ms), plain_ms=ln_gate_step_ms(plain_ms),
+             device_ms=ln_gate_step_ms(widths), per_width_ms={str(c): t for c, t in widths.items()}, library_ms=None)
+    entries["fused_ln_gate"] = roofline(e, RL.ln_gate_forward(RL.ln_gate_step(b), itemsize=2))
+
+    cand = torch.rand(b, 7, 64, 64, 3, generator=g, device=dev)
+    logits = torch.randn(b, 64, 64, 7, generator=g, device=dev) * 3.0
+    err, ok = max_err(K.composite(cand, logits)[0], K.composite_reference(cand, logits)[0], "float32")
+    check(ok, f"K3 fp32 at batch {b} disagrees with its plain version: {err}")
+    e = dict(shapes=f"[{b},7,64,64,3]", max_abs_err=err, ms=cuda_ms(lambda: K.composite(cand, logits), iters=20),
+             plain_ms=cuda_ms(lambda: K.composite_reference(cand, logits), iters=5, warmup=1),
+             device_ms=device_ms(lambda: K.composite(cand, logits), "K3"), library_ms=None)
+    entries["composite"] = roofline(e, RL.composite_forward(b, 7))
+    del cand, logits
+    for name, e in entries.items():
+        print(timing_line(f"{name} forward at batch {b} ({e['shapes']}), max_abs_err {e['max_abs_err']:.3g}", e))
+    torch.cuda.empty_cache()
+    return entries
+
+
+def bench_row_kernel_checks(dev) -> dict:
+    """Phase 22, second: every kernel the bench's train rows launch, at each
+    row's doubled batch (2 x 16, 32, 64: the prior and the posterior
+    rollout), in the row's dtype (K1 and K3 fp32, K2 bf16), forward against
+    its plain version and backward against autograd of its plain version,
+    under phases 3 and 4's tolerances (the batch-256 forwards of the
+    generation row: ``bench_kernel_entries``). Returns {wrapper: {batch:
+    max_abs_err}}."""
+    from video_prediction_torch import bench
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import ln_inputs
+
+    def held(name, b, outs, refs, kinds, dt):
+        errs = []
+        for out, ref, kind in zip(outs, refs, kinds):
+            err, ok = reduction_err(out, ref) if kind == "sum" else max_err(out, ref, dt)
+            check(ok, f"{name} {dt} at the bench's batch {b}: output {len(errs)} disagrees with its plain version: "
+                      f"{err}")
+            errs.append(err)
+        by_batch = found.setdefault(name, {})
+        by_batch[str(b)] = max(by_batch.get(str(b), 0.0), *errs)
+
+    def composite_image(a, m):
+        return K.composite_reference(a, m)[0]
+
+    found = {}
+    for b in (2 * rows for rows in bench.BATCHES):
+        g = torch.Generator(device=dev).manual_seed(b)
+        image = torch.rand(b, 64, 64, 3, generator=g, device=dev)
+        kern = torch.softmax(torch.randn(b, 25, 4, generator=g, device=dev), dim=1).reshape(b, 5, 5, 4).contiguous()
+        grad = torch.randn(b, 4, 64, 64, 3, generator=g, device=dev)
+        held("apply_cdna_kernels", b, [K.apply_cdna_kernels(image, kern)],
+             [K.apply_cdna_kernels_reference(image, kern)], ("elem",), "float32")
+        held("apply_cdna_kernels_backward", b, K.apply_cdna_kernels_backward(image, kern, grad),
+             plain_grads(K.apply_cdna_kernels_reference, (image, kern), (grad,)), ("elem", "sum"), "float32")
+        del image, kern, grad
+        for cdim, px in sorted(set(RL.LN_GATE_STEP)):
+            z, c, lnp, dcn, dhn = ln_inputs(g, b * px * px, cdim, dev, torch.bfloat16)
+            held("fused_ln_gate", b, K.fused_ln_gate(z, c, lnp), K.fused_ln_gate_reference(z, c, lnp),
+                 ("elem", "elem"), "bfloat16")
+            held("fused_ln_gate_backward", b, K.fused_ln_gate_backward(z, c, lnp, dcn, dhn),
+                 plain_grads(K.fused_ln_gate_reference, (z, c, lnp), (dcn, dhn)), ("elem", "elem", "sum"), "bfloat16")
+            del z, c, dcn, dhn
+        cand = torch.rand(b, 7, 64, 64, 3, generator=g, device=dev)
+        logits = torch.randn(b, 64, 64, 7, generator=g, device=dev) * 3.0
+        grad = torch.randn(b, 64, 64, 3, generator=g, device=dev)
+        held("composite", b, K.composite(cand, logits, with_masks=True),
+             K.composite_reference(cand, logits, with_masks=True), ("elem", "elem"), "float32")
+        held("composite_backward", b, K.composite_backward(cand, logits, grad),
+             plain_grads(composite_image, (cand, logits), (grad,)), ("elem", "elem"), "float32")
+        del cand, logits, grad
+    for name, by_batch in found.items():
+        print(f"{name} at the bench rows' doubled batches, max_abs_err by batch: "
+              f"{', '.join(f'{b}: {e:.3g}' for b, e in by_batch.items())} (tol {TOL}; reductions {REDUCTION_RTOL} "
+              f"of max)")
+    torch.cuda.empty_cache()
+    return found
+
+
+def bench_step_hparams():
+    """The bench's batch-16 row (merged gate convs, bf16 compute and gates,
+    ``scan_unroll=0``) at ngf=8, 6 frames, batch 2, the KL at full weight."""
+    from video_prediction_torch import bench
+    from video_prediction_torch.bench_common import savp_bench_hparams
+
+    return savp_bench_hparams(2, scan_unroll=bench.UNROLL[16], lstm_gate_conv=bench.GATE_CONV[16],
+                              gate_dtype=bench.GATE_DTYPE[16], sequence_length=6,
+                              extra="ngf=8,nef=8,ndf=8,kl_anneal=none")
+
+
+def bench_phase(dev, ident: str, kernel_results: list) -> None:
+    """Phase 22: the batch-256 forward kernels against their plain versions;
+    every kernel of the train rows at each row's doubled batch, forward and
+    backward, against its plain version; one GPU train step of the bench's merged-gate bf16 configuration against
+    the CPU's (phase 17's rule); then ``video_prediction_torch.bench``'s
+    ``main`` at its defaults, which prints its JSON line: each row's launches
+    a train step and finite losses, K2 launched in bf16 only, ``mfu`` and
+    ``mfu_model`` in (0, 1], the card's name, and the generation row's
+    launches a rollout and finite ``acc``. Adds ``"bench"`` to each kernel's
+    entry: its launches in the bench's run, its largest error at each
+    row's doubled batch and, forward, the batch-256 timings."""
+    from video_prediction_torch import bench
+    from video_prediction_torch import kernels as K
+
+    t0 = time.perf_counter()
+    timed = bench_kernel_entries(dev)
+    checked = bench_row_kernel_checks(dev)
+    check(bench.GATE_CONV[16] == "merged" and bench.GATE_DTYPE[16] == "bfloat16", "the bench's batch-16 row moved")
+    bf16_step_check(dev, BF16_STEP_SEEDS[0], bench_step_hparams(), keys=("images",),
+                    label=" (the bench's merged-gate bf16 configuration)")
+    set_tf32_default()
+    torch.cuda.empty_cache()
+
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    line = bench.main([])
+    bench_s = time.perf_counter() - t1
+    launches = K.launch_counts()
+    dtypes = check_launch_dtypes("bench")
+    check(sorted(line["rows"]) == sorted(BENCH_ROWS), f"bench rows {sorted(line['rows'])}")
+    for key, row in line["rows"].items():
+        check(math.isfinite(row["g_loss"]) and math.isfinite(row["d_loss"]), f"bench {key}: non-finite losses")
+        check(row["launches_per_step"] == BENCH_PER_STEP,
+              f"bench {key}: launches a step {row['launches_per_step']}, want {BENCH_PER_STEP}")
+        for m in ("mfu", "mfu_model"):
+            check(row[m] is not None and 0.0 < row[m] <= 1.0, f"bench {key}: {m} {row[m]} not in (0, 1]")
+        check(row["peak_gib"] > 0.0, f"bench {key}: peak_gib {row['peak_gib']}")
+    check(line["device_kind"] == ident.split(",")[0].strip(), f"bench device_kind {line['device_kind']!r}, "
+                                                              f"nvidia-smi {ident!r}")
+    gen = line["generation"]
+    want = {**LAUNCHES_PER_ROLLOUT, **{k: 0 for k in BACKWARD}}
+    check(gen["effective_batch"] == BENCH_GEN_BATCH, f"bench generation row {gen}")
+    check(gen["launches_per_rollout"] == want, f"bench generation launches a rollout {gen['launches_per_rollout']}, "
+                                                f"want {want}")
+    check(math.isfinite(gen["acc"]), f"bench generation acc {gen['acc']}")
+    print(f"bench: {bench_s:.2f} s wall; launches {launches}; by dtype {dtypes}; rows and generation as the line "
+          f"above [{ident}]")
+    for entry in kernel_results:
+        name = entry["name"]
+        if name in launches:
+            entry["bench"] = {"launches": launches[name], **timed.get(name, {}),
+                              "max_abs_err_by_row_batch": checked[name]}
+    print(f"phase 22 (bench): {time.perf_counter() - t0:.2f} s wall")
+
+
+def profile_dna_phase(ident: str) -> None:
+    """Phase 23: ``profile_step --model dna --model_hparams_dict bair/dna_l2
+    --tf32`` at batch 16 (it prints its top kernels and its summary): a
+    whole window (no ``shortfall``), finite losses, the trace kept, K3's
+    device time and none of K1 (``dna`` composites 3 candidates and has no
+    CDNA)."""
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train import profile_step
+
+    t0 = time.perf_counter()
+    outdir = os.path.join(WORK_DIR, "profile_dna")
+    summary = profile_step.main(["--model", "dna", "--model_hparams_dict",
+                                 str(zoo_dir() / "bair" / "dna_l2" / "model_hparams.json"), "--tf32",
+                                 "--outdir", outdir])
+    set_tf32_default()
+    check(summary["shortfall"] is None, f"dna_l2 profile: device events short of the launches {summary['shortfall']}")
+    check(summary["finite"], "dna_l2 profile: non-finite losses")
+    check(os.path.getsize(summary["trace"]) > 0, f"dna_l2 profile: no trace at {summary['trace']}")
+    check(summary["device_ms"]["K1"] == 0.0 and summary["device_ms"]["K3"] > 0.0,
+          f"dna_l2 profile: device ms by group {summary['device_ms']}")
+    print(f"phase 23 (dna_l2 profile): {time.perf_counter() - t0:.2f} s wall; trace {summary['trace']} "
+          f"({os.path.getsize(summary['trace'])} bytes) [{ident}]")
+
+
 def set_tf32_default() -> None:
     """cuDNN's default (TF32 convs) and PyTorch's (no TF32 matmuls), which the CLIs run under."""
     torch.backends.cudnn.allow_tf32 = True
@@ -2202,6 +2458,7 @@ def main() -> int:
         print(f"chip_smoke: FAIL: imported the port from {pkg_dir}, not from {ROOT}", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     try:
         # 1. device
         dev = torch.device("cuda", 0)
@@ -2311,12 +2568,20 @@ def main() -> int:
         # acvideo discriminators, z_l1, vgg_cdist) through train, evaluate
         # and generate on the records; each objective GPU against CPU; times
         objectives_phase(dirs, dev, ident, vgg_path, kernel_results)
+
+        # 22. the port's bench at bench.py's rows and generation row; the
+        # batch-256 forward kernels; the merged-gate bf16 step GPU vs CPU
+        bench_phase(dev, ident, kernel_results)
+
+        # 23. the dna_l2 train step's profile
+        profile_dna_phase(ident)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
+    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)

@@ -125,13 +125,14 @@ def test_html_gallery_equal(tmp_path):
 
 
 def test_model_registry():
-    from video_prediction_torch.models import _MODELS
+    from video_prediction_torch.models import _MODELS, trainable_models
 
     assert sorted(_MODELS) == ["dna", "ground_truth", "repeat", "savp", "sna", "sv2p"]
     assert get_model_class("sv2p").default_hparams().latent_time_invariant
     assert get_model_class("dna").default_hparams().transformation == "dna"
     assert get_model_class("sna").default_hparams().first_image_background
     assert not get_model_class("repeat").trainable and get_model_class("savp").trainable
+    assert trainable_models() == ["dna", "savp", "sna", "sv2p"]
     with pytest.raises(ValueError, match="available"):
         get_model_class("cdna")
 
@@ -157,7 +158,8 @@ def test_port_never_imports_jax_or_flax():
         data = ["native", "data.base", "data.native_loader", "data.records", "data.loader", "data.bair", "data.kth",
                 "data.something", "data.variants", "data.convert", "data.synthetic"]
         generator = ["ops.cdna", "ops.warp", "ops.rnn", "ops.layers", "models.savp", "models.model_zoo"]
-        assert not [m for m in training + evaluation + data + generator
+        tools = ["bench", "bench_common", "bench_generate", "bench_probe"]
+        assert not [m for m in training + evaluation + data + generator + tools
                     if "video_prediction_torch." + m not in names], names
         assert not leaked, leaked
         print(len(names))

@@ -1,11 +1,15 @@
 """The train-step profiler (``python -m video_prediction_torch.train.profile_step``)
 on the CPU at a small width: it runs the step, and its summary line is
 consistent (the CPU has no device events, so nothing counts as busy); the
+``dna_l2`` model through ``--model`` and ``--model_hparams_dict``, the
+flags that shape the batch, the kept trace, the refusal of the models
+without a train step; the
 interval union that gives the device's busy time; the groups kernel names
 fall into; and the check of a window's device events against the kernel
 wrappers' launch counts, with its reruns and its report of a shortfall."""
 
 import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -26,6 +30,68 @@ def test_profile_step_runs_on_cpu(capsys):
     assert sorted(summary["device_ms"]) == ["K1", "K2", "K3", "conv_gemm", "other"]
     assert summary["windows"] == 1 and summary["shortfall"] is None
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == summary
+
+
+DNA_L2 = str(Path(__file__).resolve().parent.parent / "hparams" / "bair" / "dna_l2" / "model_hparams.json")
+
+
+def test_profile_step_dna_l2_on_cpu(tmp_path, capsys):
+    """``--model dna --model_hparams_dict bair/dna_l2`` at a small width: the
+    dna model trains (its l2 and state terms), the frame size and sequence
+    structure come from the flags, and ``--outdir`` keeps the window's trace."""
+    summary = main(["--device", "cpu", "--model", "dna", "--model_hparams_dict", DNA_L2, "--model_hparams", "ngf=4",
+                    "--batch_size", "2", "--steps", "1", "--image_size", "32", "--sequence_length", "5",
+                    "--context_frames", "3", "--outdir", str(tmp_path / "trace")])
+    assert summary["finite"] and summary["model"] == "dna" and summary["shortfall"] is None
+    assert (summary["image_size"], summary["sequence_length"], summary["context_frames"]) == (32, 5, 3)
+    assert summary["trace"] == str(tmp_path / "trace" / "trace.json")
+    with open(summary["trace"]) as f:
+        assert json.load(f)["traceEvents"]
+    out = capsys.readouterr().out
+    assert f"trace of the profiled window: {summary['trace']}" in out
+    assert json.loads(out.strip().splitlines()[-1]) == summary
+
+
+def test_profile_step_flags_reach_the_batch(monkeypatch):
+    """``--image_size``, ``--sequence_length`` and ``--context_frames`` shape
+    the synthetic batch the step trains on and the model's hparams; without
+    ``--model_hparams_dict`` ``savp`` is the ours_savp flagship."""
+    seen = {}
+    real = profile_step.profile_window
+
+    def window(step, steps, cuda, sync, trace=""):
+        seen["trace"] = trace
+        return real(step, steps, cuda, sync, trace)
+
+    from video_prediction_torch.train import step as step_module
+
+    make = step_module.make_train_step
+
+    def make_train_step(model):
+        step = make(model)
+        seen["hp"] = model.hparams
+
+        def recording(ts, batch):
+            seen["images"] = tuple(batch["images"].shape)
+            return step(ts, batch)
+
+        return recording
+
+    monkeypatch.setattr(profile_step, "profile_window", window)
+    monkeypatch.setattr(step_module, "make_train_step", make_train_step)
+    summary = main(["--device", "cpu", "--batch_size", "2", "--steps", "1", "--model_hparams", SMALL,
+                    "--image_size", "16", "--sequence_length", "4", "--context_frames", "1"])
+    assert seen["images"] == (2, 4, 16, 16, 3)
+    hp = seen["hp"]
+    assert (hp.sequence_length, hp.context_frames, hp.batch_size, hp.ngf, hp.nz) == (4, 1, 2, 4, 4)
+    assert hp.kl_weight > 0 and hp.video_sn_vae_gan_weight > 0  # the ours_savp zoo file
+    assert summary["trace"] == seen["trace"] and seen["trace"].endswith("trace.json")
+
+
+@pytest.mark.parametrize("model", ["repeat", "ground_truth"])
+def test_profile_step_refuses_models_without_a_train_step(model):
+    with pytest.raises(ValueError, match=r"no train step.*\['dna', 'savp', 'sna', 'sv2p'\]"):
+        main(["--device", "cpu", "--model", model])
 
 
 @pytest.mark.parametrize("intervals, want_us", [
@@ -124,7 +190,7 @@ def test_main_reports_a_shortfall_instead_of_a_short_time(monkeypatch, capsys):
     reports the shortfall, with no K2 time; the other groups keep theirs."""
     windows = []
 
-    def fake_window(step, steps, cuda, sync):
+    def fake_window(step, steps, cuda, sync, trace=""):
         windows.append(step())  # the step still runs
         return fake_events(k2=20), 5.0 * steps, windows[-1], LAUNCHES
 

@@ -4,7 +4,8 @@ restores the whole train state (step, parameters, spectral u, both Adam
 states, the noise generator) and trains step 3 on the first batch of the
 data stream opened afresh, as ``scripts/train.py`` resumes; the losses it
 reports; the run directory it writes is one ``generate`` reads; a params
-file without discriminators still loads for generation."""
+file without discriminators still loads for generation; ``--profile_steps``
+writes a trace and leaves the losses as they were."""
 
 import json
 import os
@@ -36,10 +37,10 @@ SMALL = "ngf=4,nef=8,ndf=4,nz=4,sequence_length=5,clip_length=4,schedule_samplin
 SEED = 3
 
 
-def _train(run_dir, steps, resume=False):
+def _train(run_dir, steps, resume=False, extra=()):
     argv = ["--dataset", "synthetic", "--model", "savp", "--model_hparams_dict", str(ZOO), "--model_hparams", SMALL,
             "--output_dir", str(run_dir), "--max_steps", str(steps), "--batch_size", "2", "--device", "cpu",
-            "--progress_freq", "1", "--save_freq", "2", "--seed", str(SEED)]
+            "--progress_freq", "1", "--save_freq", "2", "--seed", str(SEED), *extra]
     return train_main(argv + (["--resume"] if resume else []))
 
 
@@ -275,3 +276,23 @@ def test_checkpoint_warm_starts_matching_params(tmp_path):
     assert sorted(warm_start(str(savp_run), model)) == sorted(copied)
     for name, value in model.state_dict().items():
         assert torch.equal(value, source[name] if name in copied else init[name]), name
+
+
+def test_profile_steps_writes_a_trace_and_keeps_the_losses(runs, capsys):
+    """``--profile_steps 1,2`` records the second and third steps under
+    ``torch.profiler`` and writes the trace to ``output_dir/profile/``; the
+    run's losses equal those of the same run without it."""
+    root, _, _, whole = runs
+    profiled = _train(root / "profiled", 3, extra=["--profile_steps", "1,2"])
+    assert profiled["step"] == 3 and profiled["scalars"] == whole["scalars"]
+    trace = root / "profiled" / "profile" / "trace_1-2.json"
+    assert f"profile of steps 1-2: {trace}" in capsys.readouterr().out
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("conv" in n for n in names)  # the steps' operators are in it
+
+
+@pytest.mark.parametrize("spec", ["2,1", "-1,2", "3"])
+def test_profile_steps_refuses_a_bad_window(spec, tmp_path):
+    with pytest.raises(ValueError):
+        _train(tmp_path / "bad", 1, extra=[f"--profile_steps={spec}"])

@@ -163,12 +163,11 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.models.base import images_to_float
     from video_prediction_torch.train.checkpoint import load_params
+    from video_prediction_torch.utils.device import device_or_raise
     from video_prediction_torch.utils.gif import save_gif
     from video_prediction_torch.utils.html import HTML
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = device_or_raise(args.device)
 
     # ---- rebuild what was trained (the JAX CLI reads the same saved options) ----
     run_dir = args.checkpoint

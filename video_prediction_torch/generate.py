@@ -75,9 +75,10 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.data import get_dataset_class
     from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.train.checkpoint import load_params
+    from video_prediction_torch.utils.device import device_or_raise
     from video_prediction_torch.utils.gif import save_gif
 
-    device = torch.device(args.device)
+    device = device_or_raise(args.device)
     run_dir = args.checkpoint
     with open(os.path.join(run_dir, "options.json")) as f:
         options = json.load(f)

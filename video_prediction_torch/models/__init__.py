@@ -31,3 +31,8 @@ def get_model_class(name: str):
     if name not in _MODELS:
         raise ValueError(f"unknown model {name!r}; available: {sorted(_MODELS)}")
     return _MODELS[name]
+
+
+def trainable_models() -> list:
+    """The names of the models that have a train step, sorted."""
+    return sorted(name for name, cls in _MODELS.items() if cls.trainable)

@@ -35,15 +35,22 @@ from firing to firing; every ``--save_freq`` steps, and at the end, it
 writes the train state and ``checkpoints/params.pt`` (what ``generate`` and
 ``evaluate`` read). The summaries are printed and returned by ``main``, not
 written to TensorBoard event files (ROADMAP.md); GIF summaries are not
-ported.
+ported. ``--profile_steps start,stop`` records the steps numbered ``start``
+to ``stop`` (0-based: the step taken when ``start`` steps are done, through
+the one taken when ``stop`` are) under ``torch.profiler`` (host and, on a
+GPU, device activity), synchronizes the device before it stops, as
+``scripts/train.py:265-267`` does, and writes the trace to
+``output_dir/profile/trace_<start>-<stop>.json``; the losses are those of a
+run without it.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -71,7 +78,18 @@ def parse_args(argv=None):
     p.add_argument("--progress_freq", type=int, default=100)
     p.add_argument("--save_freq", type=int, default=5000)
     p.add_argument("--device", default="cuda", help="torch device to run on, e.g. cuda, cuda:1 or cpu")
+    p.add_argument("--profile_steps", default="", help="'start,stop' steps for a torch.profiler trace")
     return p.parse_args(argv)
+
+
+def parse_profile_steps(spec: str) -> Tuple[int, int]:
+    """``"start,stop"`` -> (start, stop); ``""`` -> (-1, -1), no profile."""
+    if not spec:
+        return -1, -1
+    start, stop = (int(x) for x in spec.split(","))
+    if not 0 <= start <= stop:
+        raise ValueError(f"--profile_steps wants 0 <= start <= stop, got {spec!r}")
+    return start, stop
 
 
 def main(argv=None) -> Dict[str, object]:
@@ -97,8 +115,10 @@ def main(argv=None) -> Dict[str, object]:
     )
     from video_prediction_torch.train.state import create_train_state, param_count, split_params
     from video_prediction_torch.train.step import make_eval_step, make_train_step
+    from video_prediction_torch.utils.device import device_or_raise
 
-    device = torch.device(args.device)
+    device = device_or_raise(args.device)
+    prof_start, prof_stop = parse_profile_steps(args.profile_steps)
 
     # ---- hparams, resolved as scripts/train.py resolves them ----
     dataset_cls = get_dataset_class(args.dataset)
@@ -156,11 +176,17 @@ def main(argv=None) -> Dict[str, object]:
     all_finite = True
     # the train stream, from the batch that fixed the shapes, on the device
     train_iter = DeviceFeeder(_prepend(batch, host_iter), device)
+    profiler: Optional[torch.profiler.profile] = None
     try:
         batch = next(train_iter)
         while ts.step < hp.max_steps:
+            if ts.step == prof_start:
+                profiler = _start_profiler(device)
             scalars = train_step(ts, batch)
             batch = next(train_iter)  # taken while the step runs on the device
+            if profiler is not None and ts.step - 1 == prof_stop:
+                _stop_profiler(profiler, device, args.output_dir, prof_start, prof_stop)
+                profiler = None
             if args.summary_freq and ts.step % args.summary_freq == 0:
                 prev = ts.step - 1  # the step the losses were taken at
                 vals = {k: float(v) for k, v in scalars.items()}
@@ -193,6 +219,8 @@ def main(argv=None) -> Dict[str, object]:
             if args.save_freq and ts.step % args.save_freq == 0:
                 save_train_state(args.output_dir, ts)
     finally:
+        if profiler is not None:  # the run ended inside the window
+            _stop_profiler(profiler, device, args.output_dir, prof_start, ts.step - 1)
         train_iter.close()
         save_train_state(args.output_dir, ts)
     final = {k: float(v) for k, v in scalars.items()}
@@ -200,6 +228,30 @@ def main(argv=None) -> Dict[str, object]:
     print(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
     return {"start_step": start_step, "step": ts.step, "scalars": final, "summaries": summaries,
             "warm_started": warm_started, "all_finite": all_finite}
+
+
+def _start_profiler(device: torch.device) -> torch.profiler.profile:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler: torch.profiler.profile, device: torch.device, output_dir: str, start: int,
+                   stop: int) -> None:
+    """Stop ``profiler`` once the device has run what was queued (a CUDA
+    call returns at enqueue: stopping earlier cuts the window's last
+    kernels) and write its trace under ``output_dir/profile/``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    trace_dir = os.path.join(output_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"trace_{start}-{stop}.json")
+    profiler.export_chrome_trace(path)
+    print(f"profile of steps {start}-{stop}: {path}", flush=True)
 
 
 def _prepend(first, rest):

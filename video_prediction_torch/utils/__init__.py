@@ -1,1 +1,1 @@
-"""Host-side utilities (GIF encoding, HTML galleries)."""
+"""Host-side utilities (GIF encoding, HTML galleries, the tools' device)."""
