@@ -141,7 +141,24 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     --model_hparams_dict hparams/bair/dna_l2/model_hparams.json --tf32`` at
     batch 16: a whole window (no ``shortfall``), finite losses, the trace
     kept under ``build/chip_smoke/profile_dna``, K3's device time and none
-    of K1's; its top kernels and summary printed.
+    of K1's; its top kernels and summary printed;
+24. ``--steps_per_call 4``, K train steps as one CUDA graph
+    (``train/step.py#MultiStep``), for the flagship at batch 16 (TF32 convs)
+    and ``synthetic/ours_savp`` with bf16 gates (bf16 compute and gates,
+    merged gate convs, batch 16): (a) 3 calls (the first eager, the second
+    captured and replayed, the third replayed) against 12 eager steps from
+    the same weights, batches, noise seed and Adams, with cuDNN's
+    deterministic algorithms, every step's loss terms, each parameter leaf
+    and each spectral ``u`` within ``SPC_SPREAD_RATIO`` times the spread of
+    a second eager run plus ``SPC_FLOOR``; (b) each call's launches, the capture's taken out, 4
+    times phase 8's per step in the config's dtypes; (c) ms a step eager
+    against graphed (and against a graph of one step) in turns, each one's
+    busy share in a profiled window (the graphs' windows checked against the
+    replays' launch counts), the capture time and each run's peak memory; (d) ``train``'s ``main`` with
+    ``--steps_per_call 4 --max_steps 10`` (stops at 12), ``--resume`` to 16,
+    its launches (16 steps and two GIF rollouts) and the event files read
+    back with ``utils/summary.py#read_events``: the tags ``g_loss``, ``lr``,
+    ``schedule_sampling_prob``, ``kl_weight`` and ``gen_images``.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -180,6 +197,9 @@ fields:
   call at each width), ``ms`` and ``plain_ms`` (a step, as above),
   ``bytes``, ``bound_ms``, ``share_of_bound`` and ``max_abs_err`` against
   the plain version, and ``launches`` (phase 17's three train steps);
+- ``steps_per_call``: phase 24's, by config (``launches_per_step``, the
+  ``dtype``, ``eager_ms``, ``graph_ms`` and ``graph1_ms`` a step in turns) and
+  ``cli_launches``, the launches of its CLI run;
 - ``bench``: ``launches`` in phase 22's run of the bench (3 x 2 x 30 or 20
   timed steps, and the steps around them, and 31 rollouts of 256),
   ``max_abs_err_by_row_batch`` (the largest error against the plain version
@@ -2435,6 +2455,291 @@ def profile_dna_phase(ident: str) -> None:
           f"({os.path.getsize(summary['trace'])} bytes) [{ident}]")
 
 
+# ---------------------------------------------------------------------------
+# --steps_per_call: K train steps as one CUDA graph (phase 24)
+# ---------------------------------------------------------------------------
+SPC = 4  # steps a call
+SPC_CALLS = 3  # the first call eager, the second captures and replays, the third replays
+SPC_SEED = 24
+# graph against eager: each figure within SPC_SPREAD_RATIO times the spread
+# of two eager runs of the same steps, plus SPC_FLOOR: one TF32 rounding
+# (2^-10) of a figure, should the capture take another cuDNN algorithm than
+# the eager step. The runs take cuDNN's deterministic algorithms: with its
+# default ones the flagship's (TF32) two eager runs are 0.005 to 0.175 of a
+# loss term apart after 12 steps, from one H100 run to the next (PERF.md
+# §6), too wide and too variable a spread to hold the graph to. With them,
+# and for synthetic/ours_savp (bf16) with either, the graphed run is
+# expected to equal its eager run bit for bit
+SPC_SPREAD_RATIO = 2.0
+SPC_FLOOR = {"loss_rel": 1e-3, "param_rel_l2": 1e-3, "u": 1e-3}
+SPC_CLI_STEPS = (10, 12, 16)  # --max_steps 10 overshoots to 12; --resume to 16
+SPC_TAGS = ("g_loss", "lr", "schedule_sampling_prob", "kl_weight", "gen_images")
+
+
+def synthetic_savp_hparams():
+    """``savp`` defaults overridden by ``hparams/synthetic/ours_savp`` and the
+    crossover run's bf16 gates: the flagship's widths, bf16 compute and
+    gates, merged gate convs; batch 16."""
+    from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
+    from video_prediction_torch.models import get_model_class
+
+    zoo = zoo_dir() / "synthetic" / "ours_savp" / "model_hparams.json"
+    hp = resolve_model_hparams(get_model_class("savp").default_hparams(), str(zoo),
+                               extra=dict(gate_dtype="bfloat16", batch_size=TRAIN_BATCH))
+    got = (hp.ngf, hp.nz, hp.sequence_length, hp.compute_dtype, hp.gate_dtype, hp.lstm_gate_conv)
+    check(got == (32, 8, 12, "bfloat16", "bfloat16", "merged"), f"unexpected synthetic/ours_savp config {got}")
+    return hp
+
+
+def spc_configs():
+    return (("bair_action_free/ours_savp", slice_hparams().replace(batch_size=TRAIN_BATCH)),
+            ("synthetic/ours_savp", synthetic_savp_hparams()))
+
+
+def spc_stack(batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def spc_run(model, dev, batches, k: int) -> dict:
+    """``len(batches)`` train steps of a copy of ``model`` on the card, ``k``
+    a call, from the same weights and noise seed, with the Adams of SPC
+    steps a call either way (capturable, the learning rate a device tensor:
+    the same update, where a host-float learning rate rounds its step size
+    otherwise, an ulp that 12 steps of this GAN grow to 1e-3 of g_loss):
+    every step's scalars, the parameters and buffers after, the launches of
+    each call, the peak memory and the ``MultiStep`` (None for k = 1)."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = copy.deepcopy(model).to(dev)
+    ts = TrainState(m, *make_optimizers(m, SPC), 0, torch.Generator(device=dev).manual_seed(SPC_SEED))
+    step = make_train_step(m, k)
+    rows, calls = [], []
+    t0 = time.perf_counter()
+    for c in range(len(batches) // k):
+        K.reset_launch_counts()
+        if k == 1:
+            s = step(ts, batches[c])
+            rows.append(torch.stack([v.float() for v in s.values()])[None])
+            keys = list(s)
+        else:
+            step(ts, spc_stack(batches[c * k:(c + 1) * k]))
+            rows.append(step.scalars_by_step)
+            keys = step.keys
+        torch.cuda.synchronize()
+        calls.append(K.launch_dtypes())
+    wall = time.perf_counter() - t0
+    out = {"keys": keys, "scalars": torch.cat(rows).cpu(), "calls": calls, "wall_s": wall, "step": ts.step,
+           "params": {n: p.detach().cpu() for n, p in m.named_parameters()},
+           "buffers": {n: b.detach().cpu() for n, b in m.named_buffers()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "multi": step if k > 1 else None}
+    del ts, m
+    return out
+
+
+def spc_diff(a: dict, b: dict, init: dict) -> dict:
+    """How far run ``b`` is from run ``a``: every step's every loss term
+    (relative), each parameter leaf (the L2 of the difference over the L2 of
+    the leaf's change from ``init``) and each spectral ``u`` (max abs)."""
+    check(a["keys"] == b["keys"], f"loss terms differ: {a['keys']} vs {b['keys']}")
+    loss = ((a["scalars"] - b["scalars"]).abs() / a["scalars"].abs().clamp_min(1e-12)).amax(dim=0)
+    params = {n: float((a["params"][n] - p).norm() / (a["params"][n] - init[n]).norm().clamp_min(1e-30))
+              for n, p in b["params"].items()}
+    us = {n: float((a["buffers"][n] - u).abs().max()) for n, u in b["buffers"].items()}
+    return {"loss_rel": dict(zip(a["keys"], loss.tolist())), "param_rel_l2": params, "u": us}
+
+
+def spc_check(label: str, graph: dict, spread: dict) -> dict:
+    """Each figure of the graphed run within SPC_SPREAD_RATIO x the eager
+    spread + SPC_FLOOR; returns the worst figure of each kind with its
+    allowance."""
+    worst = {}
+    for kind, figures in graph.items():
+        allowed = {n: SPC_SPREAD_RATIO * spread[kind][n] + SPC_FLOOR[kind] for n in figures}
+        name = max(figures, key=lambda n: figures[n] / allowed[n])
+        worst[kind] = (name, figures[name], spread[kind][name], allowed[name])
+        over = {n: (v, allowed[n]) for n, v in figures.items() if v > allowed[n]}
+        check(not over, f"{label}: graph against eager, {kind} over its allowance: {over}")
+    return worst
+
+
+def spc_timing(model, dev, batches, ident: str, label: str) -> dict:
+    """Phase 24 (c): ms a step of the eager step (one a call), the graph of
+    SPC steps and a graph of one step (``MultiStep(1)``, which the CLI does
+    not offer: the JAX package has no such switch), in turns (eager, graph,
+    graph of one, graph of one, graph, eager; SPC steps each, after
+    warm-up), and each one's device busy share over one profiled window of
+    SPC steps; the graphs' windows also check that the profiler sees every
+    kernel the replays launch (``profile_step.window_shortfall``)."""
+    from video_prediction_torch.train import profile_step as PS
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import MultiStep, make_train_step
+
+    runs = {}
+    for name, k in (("eager", 1), ("graph", SPC), ("graph1", 1)):
+        m = copy.deepcopy(model).to(dev)
+        ts = TrainState(m, *make_optimizers(m, SPC), 0, torch.Generator(device=dev).manual_seed(SPC_SEED))
+        step = MultiStep(1) if name == "graph1" else make_train_step(m, k)
+        data = batches[0] if name == "eager" else spc_stack(batches[:k])
+        runs[name] = (k, lambda step=step, ts=ts, data=data: step(ts, data), step)
+        for _ in range(2):  # a graph: an eager call, then the capture
+            runs[name][1]()
+    torch.cuda.synchronize()
+    times = {name: [] for name in runs}
+    for name in ("eager", "graph", "graph1", "graph1", "graph", "eager"):
+        k, call, _ = runs[name]
+        t0 = time.perf_counter()
+        for _ in range(SPC // k):
+            scalars = call()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3 / SPC)
+        check(all(bool(torch.isfinite(v)) for v in scalars.values()), f"{label}: non-finite timed losses")
+    out = {f"{name}_ms": t for name, t in times.items()}
+    out["capture_s"] = {name: runs[name][2].capture_s for name in ("graph", "graph1")}
+    for name, (k, call, _) in runs.items():
+        events, window_ms, _, windows, shortfall = PS.whole_window(
+            lambda call=call, k=k: PS.profile_window(call, SPC // k, True, torch.cuda.synchronize))
+        busy_ms = PS.union_ms([(a, b) for _, a, b in events]) / SPC
+        out[name] = {"window_ms_per_step": window_ms / k, "busy_ms": busy_ms,
+                     "busy_share": busy_ms / (window_ms / k), "device_ops": len(events) / SPC,
+                     "windows": windows, "shortfall": shortfall or None}
+        check(not shortfall, f"{label}: the profiler missed {name} kernels: {shortfall}")
+    print(f"steps_per_call {label}: ms a step (in turns) " + "; ".join(
+        f"{name} {', '.join(str(t) for t in times[name])}, busy {out[name]['busy_share']} "
+        f"({out[name]['busy_ms']} ms, {out[name]['device_ops']} device ops a step)" for name in runs)
+        + f"; capture {out['capture_s']} s [{ident}]")
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def spc_cli_phase(per_step: dict) -> dict:
+    """Phase 24 (d): ``train``'s ``main`` on the flagship at batch 16 with
+    ``--steps_per_call 4 --max_steps 10`` (stops at 12: the eager call, the
+    capture, a replay), then ``--resume`` to 16; the event file read back
+    with the port's reader; the launches of the 16 steps and the two GIF
+    rollouts. Returns those launches."""
+    import glob
+    import shutil
+
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.utils.summary import Image, read_events
+
+    set_tf32_default()
+    run_dir = os.path.join(WORK_DIR, "train_spc")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--dataset", "synthetic", "--model", "savp",
+            "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+            "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+            "--steps_per_call", str(SPC), "--progress_freq", "4", "--summary_freq", "4",
+            "--image_summary_freq", "8", "--save_freq", "8", "--seed", str(SPC_SEED)]
+    first_max, first_end, resumed_end = SPC_CLI_STEPS
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_main(argv + ["--max_steps", str(first_max)])
+    resumed = train_main(argv + ["--max_steps", str(resumed_end), "--resume"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check(first["all_finite"] and resumed["all_finite"], "train --steps_per_call produced non-finite losses")
+    check((first["start_step"], first["step"], resumed["start_step"], resumed["step"])
+          == (0, first_end, first_end, resumed_end), f"unexpected --steps_per_call runs {first}, {resumed}")
+    gifs = 2  # at steps 8 and 16: one no-grad rollout each
+    want = {k: n * resumed_end + (gifs * LAUNCHES_PER_ROLLOUT.get(k, 0)) for k, n in per_step.items()}
+    check(launches == want, f"train --steps_per_call launches {launches}, want {want}")
+    files = sorted(glob.glob(os.path.join(run_dir, "events.out.tfevents.*")))
+    check(len(files) == 2, f"want one event file a run, got {files}")
+    tags, images = {}, 0
+    for path in files:
+        for event in read_events(path):
+            for tag, value in event.values:
+                tags.setdefault(tag, []).append(event.step)
+                images += isinstance(value, Image)
+    missing = [t for t in SPC_TAGS if t not in tags]
+    check(not missing, f"event files lack {missing}: {sorted(tags)}")
+    check(tags["g_loss"] == [4, 8, 12, 16] and tags["gen_images"] == [8, 16],
+          f"summaries at steps {tags['g_loss']}, GIFs at {tags['gen_images']}")
+    print(f"train --steps_per_call {SPC}: --max_steps {first_max} stopped at {first['step']}, resumed to "
+          f"{resumed['step']}, {wall:.2f} s wall (set-up, capture and checkpoints included); event files "
+          f"{[os.path.basename(f) for f in files]}: {len(tags)} tags, {images} GIFs; launches {launches}")
+    return launches
+
+
+def spc_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
+    """Phase 24: ``--steps_per_call`` as one CUDA graph of SPC train steps,
+    for the flagship (TF32 convs) and ``synthetic/ours_savp`` (bf16): (a)
+    SPC_CALLS calls of SPC steps against SPC_CALLS x SPC eager steps from the
+    same weights, batches and noise seed, within SPC_SPREAD_RATIO times the
+    spread of two eager runs plus SPC_FLOOR, with cuDNN's deterministic
+    algorithms; (b) the launches of each call,
+    eager, captured and replayed, SPC times phase 8's per step, in each
+    config's dtypes; (c) ms a step, busy share and capture time
+    (``spc_timing``), and the peak memory of each run; (d) the CLI
+    (``spc_cli_phase``)."""
+    from video_prediction_torch.models import get_model_class
+
+    t_phase = time.perf_counter()
+    set_tf32_default()
+    n = SPC * SPC_CALLS
+    for label, hp in spc_configs():
+        model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+        model.init_weights(torch.Generator().manual_seed(SPC_SEED))
+        init = {k: v.detach().clone() for k, v in model.named_parameters()}
+        batches = [{k: v.to(dev) for k, v in b.items()} for b in spc_host_batches(hp, n)]
+        torch.backends.cudnn.deterministic = True  # see SPC_FLOOR
+        try:
+            eager = spc_run(model, dev, batches, 1)
+            again = spc_run(model, dev, batches, 1)
+            graph = spc_run(model, dev, batches, SPC)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for run, k in ((eager, 1), (graph, SPC)):
+            for c, counts in enumerate(run["calls"]):
+                want = {name: {dtype_of(hp, name): per * k} for name, per in per_step.items()}
+                check(counts == want, f"{label}: launches of call {c} ({k} steps a call) {counts}, want {want}")
+        check(graph["step"] == n, f"{label}: the graphed run took {graph['step']} steps, want {n}")
+        spread, apart = spc_diff(eager, again, init), spc_diff(eager, graph, init)
+        multi = graph["multi"]
+        print(f"steps_per_call {label}: eager spread: loss rel {max(spread['loss_rel'].values()):.3g}, leaf L2 "
+              f"{max(spread['param_rel_l2'].values()):.3g}, u {max(spread['u'].values()):.3g}; graph against eager:"
+              f" loss rel {max(apart['loss_rel'].values()):.3g}, leaf L2 {max(apart['param_rel_l2'].values()):.3g},"
+              f" u {max(apart['u'].values()):.3g}; peak {eager['peak_gib']:.2f} GiB eager, {graph['peak_gib']:.2f}"
+              f" GiB graphed; capture {multi.capture_s} s; launches a replay {multi.graph_launches} [{ident}]")
+        worst = spc_check(label, apart, spread)
+        print(f"steps_per_call {label}: worst (name, graph, eager spread, allowance): {worst}")
+        timing = spc_timing(model, dev, batches, ident, label)
+        del eager, again, graph, multi, batches
+        torch.cuda.empty_cache()
+        for entry in (e for e in kernel_results if e["name"] in per_step):  # not phase 20's composite_k3
+            entry.setdefault("steps_per_call", {})[label] = {
+                "launches_per_step": per_step[entry["name"]], "dtype": dtype_of(hp, entry["name"]),
+                "eager_ms": timing["eager_ms"], "graph_ms": timing["graph_ms"], "graph1_ms": timing["graph1_ms"]}
+    launches = spc_cli_phase(per_step)
+    for entry in (e for e in kernel_results if e["name"] in per_step):
+        entry.setdefault("steps_per_call", {})["cli_launches"] = launches[entry["name"]]
+    print(f"phase 24 (steps_per_call): {time.perf_counter() - t_phase:.2f} s wall")
+
+
+def dtype_of(hp, name: str) -> str:
+    """The dtype ``name`` launches on in the model of ``hp``: K2 in the gate dtype, K1 and K3 fp32."""
+    return hp.gate_dtype if name.startswith("fused_ln_gate") else "float32"
+
+
+def spc_host_batches(hp, n: int) -> list:
+    """``n`` batches of the ``synthetic`` train stream (uint8 images, actions) as CPU tensors."""
+    from video_prediction_torch.configs.hparams import DatasetHparams
+    from video_prediction_torch.data.synthetic import SyntheticVideoDataset
+
+    dhp = DatasetHparams(context_frames=hp.context_frames, sequence_length=hp.sequence_length)
+    it = SyntheticVideoDataset(mode="train", hparams=dhp, seed=SPC_SEED).make_iterator(hp.batch_size)
+    return [{k: torch.from_numpy(v) for k, v in next(it).items()} for _ in range(n)]
+
+
 def set_tf32_default() -> None:
     """cuDNN's default (TF32 convs) and PyTorch's (no TF32 matmuls), which the CLIs run under."""
     torch.backends.cudnn.allow_tf32 = True
@@ -2575,13 +2880,17 @@ def main() -> int:
 
         # 23. the dna_l2 train step's profile
         profile_dna_phase(ident)
+
+        # 24. --steps_per_call: K train steps as one CUDA graph, against
+        # eager steps; its launches, times and memory; the CLI with summaries
+        spc_phase(dev, ident, per_train_step, kernel_results)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
-    print(f"chip_smoke: phases 1-23 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)

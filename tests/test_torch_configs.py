@@ -154,7 +154,7 @@ def test_port_never_imports_jax_or_flax():
         assert len(names) > 20, names
         training = ["losses", "ops.spectral", "train.schedules", "train.state", "train.step", "train.checkpoint",
                     "train.__main__", "train.profile_step"]
-        evaluation = ["metrics", "evaluate", "models.vgg", "models.lpips", "utils.html"]
+        evaluation = ["metrics", "evaluate", "models.vgg", "models.lpips", "utils.html", "utils.summary"]
         data = ["native", "data.base", "data.native_loader", "data.records", "data.loader", "data.bair", "data.kth",
                 "data.something", "data.variants", "data.convert", "data.synthetic"]
         generator = ["ops.cdna", "ops.warp", "ops.rnn", "ops.layers", "models.savp", "models.model_zoo"]

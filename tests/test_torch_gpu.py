@@ -3,8 +3,9 @@ plain PyTorch versions (the backward against autograd of the plain
 version), also at the evaluate path's shapes (8 examples x 8 samples, and
 SV2P's 6 candidates), a small GPU rollout and train step against the CPU
 ones (fp32, and the bf16 model with the dtype of every launch), SSIM on
-the card against the CPU, and ``data.DeviceFeeder`` (pinned uint8 host
-buffers, the copy on a side stream). Every test needs a CUDA
+the card against the CPU, ``data.DeviceFeeder`` (pinned uint8 host
+buffers, the copy on a side stream), and a train call of two steps captured
+and replayed as one CUDA graph against eager steps. Every test needs a CUDA
 device and skips without one. This file imports no jax, so that it runs on a
 GPU machine without jax:
 
@@ -412,6 +413,77 @@ def test_small_bf16_model_gpu_matches_cpu(dev, no_tf32):
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     rhs = float((ref16 - ref32).abs().max())
     assert rhs > 0.0 and float((out - ref16).abs().max()) <= 2.0 * rhs
+
+
+def _small_train_runs(dev, steps_per_call, batches):
+    """4 train steps of the small flagship (ngf=8, 64 px, 6 frames, batch 2)
+    on the card, ``steps_per_call`` a call, from the same weights, noise
+    seed and Adams (those of 2 steps a call): every step's scalars, the
+    parameters after, and the launches of the last call."""
+    import copy
+
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import make_train_step
+
+    cls = get_model_class("savp")
+    hp = resolve_model_hparams(
+        cls.default_hparams(), str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+        extra=dict(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2),
+    )
+    model = cls(hp, image_shape=(64, 64, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(0))
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model = copy.deepcopy(model).to(dev)
+    ts = TrainState(model, *make_optimizers(model, 2), 0, torch.Generator(device=dev).manual_seed(3))
+    step = make_train_step(model, steps_per_call)
+    rows = []
+    for c in range(len(batches) // steps_per_call):
+        K.reset_launch_counts()
+        chunk = batches[c * steps_per_call:(c + 1) * steps_per_call]
+        if steps_per_call == 1:
+            rows.append(torch.stack(list(step(ts, chunk[0]).values()))[None])
+        else:
+            step(ts, {k: torch.stack([b[k] for b in chunk]) for k in chunk[0]})
+            rows.append(step.scalars_by_step)
+        torch.cuda.synchronize()
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    return torch.cat(rows).cpu(), params, init, K.launch_dtypes(), ts.step
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = flag
+
+
+def test_steps_per_call_graph_replays_the_eager_steps(dev, no_tf32, deterministic_cudnn):
+    """Two calls of 2 steps (the first eager, the second captured as one CUDA
+    graph and replayed) against 4 eager steps, with cuDNN's deterministic
+    algorithms: every step's loss terms and each parameter leaf within twice
+    the spread of two eager runs plus 1e-3 (chip_smoke.py phase 24's rule);
+    the replayed call counts each kernel's launches once, as 2 eager steps
+    do (K1 5, K2 30, K3 5 a step, each way)."""
+    g = torch.Generator().manual_seed(1)
+    batches = [{"images": torch.randint(0, 256, (2, 6, 64, 64, 3), generator=g, dtype=torch.uint8).to(dev),
+                "actions": torch.randn(2, 6, 4, generator=g).to(dev)} for _ in range(4)]
+    eager, again, graph = (_small_train_runs(dev, k, batches) for k in (1, 1, 2))
+    assert graph[4] == eager[4] == 4
+    per_step = {"apply_cdna_kernels": 5, "fused_ln_gate": 30, "composite": 5}
+    per_step.update({f"{k}_backward": n for k, n in per_step.items()})
+    assert graph[3] == {k: {"float32": 2 * n} for k, n in per_step.items()}
+    assert eager[3] == {k: {"float32": n} for k, n in per_step.items()}
+
+    def rel(a, b):
+        return ((a[0] - b[0]).abs() / a[0].abs().clamp_min(1e-12)).amax(dim=0)
+
+    assert bool((rel(eager, graph) <= 2.0 * rel(eager, again) + 1e-3).all())
+    init = eager[2]
+    for name, p in eager[1].items():
+        change = float((p - init[name]).norm().clamp_min(1e-30))
+        spread = float((again[1][name] - p).norm()) / change
+        assert float((graph[1][name] - p).norm()) / change <= 2.0 * spread + 1e-3, name
 
 
 def test_device_feeder_batches_equal_the_host_batches(dev):

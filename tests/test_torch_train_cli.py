@@ -5,7 +5,9 @@ states, the noise generator) and trains step 3 on the first batch of the
 data stream opened afresh, as ``scripts/train.py`` resumes; the losses it
 reports; the run directory it writes is one ``generate`` reads; a params
 file without discriminators still loads for generation; ``--profile_steps``
-writes a trace and leaves the losses as they were."""
+writes a trace and leaves the losses as they were; ``--steps_per_call``
+fires each frequency on the crossing of one of its multiples, overshoots
+``--max_steps`` and resumes, also from a run of one step a call."""
 
 import json
 import os
@@ -187,9 +189,9 @@ def test_train_on_bair_records_evaluates_on_val_input_dir(bair_dirs, tmp_path, m
         opened.append((dataset.mode, dataset.input_dir))
         pipeline_init(self, dataset, batch_size)
 
-    def spy_feeder(self, host_iterator, device):
+    def spy_feeder(self, host_iterator, device, **kwargs):
         fed.append(str(device))
-        feeder_init(self, host_iterator, device)
+        feeder_init(self, host_iterator, device, **kwargs)
 
     monkeypatch.setattr(NativeVideoPipeline, "__init__", spy_pipeline)
     monkeypatch.setattr(loader.DeviceFeeder, "__init__", spy_feeder)
@@ -296,3 +298,60 @@ def test_profile_steps_writes_a_trace_and_keeps_the_losses(runs, capsys):
 def test_profile_steps_refuses_a_bad_window(spec, tmp_path):
     with pytest.raises(ValueError):
         _train(tmp_path / "bad", 1, extra=[f"--profile_steps={spec}"])
+
+
+# ---- --steps_per_call: K steps a call ------------------------------------- #
+
+
+def _spc_argv(run_dir, steps, spc):
+    """The flags of ``tests/test_cli_e2e.py:87-115``'s fused-dispatch run."""
+    return ["--dataset", "synthetic", "--model", "savp", "--model_hparams_dict", str(ZOO), "--model_hparams", SMALL,
+            "--output_dir", str(run_dir), "--max_steps", str(steps), "--batch_size", "2", "--device", "cpu",
+            "--seed", str(SEED), "--steps_per_call", str(spc), "--save_freq", "4", "--progress_freq", "2",
+            "--summary_freq", "0", "--eval_summary_freq", "0", "--image_summary_freq", "0", "--no_tensorboard"]
+
+
+def test_steps_per_call_fires_on_crossings_overshoots_and_resumes(tmp_path, monkeypatch, capsys):
+    """``--steps_per_call 2 --max_steps 5`` ends at 6 (three calls); save
+    (``--save_freq 4``) and progress (``--progress_freq 2``) fire when one of
+    their multiples falls in a call's steps; ``--resume`` to 8 takes one more
+    call from step 6 (``tests/test_cli_e2e.py:87-115``)."""
+    from video_prediction_torch.train import checkpoint
+
+    saved = []
+    save = checkpoint.save_train_state
+
+    def record(run_dir, ts):
+        saved.append(ts.step)
+        save(run_dir, ts)
+
+    monkeypatch.setattr(checkpoint, "save_train_state", record)
+    run = tmp_path / "spc"
+    first = train_main(_spc_argv(run, 5, 2))
+    assert (first["start_step"], first["step"]) == (0, 6) and first["all_finite"]
+    assert saved == [4, 6]  # the crossing of 4, then the end of the run
+    out = capsys.readouterr().out
+    assert [line.split(":")[0] for line in out.splitlines() if line.startswith("step ")] == ["step 2", "step 4",
+                                                                                           "step 6"]
+    resumed = train_main(_spc_argv(run, 8, 2) + ["--resume"])
+    assert "resumed from step 6" in capsys.readouterr().out
+    assert (resumed["start_step"], resumed["step"]) == (6, 8) and resumed["all_finite"]
+    assert saved == [4, 6, 8, 8]
+    state = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    assert state["step"] == 8
+    assert all(int(slots["step"]) == 8 for slots in state["opt_g"]["state"].values())
+
+
+def test_a_run_of_one_step_a_call_resumes_with_two(tmp_path):
+    """A run of one step a call (host-float learning rate) resumes with
+    ``--steps_per_call 2`` (a tensor learning rate): from step 2 to 4, with
+    Adam's step count going on from the saved one."""
+    run = tmp_path / "k1"
+    first = train_main(_spc_argv(run, 2, 1))
+    assert first["step"] == 2
+    resumed = train_main(_spc_argv(run, 4, 2) + ["--resume"])
+    assert (resumed["start_step"], resumed["step"]) == (2, 4) and resumed["all_finite"]
+    state = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    for opt in ("opt_g", "opt_d"):
+        assert all(int(slots["step"]) == 4 for slots in state[opt]["state"].values())
+        assert torch.is_tensor(state[opt]["param_groups"][0]["lr"])

@@ -18,15 +18,19 @@ through pinned memory:
   memory to a later copy while the consumer's work still reads it.
 
 On the CPU it hands over the host arrays as tensors (``torch.from_numpy``),
-not pinned. An error in the host iterator or the copy reaches the consumer
+not pinned. With ``stack=K`` it groups K consecutive host batches into one
+``[K, B, ...]`` batch (``np.stack``, as the JAX package's ``_stack_batches``
+does), which takes the same path: the train step of K steps a call
+(``train/step.py``) reads it. A last group short of K batches is dropped. An
+error in the host iterator or the copy reaches the consumer
 at its next ``next()``; the end of the host iterator ends the feeder with
-``StopIteration``; ``close()`` stops the thread. No stacking of batches for
-several steps a call and no multi-device placement: the port has neither
-(``ROADMAP.md`` queue 1).
+``StopIteration``; ``close()`` stops the thread. No multi-device placement:
+the port has none (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Any, Dict, Iterator, List, Optional
@@ -41,8 +45,10 @@ PREFETCH = 2  # batches queued ahead of the consumer, as in the JAX package
 class DeviceFeeder:
     """Background-thread prefetcher: numpy iterator -> tensors on ``device``."""
 
-    def __init__(self, host_iterator: Iterator[Dict[str, Any]], device):
-        self._it = host_iterator
+    def __init__(self, host_iterator: Iterator[Dict[str, Any]], device, stack: int = 1):
+        if stack < 1:
+            raise ValueError(f"stack must be at least 1, got {stack}")
+        self._it = stack_batches(host_iterator, stack) if stack > 1 else host_iterator
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
         self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
@@ -127,3 +133,19 @@ class DeviceFeeder:
         """Stop the thread (and the host iterator, where it is a generator)."""
         self._stop.set()
         self._thread.join(10.0)
+
+
+def stack_batches(it: Iterator[Dict[str, Any]], k: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Group ``k`` consecutive batches of ``it`` into one with a leading
+    ``[k]`` axis; a last group short of ``k`` is dropped. Closing the
+    generator closes ``it`` where it is a generator."""
+    try:
+        while True:
+            group = list(itertools.islice(it, k))
+            if len(group) < k:
+                return
+            yield {key: np.stack([g[key] for g in group]) for key in group[0]}
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()

@@ -8,7 +8,10 @@ kernel and whose backward launches the backward CUDA kernel (through the
 There is no fallback from a CUDA tensor to the plain version. Each of the
 six wrappers carries ``launches``, its kernel's launches counted by the
 dtype of the tensors (``{"float32": n, "bfloat16": m}``), one added per
-launch.
+launch. A CUDA graph launches the kernels its capture recorded without
+calling the wrappers: the train step that replays one
+(``train/step.py``) takes the capture's counts back out with
+``add_launches(delta, -1)`` and adds them once per replay.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ WRAPPERS = {
 
 __all__ = [
     "WRAPPERS",
+    "add_launches",
     "apply_cdna_kernels",
     "apply_cdna_kernels_backward",
     "apply_cdna_kernels_reference",
@@ -61,3 +65,12 @@ def launch_counts() -> Dict[str, int]:
 def launch_dtypes() -> Dict[str, Dict[str, int]]:
     """Each wrapper's launches by dtype, where it launched."""
     return {name: dict(fn.launches) for name, fn in WRAPPERS.items() if fn.launches}
+
+
+def add_launches(counts: Dict[str, Dict[str, int]], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (wrapper -> dtype -> launches, as
+    ``launch_dtypes`` gives them) to the wrappers' counters."""
+    for name, by_dtype in counts.items():
+        launches = WRAPPERS[name].launches
+        for dtype, n in by_dtype.items():
+            launches[dtype] = launches.get(dtype, 0) + times * n

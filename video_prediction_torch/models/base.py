@@ -238,7 +238,7 @@ class VideoPredictionModel(nn.Module):
         zs_prior: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         output_aux: bool = False,
-        step: int = 0,
+        step: int | torch.Tensor = 0,
         noise: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, torch.Tensor]:
         """Generator-side forward.
@@ -255,7 +255,8 @@ class VideoPredictionModel(nn.Module):
         cell took. The latent statistics stay un-broadcast, so the KL sees
         the sequence-level quantities.
 
-        Train: the teacher-forcing mask is sampled at ``step`` from
+        Train: the teacher-forcing mask is sampled at ``step`` (an int, or a
+        0-d device tensor that only the schedules read) from
         ``noise["use_gt_u"]`` and the posterior z is ``mu + exp(logvar/2) *
         noise["eps_q"]`` (``noise`` as ``draw_noise`` gives it, drawn from
         ``generator`` when None). When a loss needs the prior rollout (a GAN
@@ -384,11 +385,13 @@ class VideoPredictionModel(nn.Module):
     # ------------------------------------------------------------------ #
     # losses
     # ------------------------------------------------------------------ #
-    def compute_losses(self, batch: Dict[str, torch.Tensor], step: int = 0,
+    def compute_losses(self, batch: Dict[str, torch.Tensor], step: int | torch.Tensor = 0,
                        noise: Optional[Dict[str, Any]] = None,
                        generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The training objective (reference ``generator_loss_fn`` +
-        ``discriminator_loss_fn``) at ``step``, with ``noise`` as
+        ``discriminator_loss_fn``) at ``step`` (an int, or a 0-d device
+        tensor: the KL anneal and the mask's schedule then stay on the
+        device, and nothing is read back to the host), with ``noise`` as
         ``draw_noise`` gives it (drawn from ``generator`` when None).
 
         Returns ``(total, aux)``. One ``total.backward()`` gives the

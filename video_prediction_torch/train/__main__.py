@@ -27,17 +27,32 @@ directory) for the eval summaries. Every
 frames/s=`` (frames per step = batch x (T - context)); every
 ``--summary_freq`` steps the loss terms and the schedule scalars (``lr``,
 ``schedule_sampling_prob``, ``kl_weight``) at the step the losses were
-taken; every ``--eval_summary_freq`` and
+taken; every ``--gif_freq`` steps (0: ``--image_summary_freq``) the GIF
+``gen_images``, ground truth beside the prior rollout for the first 8
+clips of the batch fetched next; every ``--eval_summary_freq`` and
 ``--accum_eval_summary_freq`` steps the eval metrics (``eval/*`` and
 ``accum_eval/*``: the prior rollout's PSNR, SSIM and MSE) averaged over 8
 and 64 validation batches, drawn from one ``val`` iterator that walks on
 from firing to firing; every ``--save_freq`` steps, and at the end, it
 writes the train state and ``checkpoints/params.pt`` (what ``generate`` and
-``evaluate`` read). The summaries are printed and returned by ``main``, not
-written to TensorBoard event files (ROADMAP.md); GIF summaries are not
-ported. ``--profile_steps start,stop`` records the steps numbered ``start``
+``evaluate`` read). The summaries are printed, returned by ``main`` and
+written to a TensorBoard event file in ``output_dir``
+(``utils/summary.py``, no TensorFlow) unless ``--no_tensorboard``; the JAX
+CLI writes one only where TensorFlow imports.
+
+``--steps_per_call K`` takes K optimizer steps a call, as the JAX CLI's
+fused dispatch does: the feeder stacks K batches ``[K, B, ...]``, and on
+CUDA the K steps run as one CUDA graph (``train/step.py``; the first call
+runs them eagerly, the second captures them). The run may overshoot
+``--max_steps`` by up to K-1 steps; each frequency fires when one of its
+multiples falls in the K steps of a call, the printed losses are the last
+step's, the schedule scalars are taken at the call's first step, and the
+GIF and eval summaries at the end of the call, on the last batch of the
+stack. ``--steps_per_call 1`` is the loop of one step a call.
+``--profile_steps start,stop`` records the steps numbered ``start``
 to ``stop`` (0-based: the step taken when ``start`` steps are done, through
-the one taken when ``stop`` are) under ``torch.profiler`` (host and, on a
+the one taken when ``stop`` are; whole calls, so with K > 1 from the call
+that holds ``start`` through the one that holds ``stop``) under ``torch.profiler`` (host and, on a
 GPU, device activity), synchronizes the device before it stops, as
 ``scripts/train.py:265-267`` does, and writes the trace to
 ``output_dir/profile/trace_<start>-<stop>.json``; the losses are those of a
@@ -72,11 +87,18 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=0, help="0 -> hparams.batch_size")
     p.add_argument("--max_steps", type=int, default=0, help="0 -> hparams.max_steps")
     p.add_argument("--summary_freq", type=int, default=1000)
+    p.add_argument("--image_summary_freq", type=int, default=5000)
     p.add_argument("--eval_summary_freq", type=int, default=25000)
     p.add_argument("--accum_eval_summary_freq", type=int, default=100000,
                    help="eval metrics accumulated over 64 validation batches")
     p.add_argument("--progress_freq", type=int, default=100)
     p.add_argument("--save_freq", type=int, default=5000)
+    p.add_argument("--gif_freq", type=int, default=0, help="0 -> use image_summary_freq")
+    p.add_argument("--steps_per_call", type=int, default=1,
+                   help="optimizer steps fused into one call (on CUDA one CUDA graph of K steps over stacked "
+                   "batches); amortizes the host's per-step launch overhead. Training may overshoot max_steps "
+                   "by up to K-1 steps when it is not a multiple of K")
+    p.add_argument("--no_tensorboard", action="store_true", help="write no TensorBoard event file")
     p.add_argument("--device", default="cuda", help="torch device to run on, e.g. cuda, cuda:1 or cpu")
     p.add_argument("--profile_steps", default="", help="'start,stop' steps for a torch.profiler trace")
     return p.parse_args(argv)
@@ -105,6 +127,7 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.data import DeviceFeeder, get_dataset_class
     from video_prediction_torch.generate import batch_to_device
     from video_prediction_torch.models import get_model_class, input_dims
+    from video_prediction_torch.models.base import images_to_float
     from video_prediction_torch.train import schedules
     from video_prediction_torch.train.checkpoint import (
         has_train_state,
@@ -116,6 +139,8 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.train.state import create_train_state, param_count, split_params
     from video_prediction_torch.train.step import make_eval_step, make_train_step
     from video_prediction_torch.utils.device import device_or_raise
+    from video_prediction_torch.utils.gif import encode_gif, tile_image_grid
+    from video_prediction_torch.utils.summary import EventWriter
 
     device = device_or_raise(args.device)
     prof_start, prof_stop = parse_profile_steps(args.profile_steps)
@@ -143,11 +168,14 @@ def main(argv=None) -> Dict[str, object]:
     write_options(args.output_dir, args.model, args.dataset, hp, dhp, args.seed)
 
     # ---- data, model, train state ----
+    spc = args.steps_per_call
+    if spc < 1:
+        raise ValueError(f"--steps_per_call must be at least 1, got {spc}")
     host_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
     batch = next(host_iter)
     # the first batch fixes the parameter shapes, as in the JAX package's init
     model = model_cls(hp, **input_dims(hp, batch))
-    ts = create_train_state(model, args.seed, device)
+    ts = create_train_state(model, args.seed, device, steps_per_call=spc)
     g_params, d_params = split_params(model)
     print(f"device: {device}; generator params: {param_count(g_params):,}; "
           f"discriminator params: {param_count(d_params):,}")
@@ -160,7 +188,7 @@ def main(argv=None) -> Dict[str, object]:
     elif args.checkpoint:
         warm_started = warm_start(args.checkpoint, ts.model)
         print(f"warm-started {len(warm_started)} of {len(list(ts.model.parameters()))} params from {args.checkpoint}")
-    train_step = make_train_step(model)
+    train_step = make_train_step(model, steps_per_call=spc)
     eval_step = make_eval_step(model)
     # one persistent val iterator: successive eval firings walk on through the
     # validation set, as in the JAX CLI
@@ -168,60 +196,83 @@ def main(argv=None) -> Dict[str, object]:
     val_iter = dataset_cls(val_dir, mode="val", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
 
     # ---- loop ----
-    start_step = ts.step
+    start_step = step = ts.step
     frames_per_step = hp.batch_size * (hp.sequence_length - hp.context_frames)
+    gif_freq = args.gif_freq or args.image_summary_freq
     t_last, last_timed_step = time.perf_counter(), start_step
     scalars: Dict[str, torch.Tensor] = {}
     summaries: Dict[str, float] = {}
     all_finite = True
-    # the train stream, from the batch that fixed the shapes, on the device
-    train_iter = DeviceFeeder(_prepend(batch, host_iter), device)
+    writer = None if args.no_tensorboard else EventWriter(args.output_dir)
+
+    def write(at: int, kind: str, vals: Dict[str, float]) -> None:
+        summaries.update(vals)
+        print(f"{kind} step {at}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
+        if writer is not None:
+            writer.scalars(at, vals)
+
+    def crossed(freq: int) -> bool:
+        """A multiple of ``freq`` fell in the last call's steps, ``(prev, step]``."""
+        return bool(freq) and prev // freq != step // freq
+
+    # the train stream, from the batch that fixed the shapes, on the device,
+    # stacked [K, B, ...] for K steps a call
+    train_iter = DeviceFeeder(_prepend(batch, host_iter), device, stack=spc)
     profiler: Optional[torch.profiler.profile] = None
     try:
         batch = next(train_iter)
-        while ts.step < hp.max_steps:
-            if ts.step == prof_start:
+        while step < hp.max_steps:
+            if profiler is None and step <= prof_start < step + spc:
                 profiler = _start_profiler(device)
             scalars = train_step(ts, batch)
-            batch = next(train_iter)  # taken while the step runs on the device
-            if profiler is not None and ts.step - 1 == prof_stop:
+            batch = next(train_iter)  # taken while the steps run on the device
+            prev, step = step, ts.step
+            if profiler is not None and prev <= prof_stop < step:
                 _stop_profiler(profiler, device, args.output_dir, prof_start, prof_stop)
                 profiler = None
-            if args.summary_freq and ts.step % args.summary_freq == 0:
-                prev = ts.step - 1  # the step the losses were taken at
+            if crossed(args.summary_freq):
+                # the schedules at the call's first step, as the JAX CLI takes them
                 vals = {k: float(v) for k, v in scalars.items()}
                 vals["lr"] = schedules.learning_rate(prev, hp)
                 vals["schedule_sampling_prob"] = schedules.ground_truth_prob(prev, hp)
                 if hp.kl_weight:
                     vals["kl_weight"] = hp.kl_weight * schedules.kl_weight(prev, hp)
-                summaries.update(vals)
-                print(f"summary step {ts.step}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
+                write(step, "summary", vals)
+            if crossed(gif_freq) and writer is not None:
+                # the batch fetched next (its last, stacked), as the JAX CLI takes it
+                last = batch if spc == 1 else {k: v[-1] for k, v in batch.items()}
+                rng = torch.Generator(device=device).manual_seed(args.seed + step)
+                gen, _ = eval_step(last, generator=rng)
+                gt = images_to_float(last["images"])
+                side = torch.cat([gt[:, 1:], gen], dim=3)  # [B, T-1, H, 2W, C]: ground truth | prediction
+                grid = tile_image_grid(side[:8].cpu().numpy())
+                writer.image(step, "gen_images", encode_gif(grid, fps=4), *grid.shape[1:])
             for freq, n_eval, prefix in ((args.eval_summary_freq, 8, "eval"),
                                          (args.accum_eval_summary_freq, 64, "accum_eval")):
-                if freq and ts.step % freq == 0:
-                    rng = torch.Generator(device=device).manual_seed(args.seed + ts.step)
+                if crossed(freq):
+                    rng = torch.Generator(device=device).manual_seed(args.seed + step)
                     accum: Dict[str, torch.Tensor] = {}
                     for _ in range(n_eval):
                         _, metrics = eval_step(batch_to_device(next(val_iter), device), generator=rng)
                         for k, v in metrics.items():
                             if v.ndim == 0:
                                 accum[k] = accum[k] + v if k in accum else v
-                    vals = {f"{prefix}/{k}": float(v) / n_eval for k, v in accum.items()}
-                    summaries.update(vals)
-                    print(f"{prefix} step {ts.step}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
-            if args.progress_freq and ts.step % args.progress_freq == 0:
-                g_loss, d_loss = float(scalars["g_loss"]), float(scalars["d_loss"])  # waits for the step
+                    write(step, prefix, {f"{prefix}/{k}": float(v) / n_eval for k, v in accum.items()})
+            if crossed(args.progress_freq):
+                g_loss, d_loss = float(scalars["g_loss"]), float(scalars["d_loss"])  # waits for the steps
                 all_finite &= math.isfinite(g_loss) and math.isfinite(d_loss)
-                sps = (ts.step - last_timed_step) / (time.perf_counter() - t_last)
-                print(f"step {ts.step}: g_loss={g_loss:.4f} d_loss={d_loss:.4f} "
+                sps = (step - last_timed_step) / (time.perf_counter() - t_last)
+                print(f"step {step}: g_loss={g_loss:.4f} d_loss={d_loss:.4f} "
                       f"steps/s={sps:.2f} frames/s={sps * frames_per_step:.0f}", flush=True)
-                t_last, last_timed_step = time.perf_counter(), ts.step
-            if args.save_freq and ts.step % args.save_freq == 0:
+                t_last, last_timed_step = time.perf_counter(), step
+            if crossed(args.save_freq):
                 save_train_state(args.output_dir, ts)
     finally:
         if profiler is not None:  # the run ended inside the window
             _stop_profiler(profiler, device, args.output_dir, prof_start, ts.step - 1)
         train_iter.close()
+        if writer is not None:
+            writer.close()
         save_train_state(args.output_dir, ts)
     final = {k: float(v) for k, v in scalars.items()}
     all_finite &= all(math.isfinite(v) for v in final.values())

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from video_prediction_torch.configs.hparams import DatasetHparams, ModelHparams
+from video_prediction_torch.train.state import load_optimizer
 
 PARAMS_FILE = os.path.join("checkpoints", "params.pt")
 TRAIN_STATE_FILE = os.path.join("checkpoints", "train_state.pt")
@@ -116,7 +117,9 @@ def has_train_state(run_dir: str) -> bool:
 
 def load_train_state(run_dir: str, ts) -> None:
     """Restore ``ts`` in place from ``checkpoints/train_state.pt`` (strict:
-    every parameter, buffer and optimizer slot)."""
+    every parameter, buffer and optimizer slot). A state saved by a run of
+    one step a call resumes into Adams built for several
+    (``state.make_optimizers``), and the reverse."""
     path = os.path.join(run_dir, TRAIN_STATE_FILE)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     ts.model.load_state_dict(saved["model"])
@@ -124,6 +127,6 @@ def load_train_state(run_dir: str, ts) -> None:
         if (opt is None) != (saved[key] is None):
             raise RuntimeError(f"train state {path}: {key} does not fit the model")
         if opt is not None:
-            opt.load_state_dict(saved[key])  # moves each slot to its parameter's device
+            load_optimizer(opt, saved[key])
     ts.rng.set_state(saved["rng"])
     ts.step = int(saved["step"])

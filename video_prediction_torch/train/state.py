@@ -5,6 +5,13 @@ Port of ``video_prediction_tpu/train/state.py``. The JAX package keeps one
 immutable pytree; here the model and the optimizers are updated in place
 (no second copy of the parameters or of the Adam moments) and the state
 object holds them.
+
+The train step of several steps a call (``train/step.py``, ``steps_per_call
+> 1``) needs Adams built for it (``make_optimizers(model, steps_per_call)``):
+the learning rate a 0-d float32 tensor on the parameters' device, which the
+step writes in place each step, and, on CUDA, ``capturable=True`` (Adam's
+step count and bias corrections on the device), so that a CUDA graph holds
+the whole update. ``load_optimizer`` restores a saved Adam into either kind.
 """
 
 from __future__ import annotations
@@ -40,25 +47,53 @@ def split_params(model: nn.Module) -> Tuple[List[nn.Parameter], List[nn.Paramete
     return g, d
 
 
-def make_optimizers(model: nn.Module) -> Tuple[Optional[torch.optim.Adam], Optional[torch.optim.Adam]]:
+def make_optimizers(model: nn.Module, steps_per_call: int = 1
+                    ) -> Tuple[Optional[torch.optim.Adam], Optional[torch.optim.Adam]]:
     """Two Adams with the same betas (reference ``base_model.py``); the train
-    step sets their learning rate from ``schedules.learning_rate`` each step."""
+    step sets their learning rate from ``schedules.learning_rate`` each step.
+    For ``steps_per_call > 1`` the learning rate is a 0-d float32 tensor on
+    the parameters' device, and on CUDA the Adams are capturable."""
     hp = model.hparams
     g, d = split_params(model)
 
     def adam(params):
-        return torch.optim.Adam(params, lr=hp.lr, betas=(hp.beta1, hp.beta2), eps=ADAM_EPS) if params else None
+        if not params:
+            return None
+        if steps_per_call == 1:
+            return torch.optim.Adam(params, lr=hp.lr, betas=(hp.beta1, hp.beta2), eps=ADAM_EPS)
+        device = params[0].device
+        return torch.optim.Adam(params, lr=torch.tensor(hp.lr, dtype=torch.float32, device=device),
+                                betas=(hp.beta1, hp.beta2), eps=ADAM_EPS, capturable=device.type == "cuda")
 
     return adam(g), adam(d)
 
 
-def create_train_state(model: nn.Module, seed: int, device: torch.device | str) -> TrainState:
+def load_optimizer(opt: torch.optim.Adam, saved: dict) -> None:
+    """``opt.load_state_dict(saved)``, keeping ``opt``'s own learning-rate
+    form and ``capturable`` flag (``load_state_dict`` takes both from the
+    saved groups): a state saved by one kind of Adam resumes into the other,
+    with Adam's step count on the device where ``opt`` is capturable, on the
+    CPU where not, as ``torch.optim.Adam`` keeps it."""
+    own = [{k: group[k] for k in ("lr", "capturable")} for group in opt.param_groups]
+    opt.load_state_dict(saved)  # moves each slot to its parameter's device
+    for group, keep in zip(opt.param_groups, own):
+        group.update(keep)
+        for p in group["params"]:
+            slots = opt.state.get(p)
+            if slots and "step" in slots:
+                device = p.device if keep["capturable"] else torch.device("cpu")
+                slots["step"] = slots["step"].to(device=device, dtype=torch.float32)
+
+
+def create_train_state(model: nn.Module, seed: int, device: torch.device | str,
+                       steps_per_call: int = 1) -> TrainState:
     """Initialize ``model`` from ``seed`` (on the CPU, so every device gets the
-    same weights), move it to ``device`` and build the optimizers; the step
-    noise comes from a generator on ``device`` seeded with ``seed + 1``."""
+    same weights), move it to ``device`` and build the optimizers for
+    ``steps_per_call``; the step noise comes from a generator on ``device``
+    seeded with ``seed + 1``."""
     model.init_weights(torch.Generator().manual_seed(seed))
     model.to(device)
-    opt_g, opt_d = make_optimizers(model)
+    opt_g, opt_d = make_optimizers(model, steps_per_call)
     rng = torch.Generator(device=device).manual_seed(seed + 1)
     return TrainState(model=model, opt_g=opt_g, opt_d=opt_d, step=0, rng=rng)
 

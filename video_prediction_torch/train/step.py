@@ -1,60 +1,232 @@
 """The train step (one backward pass, then the G and D Adam updates and the
-spectral ``u`` update) and the eval step (the prior rollout and its metrics).
+spectral ``u`` update), K of them in one call, and the eval step (the prior
+rollout and its metrics).
 
 Port of ``video_prediction_tpu/train/step.py#make_train_step`` and
-``#make_eval_step`` for one device and one step per call. ``compute_losses`` places the detaches so
+``#make_eval_step`` for one device. ``compute_losses`` places the detaches so
 that one backward of ``g_loss + d_loss`` gives each side its own gradients,
 as the reference's joint ``sess.run`` does. With ``compute_dtype`` bfloat16
 the parameters, their gradients and Adam's moments stay fp32, and there is
 no loss scaling, as in the JAX package.
+
+``steps_per_call`` K > 1 is the JAX package's fused dispatch (``lax.scan``
+over batches stacked ``[K, B, ...]``): one call takes K optimizer steps and
+returns the last step's scalars. Here the K steps are one Python function,
+``MultiStep.steps``, which reads the step as a 0-d tensor that it advances
+in place (the schedules and Adam's learning rate stay on the device). On
+the CPU a call runs it eagerly: that is the plain version. On CUDA:
+
+- the first call runs it eagerly on a side stream: K real steps, which also
+  set up cuDNN, the kernels' shared-memory attributes, Adam's state and the
+  allocator;
+- the second call captures it as one ``torch.cuda.CUDAGraph`` of K steps
+  (capture runs nothing: the step and the launch counters do not move)
+  and replays it;
+- every call copies the batches into the graph's static ``[K, B, ...]``
+  buffers and draws the K steps' noise from ``ts.rng`` into static noise
+  buffers, outside the graph, in the order K eager steps draw it; then it
+  runs or replays the steps.
+
+A capture or replay error raises: there is no eager fallback. The train
+state must have Adams built for K > 1 (``state.make_optimizers``). The
+kernel wrappers count their launches as Python calls, so the capture's
+counts are taken back out and added once per replay.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from video_prediction_torch import kernels as K
 from video_prediction_torch.train import schedules
 from video_prediction_torch.train.state import TrainState
 
+Scalars = Dict[str, torch.Tensor]
 
-def make_train_step(model) -> Callable[..., Dict[str, torch.Tensor]]:
-    """``train_step(ts, batch, noise=None) -> scalars`` for ``model``: updates
-    ``ts`` in place and returns the 0-d loss tensors ``g_loss``, ``d_loss``,
-    ``g/<term>`` and ``d/<term>`` of the step it took. ``noise`` as
-    ``model.draw_noise`` gives it; drawn from ``ts.rng`` when None."""
-    hp = model.hparams
+
+def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict[str, Any]],
+            step: int | torch.Tensor) -> Scalars:
+    """One train step at ``step`` (an int, or a 0-d tensor on the batch's
+    device) on ``batch`` with ``noise`` (drawn from ``ts.rng`` when None):
+    the backward pass, both Adam updates and the spectral ``u``. Returns the
+    step's 0-d loss tensors; ``ts.step`` is left to the caller."""
+    total, aux = ts.model.compute_losses(batch, step, noise=noise, generator=ts.rng)
+    optimizers = [opt for opt in (ts.opt_g, ts.opt_d) if opt is not None]
+    for opt in optimizers:
+        opt.zero_grad(set_to_none=True)
+    total.backward()
+    lr = schedules.learning_rate(step, ts.model.hparams)  # optax reads the count before it increments
+    for opt in optimizers:
+        for group in opt.param_groups:
+            if torch.is_tensor(group["lr"]):
+                group["lr"].fill_(lr)  # in place: a captured graph reads this tensor
+            else:
+                group["lr"] = lr
+            for p in group["params"]:
+                if p.grad is None:  # optax updates every leaf, with a zero gradient if need be
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+    with torch.no_grad():
+        for key, layers in aux["new_state"].get("spectral", {}).items():
+            disc = ts.model.discriminator[key]
+            for layer, u in layers.items():
+                getattr(disc, layer).u.copy_(u)
+    return {
+        "g_loss": aux["g_loss"].detach(),
+        "d_loss": aux["d_loss"].detach(),
+        **{f"g/{k}": v.detach() for k, v in aux["g_losses"].items()},
+        **{f"d/{k}": v.detach() for k, v in aux["d_losses"].items()},
+    }
+
+
+def make_train_step(model, steps_per_call: int = 1) -> Callable[..., Scalars]:
+    """The train step of ``model``, updating ``ts`` in place and returning the
+    0-d loss tensors ``g_loss``, ``d_loss``, ``g/<term>`` and ``d/<term>``.
+
+    ``steps_per_call`` 1: ``train_step(ts, batch, noise=None)`` takes one
+    step; ``noise`` as ``model.draw_noise`` gives it, drawn from ``ts.rng``
+    when None. K > 1: a ``MultiStep``, ``train_step(ts, batches,
+    noises=None)`` on batches stacked ``[K, B, ...]``, K steps and the last
+    one's scalars; ``noises`` a list of K such dicts."""
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
+    if steps_per_call > 1:
+        return MultiStep(steps_per_call)
 
     def train_step(ts: TrainState, batch: Dict[str, torch.Tensor],
-                   noise: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
-        total, aux = ts.model.compute_losses(batch, ts.step, noise=noise, generator=ts.rng)
-        optimizers = [opt for opt in (ts.opt_g, ts.opt_d) if opt is not None]
-        for opt in optimizers:
-            opt.zero_grad(set_to_none=True)
-        total.backward()
-        lr = schedules.learning_rate(ts.step, hp)  # optax reads the count before it increments
-        for opt in optimizers:
-            for group in opt.param_groups:
-                group["lr"] = lr
-                for p in group["params"]:
-                    if p.grad is None:  # optax updates every leaf, with a zero gradient if need be
-                        p.grad = torch.zeros_like(p)
-            opt.step()
-        with torch.no_grad():
-            for key, layers in aux["new_state"].get("spectral", {}).items():
-                disc = ts.model.discriminator[key]
-                for layer, u in layers.items():
-                    getattr(disc, layer).u.copy_(u)
+                   noise: Optional[Dict[str, Any]] = None) -> Scalars:
+        scalars = _update(ts, batch, noise, ts.step)
         ts.step += 1
-        return {
-            "g_loss": aux["g_loss"].detach(),
-            "d_loss": aux["d_loss"].detach(),
-            **{f"g/{k}": v.detach() for k, v in aux["g_losses"].items()},
-            **{f"d/{k}": v.detach() for k, v in aux["d_losses"].items()},
-        }
+        return scalars
 
     return train_step
+
+
+def _launch_delta(before: Dict[str, Dict[str, int]], after: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, int]]:
+    return {name: {dt: n - before.get(name, {}).get(dt, 0) for dt, n in by_dtype.items()}
+            for name, by_dtype in after.items()}
+
+
+class MultiStep:
+    """K train steps a call (see the module docstring). After a call,
+    ``scalars_by_step`` ``[K, len(keys)]`` holds every step's scalars (the
+    call returns the last row by ``keys``); ``calls`` counts the calls;
+    after the capture ``capture_s`` is its host time in seconds and
+    ``graph_launches`` the kernel launches of one replay (wrapper -> dtype
+    -> launches)."""
+
+    def __init__(self, steps_per_call: int):
+        self.k = steps_per_call
+        self.calls = 0
+        self.keys: List[str] = []
+        self.scalars_by_step: Optional[torch.Tensor] = None
+        self.capture_s: Optional[float] = None
+        self.graph_launches: Dict[str, Dict[str, int]] = {}
+        self._ts: Optional[TrainState] = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._static: Optional[Tuple[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]], torch.Tensor]] = None
+        self._out: Optional[torch.Tensor] = None  # the graph's scalars_by_step
+
+    def steps(self, ts: TrainState, batches: Dict[str, torch.Tensor], noises: List[Dict[str, Any]],
+              step: torch.Tensor) -> torch.Tensor:
+        """The K steps: step k on slot k of ``batches`` and ``noises`` at
+        ``step``, which it advances by one after each. Returns their scalars
+        stacked ``[K, len(keys)]`` and sets ``keys``."""
+        rows = []
+        for k in range(self.k):
+            scalars = _update(ts, {key: v[k] for key, v in batches.items()}, noises[k], step)
+            step.add_(1)
+            rows.append(torch.stack([v.float() for v in scalars.values()]))
+        self.keys = list(scalars)
+        return torch.stack(rows)
+
+    def __call__(self, ts: TrainState, batches: Dict[str, torch.Tensor],
+                 noises: Optional[List[Dict[str, Any]]] = None) -> Scalars:
+        bad = {key: tuple(v.shape) for key, v in batches.items() if v.ndim == 0 or v.shape[0] != self.k}
+        if bad:
+            raise ValueError(f"steps_per_call={self.k} takes batches stacked [{self.k}, B, ...], got {bad}")
+        if noises is not None and len(noises) != self.k:
+            raise ValueError(f"steps_per_call={self.k} takes {self.k} noise dicts, got {len(noises)}")
+        images = batches["images"]
+        if noises is None:
+            noises = [ts.model.draw_noise(images.shape[1], images.shape[2], ts.rng, images.device)
+                      for _ in range(self.k)]
+        if images.device.type == "cuda":
+            table = self._cuda_call(ts, batches, noises)
+        else:
+            table = self.steps(ts, batches, noises, torch.tensor(ts.step, device=images.device))
+        ts.step += self.k
+        self.calls += 1
+        self.scalars_by_step = table
+        return {key: table[-1, i] for i, key in enumerate(self.keys)}
+
+    def _check_state(self, ts: TrainState) -> None:
+        if self._ts is None:
+            for opt in (ts.opt_g, ts.opt_d):
+                for group in opt.param_groups if opt is not None else ():
+                    if not (torch.is_tensor(group["lr"]) and group["capturable"]):
+                        raise ValueError(f"steps_per_call={self.k} on CUDA needs capturable Adams with a tensor "
+                                         "learning rate: build them with make_optimizers(model, steps_per_call)")
+            self._ts = ts
+        elif ts is not self._ts:
+            raise ValueError("a MultiStep runs one train state: its CUDA graph holds that state's tensors")
+
+    def _cuda_call(self, ts: TrainState, batches: Dict[str, torch.Tensor],
+                   noises: List[Dict[str, Any]]) -> torch.Tensor:
+        self._check_state(ts)
+        device = batches["images"].device
+        if self._static is None:
+            self._static = ({key: torch.empty_like(v) for key, v in batches.items()},
+                            [{key: torch.empty_like(torch.as_tensor(v, device=device)) for key, v in noise.items()}
+                             for noise in noises],
+                            torch.zeros((), dtype=torch.long, device=device))
+        static_batches, static_noises, step = self._static
+        shapes = {key: tuple(v.shape) for key, v in static_batches.items()}
+        got = {key: tuple(v.shape) for key, v in batches.items()}
+        if got != shapes:
+            raise ValueError(f"a CUDA graph replays fixed shapes {shapes}, got {got}")
+        for key, v in batches.items():
+            static_batches[key].copy_(v)
+        for slot, noise in zip(static_noises, noises):
+            for key, v in noise.items():
+                if torch.is_tensor(v):
+                    slot[key].copy_(v)
+                else:
+                    slot[key].fill_(v)
+        step.fill_(ts.step)
+        if self.calls == 0:
+            return self._eager(ts, static_batches, static_noises, step)
+        if self._graph is None:
+            self._capture(ts, static_batches, static_noises, step)
+        self._graph.replay()
+        K.add_launches(self.graph_launches)
+        return self._out.clone()
+
+    def _eager(self, ts, batches, noises, step) -> torch.Tensor:
+        """The first call: the K steps, eagerly, on a side stream."""
+        current = torch.cuda.current_stream(step.device)
+        side = torch.cuda.Stream(step.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            table = self.steps(ts, batches, noises, step)
+        current.wait_stream(side)
+        table.record_stream(current)
+        return table
+
+    def _capture(self, ts, batches, noises, step) -> None:
+        before = K.launch_dtypes()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # thread_local: the data feeder's thread goes on copying batches on its own stream
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._out = self.steps(ts, batches, noises, step)
+        self.capture_s = time.perf_counter() - t0
+        self.graph_launches = _launch_delta(before, K.launch_dtypes())
+        K.add_launches(self.graph_launches, -1)  # the capture launched nothing
+        self._graph = graph
 
 
 def make_eval_step(model) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
