@@ -158,7 +158,31 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     ``--steps_per_call 4 --max_steps 10`` (stops at 12), ``--resume`` to 16,
     its launches (16 steps and two GIF rollouts) and the event files read
     back with ``utils/summary.py#read_events``: the tags ``g_loss``, ``lr``,
-    ``schedule_sampling_prob``, ``kl_weight`` and ``gen_images``.
+    ``schedule_sampling_prob``, ``kl_weight`` and ``gen_images``;
+25. data-parallel training over ``torch.distributed`` (``parallel/``, the
+    train step's ``group``): (a) the flagship at batch 16 (TF32 convs,
+    cuDNN's deterministic algorithms) through 3 calls of ``MultiStep(4)``
+    under a 1-rank NCCL group (``file://`` rendezvous in ``build/``) against
+    the same without a group: every loss term, leaf and ``u`` equal bit for
+    bit, and the all-reduce inside the graph (the captured graph's nodes,
+    from its DOT dump, are those of the graph without a group plus 4 times
+    those of one ``all_reduce_mean_`` of the same tensors captured alone,
+    which is also timed alone); the
+    train CLI under ``torchrun --standalone --nproc_per_node 1
+    --steps_per_call 4 --max_steps 8``, then ``--resume`` to 12: rank 0's
+    option files, checkpoints and event files; (b) two processes on this
+    card over gloo, global batch 16 (8 a rank), 3 steps, TF32 off and
+    cuDNN's deterministic algorithms on both sides, against
+    one process on the whole batch from the same weights, batches and noise
+    seed under phase 9's rule (losses within 1e-4, the first step's median
+    leaf gradient within 1e-4, every leaf within 1e-2, the parameters
+    within Adam's bound), both ranks' parameters and ``u``s equal bit for
+    bit, each rank's launches a step phase 8's; (c) where there are two
+    cards, NCCL at world size 2, ``MultiStep(4)`` for 3 calls, with (b)'s
+    checks (printed either way); (d) ms a step of the graph without a group
+    against the 1-rank NCCL graph, in turns, each one's busy share, the
+    all-reduce's device ms a step, and the gloo pair's ms a step (two
+    processes sharing one card: no scaling figure).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -197,6 +221,13 @@ fields:
   call at each width), ``ms`` and ``plain_ms`` (a step, as above),
   ``bytes``, ``bound_ms``, ``share_of_bound`` and ``max_abs_err`` against
   the plain version, and ``launches`` (phase 17's three train steps);
+- ``data_parallel``: phase 25's ``launches_per_rank_per_step``, (a)'s
+  ``bitwise``, (d)'s ``graph_ms`` and ``nccl1_graph_ms`` (in turns),
+  ``graph_busy_share`` and ``nccl1_busy_share``, ``allreduce_device_ms``
+  (one ``all_reduce_mean_`` of a step's gradients and scalars, alone),
+  ``allreduce_mb`` and ``allreduce_device_ops`` (its graph nodes), ``gloo_pair_ms`` beside
+  ``gloo_one_process_ms`` (steps 2-3), ``gloo_figures`` ((b)'s loss,
+  gradient and parameter figures) and ``nccl_world2`` ((c)'s, or null);
 - ``steps_per_call``: phase 24's, by config (``launches_per_step``, the
   ``dtype``, ``eager_ms``, ``graph_ms`` and ``graph1_ms`` a step in turns) and
   ``cli_launches``, the launches of its CLI run;
@@ -220,6 +251,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2725,6 +2757,478 @@ def spc_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
     print(f"phase 24 (steps_per_call): {time.perf_counter() - t_phase:.2f} s wall")
 
 
+# ---------------------------------------------------------------------------
+# data parallel over torch.distributed (phase 25)
+# ---------------------------------------------------------------------------
+DP_SEED = 25
+DP_STEPS = 3  # (b): K = 1
+DP_WORKER = "--data-parallel-rank"  # chip_smoke.py DP_WORKER <job dir> <rank>: one rank of (b) or (c)
+DP_TIMEOUT = 300  # seconds for a spawned run; a deadlock fails the phase
+DP_CLI_STEPS = (8, 12)  # torchrun: --max_steps 8 (two calls of SPC), then --resume to 12
+GRAD_BYTES = 4  # the all-reduce carries the fp32 gradients
+DP_REDUCE_CALLS = 5  # all_reduce_mean_ calls in the window that times one alone
+DOT_NODE = re.compile(r'^"graph_\d+_node_\d+"\[', re.M)  # a node of cudaGraphDebugDotPrint's output
+DOT_KIND = re.compile(r'label="\{\s*(\w+)')  # KERNEL, MEMCPY, MEMSET, ...
+DOT_KERNEL = re.compile(r'\| \{ID \| [^|]*\| (\S+?)\\<\\<\\<')  # the kernel's mangled name before <<<
+
+
+def dp_flagship(dev):
+    """The flagship at batch 16 from DP_SEED's weights, on ``dev``."""
+    from video_prediction_torch.models import get_model_class
+
+    hp = slice_hparams().replace(batch_size=TRAIN_BATCH)
+    model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(DP_SEED))
+    return model.to(dev)
+
+
+def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1) -> dict:
+    """``calls`` calls of ``k`` train steps of the flagship, TF32 off, with
+    cuDNN's deterministic algorithms, on this rank's rows of the global
+    batches of the synthetic stream (batch 16), from DP_SEED's weights and
+    noise seed, data parallel over ``group``: every step's scalars, the
+    gradients after the first call, the parameters and buffers after the
+    last, the launches and ms a step of each call. The deterministic
+    algorithms make each side of (b)'s comparison the same from run to run:
+    with cuDNN's default ones a GAN term near 1e-7 read 0.72 of its
+    allowance after 3 steps in one run (PERF.md), so the comparison
+    would hold or fail by chance."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.parallel.mesh import shard_batch
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = dp_flagship(dev)
+        ts = TrainState(model, *make_optimizers(model, k), 0, torch.Generator(device=dev).manual_seed(DP_SEED))
+        step = make_train_step(model, k, group=group)
+        host = spc_host_batches(model.hparams, k * calls)
+        batches = [{key: v.to(dev) for key, v in shard_batch(b, rank, world).items()} for b in host]
+        rows, launches, ms, grads1 = [], [], [], None
+        for c in range(calls):
+            K.reset_launch_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if k == 1:
+                scalars = step(ts, batches[c])
+                rows.append(torch.stack([v.float() for v in scalars.values()])[None])
+                keys = list(scalars)
+            else:
+                step(ts, spc_stack(batches[c * k:(c + 1) * k]))
+                rows.append(step.scalars_by_step)
+                keys = step.keys
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3 / k)
+            launches.append(K.launch_counts())
+            if c == 0:
+                grads1 = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        set_tf32_default()
+    return {"keys": keys, "scalars": torch.cat(rows).cpu(), "grads1": grads1, "launches": launches, "ms": ms,
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}, "lr": model.hparams.lr}
+
+
+def dp_worker(argv) -> int:
+    """One rank of phase 25 (b) or (c), in a process of its own:
+    ``DP_WORKER <job dir> <rank>``, the job (backend, world size, each
+    rank's device, K, calls) in ``<job dir>/job.json``; writes ``dp_run``'s
+    readings to ``<job dir>/rank<rank>.pt``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from video_prediction_torch.parallel.distributed import maybe_initialize
+
+    path, rank = argv[0], int(argv[1])
+    with open(os.path.join(path, "job.json")) as f:
+        job = json.load(f)
+    dev = torch.device(job["devices"][rank])
+    maybe_initialize(f"file://{path}/rendezvous", job["world"], rank, backend=job["backend"], device=str(dev))
+    try:
+        out = dp_run(dev, job["k"], job["calls"], dist.group.WORLD, rank, job["world"])
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+    return 0
+
+
+def dp_spawn(name: str, backend: str, devices: list, k: int, calls: int) -> tuple:
+    """Run ``dp_worker`` as ``len(devices)`` processes; returns their readings
+    and the wall seconds. Each must exit 0 within DP_TIMEOUT."""
+    import shutil
+
+    path = os.path.join(WORK_DIR, name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    with open(os.path.join(path, "job.json"), "w") as f:
+        json.dump({"backend": backend, "world": len(devices), "devices": devices, "k": k, "calls": calls}, f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), DP_WORKER, path, str(r)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(len(devices))]
+    outputs = []
+    for p in procs:
+        try:
+            outputs.append(p.communicate(timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))[0])
+        except subprocess.TimeoutExpired:
+            outputs.append("(timed out)")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    check(all(p.returncode == 0 for p in procs), f"{name}: ranks exited {[p.returncode for p in procs]} "
+          f"(killed after {DP_TIMEOUT} s if negative):\n" + "\n".join(o[-3000:] for o in outputs))
+    return [torch.load(os.path.join(path, f"rank{r}.pt"), weights_only=False) for r in range(len(devices))], wall
+
+
+def dp_compare(label: str, ref: dict, ranks: list, per_step: dict, k: int) -> dict:
+    """Phase 25 (b) and (c): the ranks' parameters and ``u``s equal bit for
+    bit; each rank's launches a call K times phase 8's per step; against the
+    one-process run on the whole batch, phase 9's rule: every loss term of
+    every step within TRAIN_LOSS_RTOL; for K = 1 the first step's gradients,
+    the median leaf within TRAIN_GRAD_MEDIAN_TOL of its max and every leaf
+    within TRAIN_GRAD_TOL of it plus TRAIN_GRAD_FLOOR of the largest (after
+    a call of K > 1 steps the gradient is the K-th step's, on parameters
+    that Adam's first steps moved apart where a gradient is at rounding
+    level); the parameters within Adam's bound (2 lr a step). Returns the
+    figures."""
+    first = ranks[0]
+    for r, out in enumerate(ranks[1:], 1):
+        for kind in ("params", "buffers"):
+            differ = [n for n, v in first[kind].items() if not torch.equal(v, out[kind][n])]
+            check(not differ, f"{label}: rank {r}'s {kind} differ from rank 0's: {differ[:5]}")
+        check(torch.equal(first["scalars"], out["scalars"]), f"{label}: rank {r} reports other scalars")
+    for r, out in enumerate(ranks):
+        for c, counts in enumerate(out["launches"]):
+            want = {name: n * k for name, n in per_step.items()}
+            check(counts == want, f"{label}: rank {r}, call {c}: launches {counts}, want {want}")
+    check(first["keys"] == ref["keys"], f"{label}: loss terms {first['keys']} vs {ref['keys']}")
+    a, b = ref["scalars"], first["scalars"]
+    over = (b - a).abs() > TRAIN_LOSS_RTOL * a.abs() + 1e-7
+    check(not bool(over.any()), f"{label}: loss terms off at (step, term) {over.nonzero().tolist()}: {b} vs {a}")
+    loss_rel = float(((b - a).abs() / a.abs().clamp_min(1e-12)).max())
+    share = (b - a).abs() / (TRAIN_LOSS_RTOL * a.abs() + 1e-7)  # of each term's allowance
+    worst_at = divmod(int(share.argmax()), a.shape[1])
+    figures = {"loss_rel": loss_rel, "loss_share_of_tol": float(share.max()),
+               "loss_worst": f"step {worst_at[0] + 1} {ref['keys'][worst_at[1]]} {float(b[worst_at])} against "
+                             f"{float(a[worst_at])}"}
+    if k == 1:
+        gmax = max(float(g.abs().max()) for g in ref["grads1"].values())
+        rel = []
+        for name, g in ref["grads1"].items():
+            scale, err = float(g.abs().max()), float((first["grads1"][name] - g).abs().max())
+            check(err <= TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * gmax,
+                  f"{label}: gradient of {name}: max |dg| {err:.3g}, max |g| {scale:.3g}")
+            if scale > TRAIN_GRAD_FLOOR * gmax:
+                rel.append((err / scale, name))
+        rel.sort()
+        figures["grad_median"] = rel[len(rel) // 2][0]
+        figures["grad_worst"] = rel[-1][0]
+        check(figures["grad_median"] <= TRAIN_GRAD_MEDIAN_TOL,
+              f"{label}: median leaf gradient error {figures['grad_median']:.3g}")
+        grads = (f", the first step's gradients median leaf {figures['grad_median']:.3g} (tol "
+                 f"{TRAIN_GRAD_MEDIAN_TOL}), worst {rel[-1][1]} {rel[-1][0]:.3g}")
+    else:
+        grads = ""
+    steps = a.shape[0]
+    figures["param_worst"] = max(float((first["params"][n] - v).abs().max()) for n, v in ref["params"].items())
+    check(figures["param_worst"] <= 2.0 * ref["lr"] * steps + 1e-6,
+          f"{label}: a parameter {figures['param_worst']:.3g} apart")
+    print(f"data parallel {label}: {len(ranks)} ranks against one process, {steps} steps: losses within rel "
+          f"{loss_rel:.3g} (tol {TRAIN_LOSS_RTOL} + 1e-7; the worst, {figures['loss_worst']}, at "
+          f"{figures['loss_share_of_tol']:.3g} of its allowance){grads}, parameters within "
+          f"{figures['param_worst']:.3g} (Adam's bound {2.0 * ref['lr'] * steps:.3g}); ranks' parameters and u bit "
+          f"for bit; launches a rank a step "
+          f"{dict((n, c // k) for n, c in first['launches'][-1].items())}")
+    return figures
+
+
+def dp_graph_run(model, dev, batches, group) -> dict:
+    """Phase 25 (a): SPC_CALLS calls of ``MultiStep(SPC)`` on a copy of
+    ``model`` under ``group`` (None: no data parallel), as ``spc_run``;
+    keeps the train state and a replay for the profile and the timing."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import make_train_step
+
+    m = copy.deepcopy(model).to(dev)
+    ts = TrainState(m, *make_optimizers(m, SPC), 0, torch.Generator(device=dev).manual_seed(SPC_SEED))
+    step = make_train_step(m, SPC, group=group)
+    step.keep_graph = True  # for graph_nodes
+    rows, calls = [], []
+    for c in range(SPC_CALLS):
+        K.reset_launch_counts()
+        step(ts, spc_stack(batches[c * SPC:(c + 1) * SPC]))
+        rows.append(step.scalars_by_step)
+        torch.cuda.synchronize()
+        calls.append(K.launch_dtypes())
+    last = spc_stack(batches[-SPC:])
+    return {"keys": step.keys, "scalars": torch.cat(rows).cpu(), "calls": calls, "step": step, "ts": ts,
+            "params": {n: p.detach().cpu().clone() for n, p in m.named_parameters()},
+            "buffers": {n: b.detach().cpu().clone() for n, b in m.named_buffers()},
+            "replay": lambda: step(ts, last)}
+
+
+def dp_replay_profile(call) -> dict:
+    """One profiled call (SPC graphed steps): device events by name, ms a
+    step, busy ms a step and busy share (profile_step's window check)."""
+    from collections import Counter
+
+    from video_prediction_torch.train import profile_step as PS
+
+    events, window_ms, _, windows, shortfall = PS.whole_window(
+        lambda: PS.profile_window(call, 1, True, torch.cuda.synchronize))
+    check(not shortfall, f"the profiler missed graph kernels: {shortfall}")
+    busy = PS.union_ms([(a, b) for _, a, b in events]) / SPC
+    return {"names": Counter(name for name, _, _ in events), "busy_ms": busy, "busy_share": busy / (window_ms / SPC),
+            "device_ops": len(events) / SPC, "windows": windows}
+
+
+def graph_nodes(path: str) -> "Counter":
+    """The nodes of a CUDA graph's DOT dump (``cudaGraphDebugDotPrint``,
+    verbose) by kind, kernels by mangled name. Unlike a profiler session,
+    which can lose device records, this is the graph itself."""
+    from collections import Counter
+
+    with open(path) as f:
+        text = f.read()
+    starts = [m.start() for m in DOT_NODE.finditer(text)]
+    nodes = Counter()
+    for a, b in zip(starts, starts[1:] + [len(text)]):
+        kind = DOT_KIND.search(text, a, b)
+        check(kind is not None, f"{path}: a graph node without a kind: {text[a:a + 300]}")
+        name = DOT_KERNEL.search(text, a, b) if kind.group(1) == "KERNEL" else None
+        nodes[name.group(1) if name else kind.group(1)] += 1
+    return nodes
+
+
+def short_nodes(nodes) -> dict:
+    """``nodes`` with each mangled kernel name cut to its first 100
+    characters (names alike that far are counted together)."""
+    out: dict = {}
+    for name, n in nodes.items():
+        out[name[:100]] = out.get(name[:100], 0) + n
+    return out
+
+
+def dp_reduce_nodes(reduce, path: str) -> "Counter":
+    """The graph nodes of one ``reduce()`` captured alone (not replayed)."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        reduce()
+    graph.enable_debug_mode()
+    graph.debug_dump(path)
+    return graph_nodes(path)
+
+
+def dp_reduce_alone(reduce, ops: int, sessions: int = 10) -> float:
+    """The device ms of one ``reduce()`` of ``ops`` graph nodes, from a
+    profiler session of DP_REDUCE_CALLS calls behind a 1-element fill: a
+    session can lose device records (a first run here lost the first
+    call's concatenation), so the fill goes first and is left out, and a
+    session without DP_REDUCE_CALLS x ``ops`` records is run again,
+    ``sessions`` times at most."""
+    from video_prediction_torch.train import profile_step as PS
+
+    marker = torch.zeros(1, device="cuda")
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            for _ in range(DP_REDUCE_CALLS):
+                reduce()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                  if e.device_type != torch.autograd.DeviceType.CPU and "FillFunctor" not in e.name]
+        if len(events) == DP_REDUCE_CALLS * ops:
+            break
+        print(f"all_reduce_mean_ profile: {len(events)} device records, not {DP_REDUCE_CALLS} x {ops}")
+    check(len(events) == DP_REDUCE_CALLS * ops,
+          f"no whole profile of {DP_REDUCE_CALLS} all_reduce_mean_ calls in {sessions} sessions")
+    return PS.union_ms([(a, b) for _, a, b in events]) / DP_REDUCE_CALLS
+
+
+def dp_graph_phase(dev, ident: str, per_step: dict) -> dict:
+    """Phase 25 (a) and the graphs' half of (d): the flagship at batch 16,
+    TF32 convs, cuDNN's deterministic algorithms, ``MultiStep(SPC)`` for
+    SPC_CALLS calls without a group and under a 1-rank NCCL group
+    (``file://`` rendezvous in ``build/``): every loss term, leaf and ``u``
+    equal bit for bit; the launches a call; the all-reduce inside the graph
+    (its nodes, from ``MultiStep.dump_graph``, are the graph's without a
+    group plus SPC times those of one ``all_reduce_mean_`` of the same
+    tensors captured alone; that reduce is also timed alone); a profiled
+    replay of each, whose extra device records are printed; then ms a step
+    of both graphs in turns and each one's busy share."""
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from video_prediction_torch.parallel.distributed import maybe_initialize
+    from video_prediction_torch.parallel.mesh import all_reduce_mean_
+
+    set_tf32_default()
+    model = dp_flagship("cpu")
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in spc_host_batches(model.hparams, SPC * SPC_CALLS)]
+    path = os.path.join(WORK_DIR, "dp_nccl1")
+    os.makedirs(path, exist_ok=True)
+    rendezvous = os.path.join(path, "rendezvous")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    check(maybe_initialize(f"file://{rendezvous}", 1, 0, backend="nccl", device="cuda:0"),
+          "a 1-rank NCCL group was not created")
+    try:
+        torch.backends.cudnn.deterministic = True  # see SPC_FLOOR
+        try:
+            plain = dp_graph_run(model, dev, batches, None)
+            nccl = dp_graph_run(model, dev, batches, dist.group.WORLD)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(nccl["keys"] == plain["keys"], f"(a): loss terms {nccl['keys']} vs {plain['keys']}")
+        check(torch.equal(nccl["scalars"], plain["scalars"]),
+              f"(a): the 1-rank NCCL graph's losses are not the plain graph's bit for bit: "
+              f"{(nccl['scalars'] - plain['scalars']).abs().max()}")
+        for kind in ("params", "buffers"):
+            differ = [n for n, v in plain[kind].items() if not torch.equal(v, nccl[kind][n])]
+            check(not differ, f"(a): {kind} differ from the plain graph's: {differ[:5]}")
+        for run in (plain, nccl):
+            for c, counts in enumerate(run["calls"]):
+                want = {name: {"float32": n * SPC} for name, n in per_step.items()}
+                check(counts == want, f"(a): launches of call {c} {counts}, want {want}")
+        profiles = {name: dp_replay_profile(run["replay"]) for name, run in (("graph", plain), ("nccl1", nccl))}
+        ts = nccl["ts"]
+        tensors = [p.grad for opt in (ts.opt_g, ts.opt_d) for g in opt.param_groups for p in g["params"]]
+        n_grads = sum(t.numel() for t in tensors)
+        tensors += [torch.zeros((), device=dev) for _ in nccl["keys"]]
+        group = dist.group.WORLD
+        alone = dp_reduce_nodes(lambda: all_reduce_mean_(tensors, group), os.path.join(path, "reduce.dot"))
+        reduce_ms = dp_reduce_alone(lambda: all_reduce_mean_(tensors, group), sum(alone.values()))
+        nodes = {}
+        for name, run in (("graph", plain), ("nccl1", nccl)):
+            run["step"].dump_graph(os.path.join(path, f"{name}.dot"))
+            nodes[name] = graph_nodes(os.path.join(path, f"{name}.dot"))
+        extra, missing = nodes["nccl1"] - nodes["graph"], nodes["graph"] - nodes["nccl1"]
+        want = Counter({name: SPC * n for name, n in alone.items()})
+        check(bool(alone) and not missing and extra == want,
+              f"(a): the NCCL graph's nodes beyond the plain graph's {short_nodes(extra)} (and short of them "
+              f"{short_nodes(missing)}) are not {SPC} x one all_reduce_mean_'s {short_nodes(alone)}")
+        records = profiles["nccl1"]["names"] - profiles["graph"]["names"]
+        print(f"data parallel (a): MultiStep({SPC}) under a 1-rank NCCL group equals the graph without one bit for "
+              f"bit ({SPC_CALLS} calls: losses, {len(plain['params'])} leaves, {len(plain['buffers'])} u); its "
+              f"graph holds {sum(nodes['nccl1'].values())} nodes, the plain graph's {sum(nodes['graph'].values())} "
+              f"and {SPC} x one all_reduce_mean_ of {n_grads:,} gradients and {len(nccl['keys'])} scalars "
+              f"({short_nodes(alone)}; {reduce_ms:.4f} device ms alone, {n_grads * GRAD_BYTES / 1e6:.1f} MB); "
+              f"a profiled replay's device records beyond the plain graph's: {dict(records)} [{ident}]")
+        times = {"graph": [], "nccl1": []}
+        for name in ("graph", "nccl1", "nccl1", "graph"):
+            call = (plain if name == "graph" else nccl)["replay"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scalars = call()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / SPC)
+            check(all(bool(torch.isfinite(v)) for v in scalars.values()), "(d): non-finite timed losses")
+        print("data parallel (d): ms a step in turns (graph, nccl1, nccl1, graph): " + "; ".join(
+            f"{name} {', '.join(str(t) for t in times[name])}, busy {profiles[name]['busy_share']} "
+            f"({profiles[name]['busy_ms']} ms, {profiles[name]['device_ops']} device ops a step)" for name in times)
+            + f"; the all-reduce {reduce_ms} device ms a step [{ident}]")
+    finally:
+        dist.destroy_process_group()
+    del plain, nccl, ts, tensors
+    torch.cuda.empty_cache()
+    return {"graph_ms": times["graph"], "nccl1_graph_ms": times["nccl1"],
+            "graph_busy_share": profiles["graph"]["busy_share"], "nccl1_busy_share": profiles["nccl1"]["busy_share"],
+            "allreduce_device_ms": reduce_ms, "allreduce_mb": n_grads * GRAD_BYTES / 1e6,
+            "allreduce_device_ops": sum(alone.values()), "bitwise": True}
+
+
+def dp_cli_phase() -> None:
+    """Phase 25, the CLI: ``torchrun --standalone --nproc_per_node 1 -m
+    video_prediction_torch.train --steps_per_call 4 --max_steps 8`` on the
+    synthetic data (flagship, batch 16), then ``--resume`` to 12: rank 0's
+    option files, checkpoints and event files, the summaries read back."""
+    import glob
+    import shutil
+
+    from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.utils.summary import read_events
+
+    run_dir = os.path.join(WORK_DIR, "train_dp")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+            "-m", "video_prediction_torch.train", "--dataset", "synthetic", "--model", "savp",
+            "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+            "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+            "--steps_per_call", str(SPC), "--progress_freq", str(SPC), "--summary_freq", str(SPC),
+            "--image_summary_freq", "8", "--save_freq", "8", "--seed", str(DP_SEED)]
+    first, end = DP_CLI_STEPS
+    t0 = time.perf_counter()
+    outs = []
+    for extra in (["--max_steps", str(first)], ["--max_steps", str(end), "--resume"]):
+        proc = subprocess.run(argv + extra, cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT)
+        check(proc.returncode == 0, f"torchrun train {extra}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-3000:]}")
+        outs.append(proc.stdout)
+    wall = time.perf_counter() - t0
+    check("data parallel: 1 ranks (nccl)" in outs[0] and f"done at step {first}" in outs[0],
+          f"torchrun train: {outs[0][-2000:]}")
+    check(f"resumed from step {first}" in outs[1] and f"done at step {end}" in outs[1],
+          f"torchrun train --resume: {outs[1][-2000:]}")
+    for name in ("options.json", "model_hparams.json", "dataset_hparams.json", "checkpoints/train_state.pt",
+                 "checkpoints/params.pt"):
+        check(os.path.isfile(os.path.join(run_dir, name)), f"torchrun train wrote no {name}")
+    state = torch.load(os.path.join(run_dir, "checkpoints", "train_state.pt"), weights_only=True)
+    check(state["step"] == end, f"the checkpoint is at step {state['step']}, want {end}")
+    files = sorted(glob.glob(os.path.join(run_dir, "events.out.tfevents.*")))
+    check(len(files) == 2, f"want one event file a run, got {files}")
+    tags = {}
+    for path in files:
+        for event in read_events(path):
+            for tag, _ in event.values:
+                tags.setdefault(tag, []).append(event.step)
+    check(tags.get("g_loss") == [4, 8, 12] and tags.get("gen_images") == [8],
+          f"torchrun train: summaries at {tags.get('g_loss')}, GIFs at {tags.get('gen_images')}")
+    print(f"torchrun --standalone --nproc_per_node 1 train --steps_per_call {SPC}: --max_steps {first}, then "
+          f"--resume to {end}, {wall:.2f} s wall (two launches, set-up, captures and checkpoints included); rank 0 "
+          f"wrote the option files, checkpoints and {len(files)} event files ({len(tags)} tags)")
+
+
+def dp_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
+    """Phase 25: data-parallel training over ``torch.distributed`` (see the
+    module docstring): (a) and (d)'s graphs (``dp_graph_phase``), the CLI
+    under ``torchrun`` (``dp_cli_phase``), (b) two gloo ranks on this card
+    and (c) two NCCL ranks where there are two cards."""
+    t_phase = time.perf_counter()
+    graphs = dp_graph_phase(dev, ident, per_step)
+    dp_cli_phase()
+    torch.cuda.empty_cache()
+    ref = dp_run(dev, 1, DP_STEPS)
+    ranks, wall = dp_spawn("dp_gloo", "gloo", ["cuda:0", "cuda:0"], 1, DP_STEPS)
+    gloo = dp_compare("(b) gloo, two processes on cuda:0", ref, ranks, per_step, 1)
+    gloo_ms = ranks[0]["ms"][1:]  # the first step sets up cuDNN and the kernels
+    print(f"data parallel (d): the gloo pair, two processes sharing one card (not a scaling figure), ms a step "
+          f"{gloo_ms} against one process's {ref['ms'][1:]} on the whole batch; {wall:.2f} s wall with the "
+          f"processes' set-up [{ident}]")
+    cards = torch.cuda.device_count()
+    nccl2 = None
+    if cards >= 2:
+        ref4 = dp_run(dev, SPC, SPC_CALLS)
+        ranks4, _ = dp_spawn("dp_nccl2", "nccl", ["cuda:0", "cuda:1"], SPC, SPC_CALLS)
+        nccl2 = dp_compare(f"(c) NCCL, two cards, MultiStep({SPC})", ref4, ranks4, per_step, SPC)
+        nccl2["ms"] = ranks4[0]["ms"]
+    print(f"data parallel (c): NCCL at world size 2 {'ran' if nccl2 else 'not run'} ({cards} CUDA device"
+          f"{'s' if cards != 1 else ''})")
+    for entry in (e for e in kernel_results if e["name"] in per_step):
+        entry["data_parallel"] = {
+            "launches_per_rank_per_step": per_step[entry["name"]], **graphs, "gloo_pair_ms": gloo_ms,
+            "gloo_one_process_ms": ref["ms"][1:], "gloo_figures": gloo, "nccl_world2": nccl2}
+    print(f"phase 25 (data parallel): {time.perf_counter() - t_phase:.2f} s wall")
+
+
 def dtype_of(hp, name: str) -> str:
     """The dtype ``name`` launches on in the model of ``hp``: K2 in the gate dtype, K1 and K3 fp32."""
     return hp.gate_dtype if name.startswith("fused_ln_gate") else "float32"
@@ -2884,13 +3388,18 @@ def main() -> int:
         # 24. --steps_per_call: K train steps as one CUDA graph, against
         # eager steps; its launches, times and memory; the CLI with summaries
         spc_phase(dev, ident, per_train_step, kernel_results)
+
+        # 25. data parallel over torch.distributed: a 1-rank NCCL graph against
+        # the graph without a group; the CLI under torchrun; two gloo ranks on
+        # this card (and two NCCL ranks where there are two cards) against one process
+        dp_phase(dev, ident, per_train_step, kernel_results)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
-    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)
@@ -2901,4 +3410,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == [DP_WORKER] else main())

@@ -226,6 +226,18 @@ def test_k_step_call_refuses_unstacked_batches_and_a_bad_k():
     assert ts.step == 0
 
 
+@pytest.mark.parametrize("keep_graph", [False, True])
+def test_dump_graph_needs_a_kept_captured_graph(tmp_path, keep_graph):
+    """``dump_graph`` raises before a capture, and for a graph not kept
+    (a CPU call captures nothing)."""
+    step = MultiStep(STEPS)
+    step.keep_graph = keep_graph
+    step(_state(_port_model(), STEPS), _stack(_batches()))
+    with pytest.raises(ValueError, match="keep_graph"):
+        step.dump_graph(str(tmp_path / "graph.dot"))
+    assert not (tmp_path / "graph.dot").exists()
+
+
 # ---- the feeder, the Adams, the counters ----------------------------------- #
 
 

@@ -7,11 +7,14 @@ reports; the run directory it writes is one ``generate`` reads; a params
 file without discriminators still loads for generation; ``--profile_steps``
 writes a trace and leaves the losses as they were; ``--steps_per_call``
 fires each frequency on the crossing of one of its multiples, overshoots
-``--max_steps`` and resumes, also from a run of one step a call."""
+``--max_steps`` and resumes, also from a run of one step a call; two ranks
+over gloo write from rank 0 only, seed their streams ``--seed`` plus their
+rank and resume from and into one process."""
 
 import json
 import os
 import shutil
+import textwrap
 from pathlib import Path
 
 import pytest
@@ -355,3 +358,108 @@ def test_a_run_of_one_step_a_call_resumes_with_two(tmp_path):
     for opt in ("opt_g", "opt_d"):
         assert all(int(slots["step"]) == 4 for slots in state[opt]["state"].values())
         assert torch.is_tensor(state[opt]["param_groups"][0]["lr"])
+
+
+# ---- data parallel: two ranks over gloo ----------------------------------- #
+
+# one rank of the CLI under a 2-rank group (argv: the job directory, the rank):
+# it records the paths it opens for writing, the streams it opens (mode, seed,
+# batch) and the model's state at each checkpoint call
+CLI_WORKER = textwrap.dedent(
+    """
+    import builtins, json, sys
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    import video_prediction_torch.data as data
+    from video_prediction_torch.parallel.distributed import maybe_initialize
+    from video_prediction_torch.train import checkpoint
+    from video_prediction_torch.train.__main__ import main
+
+    path, rank = sys.argv[1], int(sys.argv[2])
+    with open(f"{path}/argv.json") as f:
+        argv = json.load(f)
+    written, streams, states = [], [], []
+    real_open, real_save = builtins.open, torch.save
+    real_get, real_state = data.get_dataset_class, checkpoint.save_train_state
+
+    def spy_open(file, mode="r", *args, **kwargs):
+        if any(c in mode for c in "wxa+"):
+            written.append(str(file))
+        return real_open(file, mode, *args, **kwargs)
+
+    def spy_save(obj, f, *args, **kwargs):
+        written.append(str(f))
+        return real_save(obj, f, *args, **kwargs)
+
+    def spy_get(name):
+        class Spy(real_get(name)):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                self.spied = (kwargs["mode"], kwargs["seed"])
+
+            def make_iterator(self, batch_size, *args, **kwargs):
+                streams.append((*self.spied, batch_size))
+                return super().make_iterator(batch_size, *args, **kwargs)
+        return Spy
+
+    def spy_state(run_dir, ts):
+        states.append({k: v.detach().clone() for k, v in ts.model.state_dict().items()})
+        real_state(run_dir, ts)
+
+    builtins.open, torch.save = spy_open, spy_save
+    data.get_dataset_class, checkpoint.save_train_state = spy_get, spy_state
+    assert maybe_initialize(f"file://{path}/rendezvous", 2, rank, device="cpu")
+    try:
+        summary = main(argv)
+    finally:
+        dist.destroy_process_group()
+        builtins.open, torch.save = real_open, real_save
+    out = {"summary": summary, "written": written, "streams": streams, "state": states[-1]}
+    torch.save(out, f"{path}/rank{rank}.pt")
+    """
+)
+
+
+def test_two_ranks_write_from_rank_0_seed_their_streams_and_resume_across_world_sizes(tmp_path):
+    """A world-1 run of 2 steps, resumed by 2 ranks (gloo, ``--steps_per_call
+    2``, global ``--batch_size 2``) to 4 with the summaries, a GIF and an eval
+    firing, resumed again by one process to 5: only rank 0 writes (the option
+    files, one event file, the checkpoints); rank r reads train and val
+    streams of one example seeded ``--seed`` + r; both ranks end with the same
+    parameters, ``u``s and scalars, and the world-1 resume restores rank 0's
+    state."""
+    from test_torch_parallel import spawn
+
+    run = tmp_path / "run"
+    first = _train(run, 2)
+    assert first["step"] == 2
+    argv = ["--dataset", "synthetic", "--model", "savp", "--model_hparams_dict", str(ZOO), "--model_hparams", SMALL,
+            "--output_dir", str(run), "--max_steps", "4", "--batch_size", "2", "--device", "cpu", "--resume",
+            "--seed", str(SEED), "--steps_per_call", "2", "--progress_freq", "2", "--summary_freq", "2",
+            "--image_summary_freq", "4", "--eval_summary_freq", "4", "--save_freq", "2"]
+    (tmp_path / "argv.json").write_text(json.dumps(argv))
+    events_before = sorted(run.glob("events.out.tfevents.*"))
+    spawn(CLI_WORKER, tmp_path)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    for r, out in enumerate(ranks):
+        assert (out["summary"]["start_step"], out["summary"]["step"]) == (2, 4) and out["summary"]["all_finite"]
+        assert sorted(out["streams"]) == [("train", SEED + r, 1), ("val", SEED + r, 1)]
+    assert ranks[0]["summary"]["scalars"] == ranks[1]["summary"]["scalars"]
+    assert "eval/psnr" in ranks[0]["summary"]["summaries"]
+    assert not [p for p in ranks[1]["written"] if p.startswith(str(run))], ranks[1]["written"]
+    names = {os.path.basename(p) for p in ranks[0]["written"]}
+    assert {"options.json", "model_hparams.json", "dataset_hparams.json", "train_state.pt.tmp",
+            "params.pt.tmp"} <= names, names
+    events = sorted(run.glob("events.out.tfevents.*"))
+    assert len(events) == len(events_before) + 1
+    for k, v in ranks[0]["state"].items():
+        assert torch.equal(v, ranks[1]["state"][k]), k
+    saved = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    assert saved["step"] == 4
+    for k, v in ranks[0]["state"].items():
+        assert torch.equal(saved["model"][k], v), k
+
+    resumed = _train(run, 5, resume=True)
+    assert (resumed["start_step"], resumed["step"]) == (4, 5) and resumed["all_finite"]

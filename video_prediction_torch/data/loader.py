@@ -24,8 +24,10 @@ does), which takes the same path: the train step of K steps a call
 (``train/step.py``) reads it. A last group short of K batches is dropped. An
 error in the host iterator or the copy reaches the consumer
 at its next ``next()``; the end of the host iterator ends the feeder with
-``StopIteration``; ``close()`` stops the thread. No multi-device placement:
-the port has none (``ROADMAP.md`` queue 1).
+``StopIteration``; ``close()`` stops the thread. Data parallel (one process
+per GPU, ``parallel/``): each rank's feeder carries that rank's rows to its
+own device, ``cuda:LOCAL_RANK``: its side stream is made there, and its
+thread makes that device current before it pins and copies.
 """
 
 from __future__ import annotations
@@ -95,6 +97,8 @@ class DeviceFeeder:
 
     def _work(self):
         try:
+            if self._cuda:  # a new thread starts on cuda:0, which is another rank's GPU
+                torch.cuda.set_device(self._device)
             slot = 0
             for batch in self._it:
                 if self._stop.is_set():

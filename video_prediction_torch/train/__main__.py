@@ -57,7 +57,27 @@ GPU, device activity), synchronizes the device before it stops, as
 ``scripts/train.py:265-267`` does, and writes the trace to
 ``output_dir/profile/trace_<start>-<stop>.json``; the losses are those of a
 run without it.
+
+Data parallel, one process per GPU (the counterpart of ``scripts/train.py``'s
+multi-host parts, ``parallel/``)::
+
+    torchrun --standalone --nproc_per_node N -m video_prediction_torch.train --batch_size 64 ...
+
+joins the process group that ``torchrun``'s environment describes (NCCL on
+CUDA, gloo with ``--device cpu``); ``--device cuda`` is then
+``cuda:LOCAL_RANK``. ``--batch_size`` stays the global batch: each rank
+reads its share (``per_host_batch``) from train and val streams seeded
+``--seed`` plus its rank, the step mean-reduces the gradients and the
+losses over the ranks, and the printed frames/s count the global batch.
+Every rank builds the state from ``--seed`` (or resumes or warm-starts
+it), then takes rank 0's parameters and buffers. Only rank 0 writes: the
+option files, the event file and its GIFs (of rank 0's rows), the
+printed summaries and progress, the profile and the checkpoints. Every
+rank runs every collective at the same steps. The process group is
+destroyed at exit, on an error too; after an error under a group no final
+checkpoint is written, since the other ranks may be inside a collective.
 """
+
 
 from __future__ import annotations
 
@@ -123,11 +143,28 @@ def main(argv=None) -> Dict[str, object]:
     printed or returned was finite (``all_finite``)."""
     args = parse_args(argv)
 
+    import torch.distributed as dist
+
+    from video_prediction_torch.parallel.distributed import local_device, maybe_initialize
+
+    created = maybe_initialize(device=args.device)
+    try:
+        return _main(args, local_device(args.device))
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args, device: torch.device) -> Dict[str, object]:
+    import torch.distributed as dist
+
     from video_prediction_torch.configs.hparams import apply_overrides, load_hparams_json, parse_overrides
     from video_prediction_torch.data import DeviceFeeder, get_dataset_class
     from video_prediction_torch.generate import batch_to_device
     from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.models.base import images_to_float
+    from video_prediction_torch.parallel.distributed import is_primary, per_host_batch, rank
+    from video_prediction_torch.parallel.mesh import broadcast_module_
     from video_prediction_torch.train import schedules
     from video_prediction_torch.train.checkpoint import (
         has_train_state,
@@ -138,11 +175,11 @@ def main(argv=None) -> Dict[str, object]:
     )
     from video_prediction_torch.train.state import create_train_state, param_count, split_params
     from video_prediction_torch.train.step import make_eval_step, make_train_step
-    from video_prediction_torch.utils.device import device_or_raise
     from video_prediction_torch.utils.gif import encode_gif, tile_image_grid
     from video_prediction_torch.utils.summary import EventWriter
 
-    device = device_or_raise(args.device)
+    group = dist.group.WORLD if dist.is_initialized() else None
+    primary = is_primary()
     prof_start, prof_stop = parse_profile_steps(args.profile_steps)
 
     # ---- hparams, resolved as scripts/train.py resolves them ----
@@ -171,29 +208,39 @@ def main(argv=None) -> Dict[str, object]:
     spc = args.steps_per_call
     if spc < 1:
         raise ValueError(f"--steps_per_call must be at least 1, got {spc}")
-    host_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
+    local_bs = per_host_batch(hp.batch_size)
+    # the process index folded into the data seed only, as scripts/train.py does: every
+    # rank reads other examples, while the weights and the noise are seeded alike
+    data_seed = args.seed + rank()
+    host_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=data_seed).make_iterator(local_bs)
     batch = next(host_iter)
     # the first batch fixes the parameter shapes, as in the JAX package's init
     model = model_cls(hp, **input_dims(hp, batch))
     ts = create_train_state(model, args.seed, device, steps_per_call=spc)
     g_params, d_params = split_params(model)
-    print(f"device: {device}; generator params: {param_count(g_params):,}; "
-          f"discriminator params: {param_count(d_params):,}")
+    log = print if primary else _quiet
+    log(f"device: {device}; generator params: {param_count(g_params):,}; "
+        f"discriminator params: {param_count(d_params):,}")
+    if group is not None:
+        log(f"data parallel: {dist.get_world_size()} ranks ({dist.get_backend()}), {local_bs} of the global batch of "
+            f"{hp.batch_size} a rank")
     warm_started = []
     if args.resume and has_train_state(args.output_dir):
         # the whole train state; the data stream is not replayed up to the
         # step: training goes on from the batch above, as in the JAX CLI
         load_train_state(args.output_dir, ts)
-        print(f"resumed from step {ts.step}")
+        log(f"resumed from step {ts.step}")
     elif args.checkpoint:
         warm_started = warm_start(args.checkpoint, ts.model)
-        print(f"warm-started {len(warm_started)} of {len(list(ts.model.parameters()))} params from {args.checkpoint}")
-    train_step = make_train_step(model, steps_per_call=spc)
-    eval_step = make_eval_step(model)
+        log(f"warm-started {len(warm_started)} of {len(list(ts.model.parameters()))} params from {args.checkpoint}")
+    if group is not None:
+        broadcast_module_(ts.model, 0, group)
+    train_step = make_train_step(model, steps_per_call=spc, group=group)
+    eval_step = make_eval_step(model, group=group)
     # one persistent val iterator: successive eval firings walk on through the
     # validation set, as in the JAX CLI
     val_dir = args.val_input_dir or args.input_dir
-    val_iter = dataset_cls(val_dir, mode="val", hparams=dhp, seed=args.seed).make_iterator(hp.batch_size)
+    val_iter = dataset_cls(val_dir, mode="val", hparams=dhp, seed=data_seed).make_iterator(local_bs)
 
     # ---- loop ----
     start_step = step = ts.step
@@ -203,11 +250,11 @@ def main(argv=None) -> Dict[str, object]:
     scalars: Dict[str, torch.Tensor] = {}
     summaries: Dict[str, float] = {}
     all_finite = True
-    writer = None if args.no_tensorboard else EventWriter(args.output_dir)
+    writer = None if args.no_tensorboard or not primary else EventWriter(args.output_dir)
 
     def write(at: int, kind: str, vals: Dict[str, float]) -> None:
         summaries.update(vals)
-        print(f"{kind} step {at}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
+        log(f"{kind} step {at}: " + " ".join(f"{k}={v:.6g}" for k, v in vals.items()), flush=True)
         if writer is not None:
             writer.scalars(at, vals)
 
@@ -219,10 +266,11 @@ def main(argv=None) -> Dict[str, object]:
     # stacked [K, B, ...] for K steps a call
     train_iter = DeviceFeeder(_prepend(batch, host_iter), device, stack=spc)
     profiler: Optional[torch.profiler.profile] = None
+    finished = False
     try:
         batch = next(train_iter)
         while step < hp.max_steps:
-            if profiler is None and step <= prof_start < step + spc:
+            if primary and profiler is None and step <= prof_start < step + spc:
                 profiler = _start_profiler(device)
             scalars = train_step(ts, batch)
             batch = next(train_iter)  # taken while the steps run on the device
@@ -238,15 +286,16 @@ def main(argv=None) -> Dict[str, object]:
                 if hp.kl_weight:
                     vals["kl_weight"] = hp.kl_weight * schedules.kl_weight(prev, hp)
                 write(step, "summary", vals)
-            if crossed(gif_freq) and writer is not None:
+            if crossed(gif_freq) and not args.no_tensorboard:  # on every rank: eval_step reduces the metrics
                 # the batch fetched next (its last, stacked), as the JAX CLI takes it
                 last = batch if spc == 1 else {k: v[-1] for k, v in batch.items()}
                 rng = torch.Generator(device=device).manual_seed(args.seed + step)
                 gen, _ = eval_step(last, generator=rng)
                 gt = images_to_float(last["images"])
                 side = torch.cat([gt[:, 1:], gen], dim=3)  # [B, T-1, H, 2W, C]: ground truth | prediction
-                grid = tile_image_grid(side[:8].cpu().numpy())
-                writer.image(step, "gen_images", encode_gif(grid, fps=4), *grid.shape[1:])
+                if writer is not None:  # rank 0's rows, as scripts/train.py's _local_np gives them
+                    grid = tile_image_grid(side[:8].cpu().numpy())
+                    writer.image(step, "gen_images", encode_gif(grid, fps=4), *grid.shape[1:])
             for freq, n_eval, prefix in ((args.eval_summary_freq, 8, "eval"),
                                          (args.accum_eval_summary_freq, 64, "accum_eval")):
                 if crossed(freq):
@@ -262,21 +311,23 @@ def main(argv=None) -> Dict[str, object]:
                 g_loss, d_loss = float(scalars["g_loss"]), float(scalars["d_loss"])  # waits for the steps
                 all_finite &= math.isfinite(g_loss) and math.isfinite(d_loss)
                 sps = (step - last_timed_step) / (time.perf_counter() - t_last)
-                print(f"step {step}: g_loss={g_loss:.4f} d_loss={d_loss:.4f} "
-                      f"steps/s={sps:.2f} frames/s={sps * frames_per_step:.0f}", flush=True)
+                log(f"step {step}: g_loss={g_loss:.4f} d_loss={d_loss:.4f} "
+                    f"steps/s={sps:.2f} frames/s={sps * frames_per_step:.0f}", flush=True)
                 t_last, last_timed_step = time.perf_counter(), step
             if crossed(args.save_freq):
                 save_train_state(args.output_dir, ts)
+        finished = True
     finally:
         if profiler is not None:  # the run ended inside the window
             _stop_profiler(profiler, device, args.output_dir, prof_start, ts.step - 1)
         train_iter.close()
         if writer is not None:
             writer.close()
-        save_train_state(args.output_dir, ts)
+        if finished or group is None:  # after an error the other ranks may be inside a collective
+            save_train_state(args.output_dir, ts)
     final = {k: float(v) for k, v in scalars.items()}
     all_finite &= all(math.isfinite(v) for v in final.values())
-    print(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
+    log(f"done at step {ts.step}; checkpoints in {args.output_dir}/checkpoints")
     return {"start_step": start_step, "step": ts.step, "scalars": final, "summaries": summaries,
             "warm_started": warm_started, "all_finite": all_finite}
 
@@ -303,6 +354,10 @@ def _stop_profiler(profiler: torch.profiler.profile, device: torch.device, outpu
     path = os.path.join(trace_dir, f"trace_{start}-{stop}.json")
     profiler.export_chrome_trace(path)
     print(f"profile of steps {start}-{stop}: {path}", flush=True)
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on ranks other than 0."""
 
 
 def _prepend(first, rest):

@@ -13,6 +13,11 @@ package's ``scripts/train.py`` writes — and the port's own checkpoints:
 
 (The JAX package's orbax checkpoints cannot be read without jax;
 ``convert.py`` maps a flax params tree to the ``state_dict``.)
+
+Under a process group (``parallel/distributed.py``) the writers write on rank
+0 only, then every rank waits at a barrier, so that no rank reads a file
+before it is whole; every rank calls them alike. The readers run on every
+rank.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from video_prediction_torch.configs.hparams import DatasetHparams, ModelHparams
+from video_prediction_torch.parallel.distributed import barrier, is_primary
 from video_prediction_torch.train.state import load_optimizer
 
 PARAMS_FILE = os.path.join("checkpoints", "params.pt")
@@ -43,7 +49,9 @@ def _cpu_state_dict(model: nn.Module):
 
 
 def save_params(run_dir: str, model: nn.Module) -> None:
-    _save(_cpu_state_dict(model), os.path.join(run_dir, PARAMS_FILE))
+    if is_primary():
+        _save(_cpu_state_dict(model), os.path.join(run_dir, PARAMS_FILE))
+    barrier()
 
 
 def load_params(run_dir: str, model: nn.Module, device: Optional[torch.device] = None) -> None:
@@ -83,13 +91,15 @@ def warm_start(run_dir: str, model: nn.Module) -> List[str]:
 
 def write_options(run_dir: str, model_name: str, dataset_name: str, hparams: ModelHparams,
                   dataset_hparams: DatasetHparams, seed: int = 0) -> None:
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "options.json"), "w") as f:
-        json.dump({"model": model_name, "dataset": dataset_name, "seed": seed}, f, indent=2)
-    with open(os.path.join(run_dir, "model_hparams.json"), "w") as f:
-        json.dump(hparams.to_dict(), f, indent=2)
-    with open(os.path.join(run_dir, "dataset_hparams.json"), "w") as f:
-        json.dump(dataset_hparams.to_dict(), f, indent=2)
+    if is_primary():
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "options.json"), "w") as f:
+            json.dump({"model": model_name, "dataset": dataset_name, "seed": seed}, f, indent=2)
+        with open(os.path.join(run_dir, "model_hparams.json"), "w") as f:
+            json.dump(hparams.to_dict(), f, indent=2)
+        with open(os.path.join(run_dir, "dataset_hparams.json"), "w") as f:
+            json.dump(dataset_hparams.to_dict(), f, indent=2)
+    barrier()
 
 
 def write_run_dir(run_dir: str, model_name: str, dataset_name: str, hparams: ModelHparams,
@@ -101,13 +111,14 @@ def write_run_dir(run_dir: str, model_name: str, dataset_name: str, hparams: Mod
 def save_train_state(run_dir: str, ts) -> None:
     """Write ``checkpoints/train_state.pt`` and ``checkpoints/params.pt`` for
     the train state ``ts`` (``train.state.TrainState``)."""
-    _save({
-        "step": ts.step,
-        "model": _cpu_state_dict(ts.model),
-        "opt_g": ts.opt_g.state_dict() if ts.opt_g is not None else None,
-        "opt_d": ts.opt_d.state_dict() if ts.opt_d is not None else None,
-        "rng": ts.rng.get_state(),
-    }, os.path.join(run_dir, TRAIN_STATE_FILE))
+    if is_primary():
+        _save({
+            "step": ts.step,
+            "model": _cpu_state_dict(ts.model),
+            "opt_g": ts.opt_g.state_dict() if ts.opt_g is not None else None,
+            "opt_d": ts.opt_d.state_dict() if ts.opt_d is not None else None,
+            "rng": ts.rng.get_state(),
+        }, os.path.join(run_dir, TRAIN_STATE_FILE))
     save_params(run_dir, ts.model)
 
 

@@ -12,6 +12,14 @@ the learning rate a 0-d float32 tensor on the parameters' device, which the
 step writes in place each step, and, on CUDA, ``capturable=True`` (Adam's
 step count and bias corrections on the device), so that a CUDA graph holds
 the whole update. ``load_optimizer`` restores a saved Adam into either kind.
+
+Data parallel (``parallel/``): every rank builds the same state, the weights
+from the same seed and the noise generator seeded alike, so that every rank
+draws the global batch's noise and keeps its slice (``train/step.py``); the
+train CLI then broadcasts rank 0's parameters and buffers
+(``parallel/mesh.py#broadcast_module_``) after the state is built, resumed or
+warm-started. The state holds nothing per rank, so a checkpoint written at
+one world size resumes at another.
 """
 
 from __future__ import annotations
@@ -90,7 +98,7 @@ def create_train_state(model: nn.Module, seed: int, device: torch.device | str,
     """Initialize ``model`` from ``seed`` (on the CPU, so every device gets the
     same weights), move it to ``device`` and build the optimizers for
     ``steps_per_call``; the step noise comes from a generator on ``device``
-    seeded with ``seed + 1``."""
+    seeded with ``seed + 1``, on every rank alike."""
     model.init_weights(torch.Generator().manual_seed(seed))
     model.to(device)
     opt_g, opt_d = make_optimizers(model, steps_per_call)

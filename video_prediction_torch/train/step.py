@@ -3,7 +3,8 @@ spectral ``u`` update), K of them in one call, and the eval step (the prior
 rollout and its metrics).
 
 Port of ``video_prediction_tpu/train/step.py#make_train_step`` and
-``#make_eval_step`` for one device. ``compute_losses`` places the detaches so
+``#make_eval_step``, on one device or data parallel over a process group
+(``group``: one process per GPU, ``parallel/``). ``compute_losses`` places the detaches so
 that one backward of ``g_loss + d_loss`` gives each side its own gradients,
 as the reference's joint ``sess.run`` does. With ``compute_dtype`` bfloat16
 the parameters, their gradients and Adam's moments stay fp32, and there is
@@ -31,6 +32,22 @@ A capture or replay error raises: there is no eager fallback. The train
 state must have Adams built for K > 1 (``state.make_optimizers``). The
 kernel wrappers count their launches as Python calls, so the capture's
 counts are taken back out and added once per replay.
+
+Data parallel (``group``, the counterpart of the JAX step's mesh
+``in_shardings`` and the gradient ``psum`` XLA emits from them): each rank
+takes its rows of the global batch, and its slice of the noise drawn for
+the global batch (``ts.rng`` is seeded alike on every rank, so every rank
+draws the same global noise, ``parallel/mesh.py#shard_noise``). After the
+backward every rank mean-reduces all gradients, and the step's scalars, in
+one flat all-reduce, then applies the same Adam update, so the ranks'
+parameters and spectral ``u``s stay equal and a step of W ranks equals the
+one-process step on the whole batch. Plain collectives, not
+``DistributedDataParallel``: one backward feeds two Adams and some leaves
+get no gradient, which DDP would need ``find_unused_parameters`` for, and
+that does not capture into a CUDA graph. With NCCL the all-reduce is
+captured into ``MultiStep``'s graph (its eager first call also creates the
+communicator); gloo collectives do not capture, so a ``MultiStep`` on CUDA
+tensors under gloo raises.
 """
 
 from __future__ import annotations
@@ -39,8 +56,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from video_prediction_torch import kernels as K
+from video_prediction_torch.parallel.mesh import all_reduce_mean_, shard_noise
 from video_prediction_torch.train import schedules
 from video_prediction_torch.train.state import TrainState
 
@@ -48,41 +67,67 @@ Scalars = Dict[str, torch.Tensor]
 
 
 def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict[str, Any]],
-            step: int | torch.Tensor) -> Scalars:
+            step: int | torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> Scalars:
     """One train step at ``step`` (an int, or a 0-d tensor on the batch's
     device) on ``batch`` with ``noise`` (drawn from ``ts.rng`` when None):
-    the backward pass, both Adam updates and the spectral ``u``. Returns the
-    step's 0-d loss tensors; ``ts.step`` is left to the caller."""
+    the backward pass, the mean over ``group``'s ranks of the gradients and
+    scalars, both Adam updates and the spectral ``u``. Returns the step's
+    0-d loss tensors; ``ts.step`` is left to the caller."""
     total, aux = ts.model.compute_losses(batch, step, noise=noise, generator=ts.rng)
     optimizers = [opt for opt in (ts.opt_g, ts.opt_d) if opt is not None]
     for opt in optimizers:
         opt.zero_grad(set_to_none=True)
     total.backward()
-    lr = schedules.learning_rate(step, ts.model.hparams)  # optax reads the count before it increments
+    grads = []
     for opt in optimizers:
-        for group in opt.param_groups:
-            if torch.is_tensor(group["lr"]):
-                group["lr"].fill_(lr)  # in place: a captured graph reads this tensor
-            else:
-                group["lr"] = lr
-            for p in group["params"]:
+        for param_group in opt.param_groups:
+            for p in param_group["params"]:
                 if p.grad is None:  # optax updates every leaf, with a zero gradient if need be
                     p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+    scalars = {
+        "g_loss": aux["g_loss"].detach(),
+        "d_loss": aux["d_loss"].detach(),
+        **{f"g/{k}": v.detach() for k, v in aux["g_losses"].items()},
+        **{f"d/{k}": v.detach() for k, v in aux["d_losses"].items()},
+    }
+    if group is not None:  # every rank the same layout: the zero gradients above first
+        all_reduce_mean_(grads + list(scalars.values()), group)
+    lr = schedules.learning_rate(step, ts.model.hparams)  # optax reads the count before it increments
+    for opt in optimizers:
+        for param_group in opt.param_groups:
+            if torch.is_tensor(param_group["lr"]):
+                param_group["lr"].fill_(lr)  # in place: a captured graph reads this tensor
+            else:
+                param_group["lr"] = lr
         opt.step()
     with torch.no_grad():
         for key, layers in aux["new_state"].get("spectral", {}).items():
             disc = ts.model.discriminator[key]
             for layer, u in layers.items():
                 getattr(disc, layer).u.copy_(u)
-    return {
-        "g_loss": aux["g_loss"].detach(),
-        "d_loss": aux["d_loss"].detach(),
-        **{f"g/{k}": v.detach() for k, v in aux["g_losses"].items()},
-        **{f"d/{k}": v.detach() for k, v in aux["d_losses"].items()},
-    }
+    return scalars
 
 
-def make_train_step(model, steps_per_call: int = 1) -> Callable[..., Scalars]:
+def _rank_noise(ts: TrainState, images: torch.Tensor, noise: Optional[Dict[str, Any]],
+                group: dist.ProcessGroup) -> Dict[str, Any]:
+    """This rank's slice of the step noise: ``noise`` as drawn for the global
+    batch, or drawn so from ``ts.rng`` when None (``images`` ``[B, T, ...]``,
+    this rank's B rows)."""
+    world = dist.get_world_size(group)
+    if noise is None:
+        noise = ts.model.draw_noise(images.shape[0] * world, images.shape[1], ts.rng, images.device)
+    return shard_noise(noise, dist.get_rank(group), world)
+
+
+def _check_data_parallel(model, group: Optional[dist.ProcessGroup]) -> None:
+    if group is not None and dist.get_world_size(group) > 1 and model.hparams.schedule_sampling_exact:
+        raise ValueError("schedule_sampling_exact picks round(p * B) samples of the whole batch; a rank sees only "
+                         "its rows, so data-parallel training does not take it")
+
+
+def make_train_step(model, steps_per_call: int = 1,
+                    group: Optional[dist.ProcessGroup] = None) -> Callable[..., Scalars]:
     """The train step of ``model``, updating ``ts`` in place and returning the
     0-d loss tensors ``g_loss``, ``d_loss``, ``g/<term>`` and ``d/<term>``.
 
@@ -90,15 +135,21 @@ def make_train_step(model, steps_per_call: int = 1) -> Callable[..., Scalars]:
     step; ``noise`` as ``model.draw_noise`` gives it, drawn from ``ts.rng``
     when None. K > 1: a ``MultiStep``, ``train_step(ts, batches,
     noises=None)`` on batches stacked ``[K, B, ...]``, K steps and the last
-    one's scalars; ``noises`` a list of K such dicts."""
+    one's scalars; ``noises`` a list of K such dicts. ``group``: data
+    parallel over that process group; ``batch`` holds this rank's rows,
+    ``noise`` is drawn for the global batch (B x the world size rows) and the
+    scalars are the global means."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
+    _check_data_parallel(model, group)
     if steps_per_call > 1:
-        return MultiStep(steps_per_call)
+        return MultiStep(steps_per_call, group)
 
     def train_step(ts: TrainState, batch: Dict[str, torch.Tensor],
                    noise: Optional[Dict[str, Any]] = None) -> Scalars:
-        scalars = _update(ts, batch, noise, ts.step)
+        if group is not None:
+            noise = _rank_noise(ts, batch["images"], noise, group)
+        scalars = _update(ts, batch, noise, ts.step, group)
         ts.step += 1
         return scalars
 
@@ -116,10 +167,14 @@ class MultiStep:
     call returns the last row by ``keys``); ``calls`` counts the calls;
     after the capture ``capture_s`` is its host time in seconds and
     ``graph_launches`` the kernel launches of one replay (wrapper -> dtype
-    -> launches)."""
+    -> launches). ``group``: data parallel, as ``make_train_step``'s.
+    ``keep_graph``, set before the capture, keeps the captured
+    ``cudaGraph_t`` so that ``dump_graph`` can list its nodes."""
 
-    def __init__(self, steps_per_call: int):
+    def __init__(self, steps_per_call: int, group: Optional[dist.ProcessGroup] = None):
         self.k = steps_per_call
+        self.group = group
+        self.keep_graph = False
         self.calls = 0
         self.keys: List[str] = []
         self.scalars_by_step: Optional[torch.Tensor] = None
@@ -137,7 +192,7 @@ class MultiStep:
         stacked ``[K, len(keys)]`` and sets ``keys``."""
         rows = []
         for k in range(self.k):
-            scalars = _update(ts, {key: v[k] for key, v in batches.items()}, noises[k], step)
+            scalars = _update(ts, {key: v[k] for key, v in batches.items()}, noises[k], step, self.group)
             step.add_(1)
             rows.append(torch.stack([v.float() for v in scalars.values()]))
         self.keys = list(scalars)
@@ -151,7 +206,10 @@ class MultiStep:
         if noises is not None and len(noises) != self.k:
             raise ValueError(f"steps_per_call={self.k} takes {self.k} noise dicts, got {len(noises)}")
         images = batches["images"]
-        if noises is None:
+        if self.group is not None:  # the global batch's noise, this rank's slice
+            noises = [_rank_noise(ts, images[k], None if noises is None else noises[k], self.group)
+                      for k in range(self.k)]
+        elif noises is None:
             noises = [ts.model.draw_noise(images.shape[1], images.shape[2], ts.rng, images.device)
                       for _ in range(self.k)]
         if images.device.type == "cuda":
@@ -163,7 +221,16 @@ class MultiStep:
         self.scalars_by_step = table
         return {key: table[-1, i] for i, key in enumerate(self.keys)}
 
+    def check_capturable(self) -> None:
+        """Raise unless the group's collectives capture into a CUDA graph:
+        NCCL's do, gloo's do not (no eager fallback)."""
+        if self.group is not None and dist.get_backend(self.group) != "nccl":
+            raise ValueError(f"steps_per_call={self.k} on CUDA captures the steps into one CUDA graph, and "
+                             f"{dist.get_backend(self.group)}'s collectives do not capture: use the nccl backend "
+                             "or steps_per_call=1")
+
     def _check_state(self, ts: TrainState) -> None:
+        self.check_capturable()
         if self._ts is None:
             for opt in (ts.opt_g, ts.opt_d):
                 for group in opt.param_groups if opt is not None else ():
@@ -216,30 +283,46 @@ class MultiStep:
         table.record_stream(current)
         return table
 
+    def dump_graph(self, path: str) -> None:
+        """Write the captured graph's nodes (kernels by mangled name, copies,
+        sets) to ``path`` as a DOT file (``cudaGraphDebugDotPrint``)."""
+        if self._graph is None or not self.keep_graph:
+            raise ValueError("dump_graph needs a graph captured with keep_graph set")
+        self._graph.enable_debug_mode()  # debug_dump writes nothing without it
+        self._graph.debug_dump(path)
+
     def _capture(self, ts, batches, noises, step) -> None:
         before = K.launch_dtypes()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
         t0 = time.perf_counter()
         # thread_local: the data feeder's thread goes on copying batches on its own stream
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._out = self.steps(ts, batches, noises, step)
+        if self.keep_graph:
+            graph.instantiate()  # capture_end instantiates only a graph it does not keep
         self.capture_s = time.perf_counter() - t0
         self.graph_launches = _launch_delta(before, K.launch_dtypes())
         K.add_launches(self.graph_launches, -1)  # the capture launched nothing
         self._graph = graph
 
 
-def make_eval_step(model) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
+def make_eval_step(model, group: Optional[dist.ProcessGroup] = None
+                   ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """``eval_step(batch, zs_prior=None, generator=None) -> (gen_images,
     metrics)`` for ``model``: the prior rollout of ``forward(train=False)``
     and ``model.metrics_fn`` of it, under ``torch.inference_mode()``. The
     prior z is ``zs_prior`` when given, else drawn from ``generator`` (a
-    ``torch.Generator`` on the batch's device)."""
+    ``torch.Generator`` on the batch's device). ``group``: the 0-d metrics
+    are their means over its ranks (each on its own rows); ``gen_images``
+    are this rank's."""
 
     def eval_step(batch: Dict[str, torch.Tensor], zs_prior: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         with torch.inference_mode():
             out = model(batch, train=False, zs_prior=zs_prior, generator=generator)
-            return out["gen_images"], model.metrics_fn(out, batch)
+            metrics = model.metrics_fn(out, batch)
+            if group is not None:
+                all_reduce_mean_([v for v in metrics.values() if v.ndim == 0], group)
+            return out["gen_images"], metrics
 
     return eval_step
