@@ -183,6 +183,21 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     against the 1-rank NCCL graph, in turns, each one's busy share, the
     all-reduce's device ms a step, and the gloo pair's ms a step (two
     processes sharing one card: no scaling figure).
+26. spatial partitioning (``--spatial_shards``, ``parallel/spatial.py``):
+    (a) two gloo processes on this card at dp1 x sp2 (each rank the 16
+    samples' half of the rows), 3 steps of the flagship, TF32 off and
+    cuDNN's deterministic algorithms, against phase 25 (b)'s one process
+    under phase 25's ``dp_compare``, with the all-reduces a rank a step
+    counted (calls and MB) and ms a step; (b) K1 on the halo-extended shard
+    [32, 36, 64, 3] (and checked on 128 px's [32, 68, 128, 3]), K2 at the
+    six (R, C) of H/2 in fp32 and bf16, K3 over 2048 pixels at batches 16
+    and 32, forward and backward against their plain versions, timed as
+    phases 3-4; (c) ``--spatial_shards 1`` in phase 25's ``torchrun`` run,
+    its log's ``spatial axis: 1`` (k = 2 under NCCL needs two cards); (d)
+    the peak memory allocated of each rank in (a) against the one process,
+    and of ``kth/ours_savp_128`` (128 px, 20 frames), one step, one process
+    alone at batch 16 (whether it fits), then at 8 alone and as the gloo
+    pair;
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -228,6 +243,13 @@ fields:
   ``allreduce_mb`` and ``allreduce_device_ops`` (its graph nodes), ``gloo_pair_ms`` beside
   ``gloo_one_process_ms`` (steps 2-3), ``gloo_figures`` ((b)'s loss,
   gradient and parameter figures) and ``nccl_world2`` ((c)'s, or null);
+- ``spatial``: phase 26's, on each of the six: (b)'s figures at the
+  shard's shapes (``shapes``, ``max_abs_err``, ``ms``, ``plain_ms``,
+  ``device_ms``, ``bytes``, ``bound_ms``, ``bound_by``, ``share_of_bound``,
+  ``library_ms``; K3 forward's ``batches`` 16 and 32), (a)'s
+  ``launches_per_rank_per_step``, ``figures`` (``dp_compare``'s),
+  ``collectives_per_rank_step`` and ``rank_ms``, and (d)'s
+  ``flagship_peak_mib`` and ``kth128``;
 - ``steps_per_call``: phase 24's, by config (``launches_per_step``, the
   ``dtype``, ``eager_ms``, ``graph_ms`` and ``graph1_ms`` a step in turns) and
   ``cli_launches``, the launches of its CLI run;
@@ -2782,7 +2804,8 @@ def dp_flagship(dev):
     return model.to(dev)
 
 
-def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1) -> dict:
+def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1, spatial: int = 1,
+           config: str = "flagship") -> dict:
     """``calls`` calls of ``k`` train steps of the flagship, TF32 off, with
     cuDNN's deterministic algorithms, on this rank's rows of the global
     batches of the synthetic stream (batch 16), from DP_SEED's weights and
@@ -2792,52 +2815,84 @@ def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1) -
     algorithms make each side of (b)'s comparison the same from run to run:
     with cuDNN's default ones a GAN term near 1e-7 read 0.72 of its
     allowance after 3 steps in one run (PERF.md), so the comparison
-    would hold or fail by chance."""
+    would hold or fail by chance. ``spatial`` k > 1: image height sharded
+    over spatial groups of k ranks (phase 26), this rank's rows of its data
+    coordinate's samples, and the all-reduces of the last call counted
+    (``collectives``: calls and MB a step). ``config`` "kth128_<batch>":
+    ``kth/ours_savp_128`` at that batch (phase 26 (d)) instead of the
+    flagship. ``peak_mib``: the most memory allocated during the run above
+    what was allocated at its start."""
+    import torch.distributed as dist
+
     from video_prediction_torch import kernels as K
-    from video_prediction_torch.parallel.mesh import shard_batch
+    from video_prediction_torch.parallel.mesh import make_spatial_mesh, shard_batch
     from video_prediction_torch.train.state import TrainState, make_optimizers
     from video_prediction_torch.train.step import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    torch.zeros((), device=dev)  # the allocator's statistics exist once it has allocated
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    mesh = make_spatial_mesh(spatial) if spatial > 1 else None
+    reduce_calls = []
     try:
-        model = dp_flagship(dev)
+        model = dp_flagship(dev) if config == "flagship" else sp_kth_model(dev, int(config.split("_")[1]))
         ts = TrainState(model, *make_optimizers(model, k), 0, torch.Generator(device=dev).manual_seed(DP_SEED))
-        step = make_train_step(model, k, group=group)
-        host = spc_host_batches(model.hparams, k * calls)
-        batches = [{key: v.to(dev) for key, v in shard_batch(b, rank, world).items()} for b in host]
+        step = make_train_step(model, k, group=group, spatial=mesh)
+        host = spc_host_batches(model.hparams, k * calls, model.generator.image_shape[0])
+        if mesh is None:
+            batches = [shard_batch(b, rank, world) for b in host]
+        else:
+            batches = [shard_batch(b, mesh.data_rank, mesh.data_size, spatial=(mesh.coord, mesh.k)) for b in host]
+        batches = [{key: v.to(dev) for key, v in b.items()} for b in batches]
         rows, launches, ms, grads1 = [], [], [], None
+        all_reduce = dist.all_reduce
         for c in range(calls):
+            if mesh is not None and c == calls - 1:  # count the last call's collectives
+                def counted(tensor, *args, **kwargs):
+                    reduce_calls.append(tensor.numel() * tensor.element_size())
+                    return all_reduce(tensor, *args, **kwargs)
+
+                dist.all_reduce = counted
             K.reset_launch_counts()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            if k == 1:
-                scalars = step(ts, batches[c])
-                rows.append(torch.stack([v.float() for v in scalars.values()])[None])
-                keys = list(scalars)
-            else:
-                step(ts, spc_stack(batches[c * k:(c + 1) * k]))
-                rows.append(step.scalars_by_step)
-                keys = step.keys
-            torch.cuda.synchronize(dev)
+            try:
+                if k == 1:
+                    scalars = step(ts, batches[c])
+                    rows.append(torch.stack([v.float() for v in scalars.values()])[None])
+                    keys = list(scalars)
+                else:
+                    step(ts, spc_stack(batches[c * k:(c + 1) * k]))
+                    rows.append(step.scalars_by_step)
+                    keys = step.keys
+                torch.cuda.synchronize(dev)
+            finally:
+                dist.all_reduce = all_reduce
             ms.append((time.perf_counter() - t0) * 1e3 / k)
             launches.append(K.launch_counts())
             if c == 0:
                 grads1 = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        peak_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
     finally:
         torch.backends.cudnn.deterministic = False
         set_tf32_default()
     return {"keys": keys, "scalars": torch.cat(rows).cpu(), "grads1": grads1, "launches": launches, "ms": ms,
             "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
-            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}, "lr": model.hparams.lr}
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}, "lr": model.hparams.lr,
+            "peak_mib": peak_mib, "batch": model.hparams.batch_size,
+            "collectives": {"calls": len(reduce_calls) // k, "mb": sum(reduce_calls) / 1e6 / k} if mesh else None}
 
 
 def dp_worker(argv) -> int:
-    """One rank of phase 25 (b) or (c), in a process of its own:
-    ``DP_WORKER <job dir> <rank>``, the job (backend, world size, each
-    rank's device, K, calls) in ``<job dir>/job.json``; writes ``dp_run``'s
-    readings to ``<job dir>/rank<rank>.pt``."""
+    """One rank of phase 25 (b) or (c), or phase 26 (a) or (d), in a process
+    of its own: ``DP_WORKER <job dir> <rank>``, the job (backend, world size,
+    each rank's device, K, calls, spatial shards, config) in ``<job
+    dir>/job.json``; writes ``dp_run``'s readings to ``<job
+    dir>/rank<rank>.pt``, or ``{"oom": True}`` where the card ran out of
+    memory. A job of one rank runs without a process group."""
     sys.path.insert(0, ROOT)
     import torch.distributed as dist
 
@@ -2847,16 +2902,24 @@ def dp_worker(argv) -> int:
     with open(os.path.join(path, "job.json")) as f:
         job = json.load(f)
     dev = torch.device(job["devices"][rank])
-    maybe_initialize(f"file://{path}/rendezvous", job["world"], rank, backend=job["backend"], device=str(dev))
+    if job["world"] > 1:
+        maybe_initialize(f"file://{path}/rendezvous", job["world"], rank, backend=job["backend"], device=str(dev))
     try:
-        out = dp_run(dev, job["k"], job["calls"], dist.group.WORLD, rank, job["world"])
+        out = dp_run(dev, job["k"], job["calls"], dist.group.WORLD if job["world"] > 1 else None, rank,
+                     job["world"], job.get("spatial", 1), job.get("config", "flagship"))
+    except torch.cuda.OutOfMemoryError:
+        if job["world"] > 1:
+            raise
+        out = {"oom": True}  # phase 26 (d) asks whether one process fits
     finally:
-        dist.destroy_process_group()
+        if job["world"] > 1:
+            dist.destroy_process_group()
     torch.save(out, os.path.join(path, f"rank{rank}.pt"))
     return 0
 
 
-def dp_spawn(name: str, backend: str, devices: list, k: int, calls: int) -> tuple:
+def dp_spawn(name: str, backend: str, devices: list, k: int, calls: int, spatial: int = 1,
+             config: str = "flagship") -> tuple:
     """Run ``dp_worker`` as ``len(devices)`` processes; returns their readings
     and the wall seconds. Each must exit 0 within DP_TIMEOUT."""
     import shutil
@@ -2865,7 +2928,8 @@ def dp_spawn(name: str, backend: str, devices: list, k: int, calls: int) -> tupl
     shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path)
     with open(os.path.join(path, "job.json"), "w") as f:
-        json.dump({"backend": backend, "world": len(devices), "devices": devices, "k": k, "calls": calls}, f)
+        json.dump({"backend": backend, "world": len(devices), "devices": devices, "k": k, "calls": calls,
+                   "spatial": spatial, "config": config}, f)
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), DP_WORKER, path, str(r)], cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -3164,7 +3228,7 @@ def dp_cli_phase() -> None:
             "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
             "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
             "--steps_per_call", str(SPC), "--progress_freq", str(SPC), "--summary_freq", str(SPC),
-            "--image_summary_freq", "8", "--save_freq", "8", "--seed", str(DP_SEED)]
+            "--image_summary_freq", "8", "--save_freq", "8", "--seed", str(DP_SEED), "--spatial_shards", "1"]
     first, end = DP_CLI_STEPS
     t0 = time.perf_counter()
     outs = []
@@ -3176,6 +3240,7 @@ def dp_cli_phase() -> None:
     wall = time.perf_counter() - t0
     check("data parallel: 1 ranks (nccl)" in outs[0] and f"done at step {first}" in outs[0],
           f"torchrun train: {outs[0][-2000:]}")
+    check("data axis: 1, spatial axis: 1" in outs[0], f"torchrun train --spatial_shards 1: {outs[0][-2000:]}")
     check(f"resumed from step {first}" in outs[1] and f"done at step {end}" in outs[1],
           f"torchrun train --resume: {outs[1][-2000:]}")
     for name in ("options.json", "model_hparams.json", "dataset_hparams.json", "checkpoints/train_state.pt",
@@ -3192,16 +3257,18 @@ def dp_cli_phase() -> None:
                 tags.setdefault(tag, []).append(event.step)
     check(tags.get("g_loss") == [4, 8, 12] and tags.get("gen_images") == [8],
           f"torchrun train: summaries at {tags.get('g_loss')}, GIFs at {tags.get('gen_images')}")
-    print(f"torchrun --standalone --nproc_per_node 1 train --steps_per_call {SPC}: --max_steps {first}, then "
+    print(f"torchrun --standalone --nproc_per_node 1 train --steps_per_call {SPC} --spatial_shards 1 (phase 26 "
+          f"(c): 'spatial axis: 1' logged): --max_steps {first}, then "
           f"--resume to {end}, {wall:.2f} s wall (two launches, set-up, captures and checkpoints included); rank 0 "
           f"wrote the option files, checkpoints and {len(files)} event files ({len(tags)} tags)")
 
 
-def dp_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
+def dp_phase(dev, ident: str, per_step: dict, kernel_results: list) -> dict:
     """Phase 25: data-parallel training over ``torch.distributed`` (see the
     module docstring): (a) and (d)'s graphs (``dp_graph_phase``), the CLI
     under ``torchrun`` (``dp_cli_phase``), (b) two gloo ranks on this card
-    and (c) two NCCL ranks where there are two cards."""
+    and (c) two NCCL ranks where there are two cards. Returns (b)'s
+    one-process run, phase 26's reference."""
     t_phase = time.perf_counter()
     graphs = dp_graph_phase(dev, ident, per_step)
     dp_cli_phase()
@@ -3227,6 +3294,197 @@ def dp_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
             "launches_per_rank_per_step": per_step[entry["name"]], **graphs, "gloo_pair_ms": gloo_ms,
             "gloo_one_process_ms": ref["ms"][1:], "gloo_figures": gloo, "nccl_world2": nccl2}
     print(f"phase 25 (data parallel): {time.perf_counter() - t_phase:.2f} s wall")
+    return ref
+
+
+# ---------------------------------------------------------------------------
+# spatial partitioning (phase 26)
+# ---------------------------------------------------------------------------
+SP_K = 2  # spatial shards: dp1 x sp2 on the one card
+SP_KTH_BATCH = 8  # kth/ours_savp_128: one process fits the card alone at 16, two ranks of 16 together do not
+
+
+def sp_kth_model(dev, batch: int):
+    """``kth/ours_savp_128`` (128 px, 4 scales) at ``batch`` with the KTH
+    dataset's 10 context frames of 20 (``data/kth.py:37``), from DP_SEED's
+    weights, on ``dev``; the synthetic clips' actions condition it."""
+    from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
+    from video_prediction_torch.models import get_model_class
+
+    zoo = zoo_dir() / "kth" / "ours_savp_128" / "model_hparams.json"
+    hp = resolve_model_hparams(get_model_class("savp").default_hparams(), str(zoo),
+                               extra=dict(batch_size=batch, context_frames=10, sequence_length=20))
+    model = get_model_class("savp")(hp, image_shape=(128, 128, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(DP_SEED))
+    return model.to(dev)
+
+
+def sp_kernel_entries(dev, per_rank_step: dict) -> dict:
+    """Phase 26 (b): each kernel at the shapes a dp1 x sp2 rank of the
+    flagship's train step gives it, forward and backward, against its plain
+    version, timed as phases 3-4 time them: K1 on the halo-extended shard
+    [32, 36, 64, 3] (the doubled batch, 32 rows and 2 + 2 of halo; also
+    checked, untimed, on 128 px's [32, 68, 128, 3]), K2 at the six (R, C)
+    of H/2 in fp32 and bf16, K3 over 2048 pixels at batches 16 and 32 (7
+    candidates). Returns each wrapper's entry (name -> dict), with
+    ``launches_per_rank_per_step`` from (a)."""
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.kernels import roofline as RL
+    from video_prediction_torch.kernels.bench import device_ms, ln_inputs
+    from video_prediction_torch.kernels.composite import device_plan
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    rand = lambda *shape: torch.rand(*shape, generator=g, device=dev)  # noqa: E731
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)  # noqa: E731
+    b2, hs = 2 * TRAIN_BATCH, 64 // SP_K + 4
+    out = {}
+
+    # K1, forward and backward, on the extended shard
+    for b, h, w in ((b2, 128 // SP_K + 4, 128), (b2, hs, 64)):
+        image = rand(b, h, w, 3)
+        kern = torch.softmax(randn(b, 25, 4), dim=1).reshape(b, 5, 5, 4).contiguous()
+        grad = randn(b, 4, h, w, 3)
+        shapes = f"[{b},{h},{w},3]x[{b},5,5,4]"
+        e0, ok0 = max_err(K.apply_cdna_kernels(image, kern), K.apply_cdna_kernels_reference(image, kern), "float32")
+        got = K.apply_cdna_kernels_backward(image, kern, grad)
+        want = plain_grads(K.apply_cdna_kernels_reference, (image, kern), (grad,))
+        e1, ok1 = max_err(got[0], want[0], "float32")
+        e2, ok2 = reduction_err(got[1], want[1])
+        print(f"K1 on a shard {shapes}, fp32: forward max_abs_err {e0:.3g}; backward d image {e1:.3g}, d kernels "
+              f"{e2:.3g}")
+        check(ok0 and ok1 and ok2, f"K1 on the shard {shapes} disagrees with its plain version: {e0}, {e1}, {e2}")
+    x, wt = cdna_as_grouped_conv(image, kern)
+    go = grad.permute(0, 4, 1, 2, 3).reshape(1, b2 * 12, hs, 64).contiguous()
+    with NoTF32():
+        fwd_lib = device_ms(lambda: cdna_library_forward(x, wt, b2 * 3))
+        bwd_lib = device_ms(lambda: cdna_library_backward(go, x, wt, b2 * 3))
+    entry = dict(shapes=shapes, max_abs_err=e0, ms=cuda_ms(lambda: K.apply_cdna_kernels(image, kern)),
+                 plain_ms=cuda_ms(lambda: K.apply_cdna_kernels_reference(image, kern)),
+                 device_ms=device_ms(lambda: K.apply_cdna_kernels(image, kern), "K1"), library_ms=fwd_lib)
+    out["apply_cdna_kernels"] = roofline(entry, RL.cdna_forward(b2, hs, 64, 3))
+    entry = dict(shapes=shapes, max_abs_err=max(e1, e2),
+                 ms=cuda_ms(lambda: K.apply_cdna_kernels_backward(image, kern, grad)),
+                 plain_ms=plain_backward_ms(K.apply_cdna_kernels_reference, (image, kern), (grad,)),
+                 device_ms=device_ms(lambda: K.apply_cdna_kernels_backward(image, kern, grad), "K1"),
+                 library_ms=bwd_lib)
+    out["apply_cdna_kernels_backward"] = roofline(entry, RL.cdna_backward(b2, hs, 64, 3))
+
+    # K2 at H/2: each width's R halved
+    widths = sorted({(c, b2 * (px // SP_K) * px) for c, px in RL.LN_GATE_STEP})
+    errs, times = {"forward": 0.0, "backward": 0.0}, {}
+    for cdim, r in widths:
+        z, c, lnp, dcn, dhn = ln_inputs(g, r, cdim, dev)
+        for dt in ("float32", "bfloat16"):
+            zz, cc, d1, d2 = (t.to(getattr(torch, dt)) for t in (z, c, dcn, dhn))
+            fwd = K.fused_ln_gate(zz, cc, lnp)
+            ref = K.fused_ln_gate_reference(zz, cc, lnp)
+            bwd = K.fused_ln_gate_backward(zz, cc, lnp, d1, d2)
+            bref = plain_grads(K.fused_ln_gate_reference, (zz, cc, lnp), (d1, d2))
+            fe = [max_err(a, b, dt) for a, b in zip(fwd, ref)]
+            be = [max_err(bwd[0], bref[0], dt), max_err(bwd[1], bref[1], dt), reduction_err(bwd[2], bref[2])]
+            print(f"K2 on a shard R={r} C={cdim} {dt}: forward max_abs_err {max(e for e, _ in fe):.3g}, backward "
+                  f"{max(e for e, _ in be):.3g}")
+            check(all(ok for _, ok in fe + be), f"K2 {dt} R={r} C={cdim} on the shard disagrees with its plain "
+                  f"version: {fe}, {be}")
+            if dt == "float32":
+                errs["forward"] = max(errs["forward"], *(e for e, _ in fe))
+                errs["backward"] = max(errs["backward"], *(e for e, _ in be))
+        times[cdim] = (cuda_ms(lambda: K.fused_ln_gate(z, c, lnp)),
+                       cuda_ms(lambda: K.fused_ln_gate_reference(z, c, lnp)),
+                       device_ms(lambda: K.fused_ln_gate(z, c, lnp), "K2"),
+                       cuda_ms(lambda: K.fused_ln_gate_backward(z, c, lnp, dcn, dhn), iters=20),
+                       plain_backward_ms(K.fused_ln_gate_reference, (z, c, lnp), (dcn, dhn)),
+                       device_ms(lambda: K.fused_ln_gate_backward(z, c, lnp, dcn, dhn), "K2"))
+    step = [(b2 * (px // SP_K) * px, c) for c, px in RL.LN_GATE_STEP]
+    shapes = f"R={', '.join(str(r) for _, r in widths)} at C={', '.join(str(c) for c, _ in widths)}, 6 calls a step"
+    for name, j, rl in (("fused_ln_gate", 0, RL.ln_gate_forward), ("fused_ln_gate_backward", 3, RL.ln_gate_backward)):
+        entry = dict(shapes=shapes, max_abs_err=errs["forward" if j == 0 else "backward"], library_ms=None,
+                     **{key: sum(times[c][j + i] for c, _ in RL.LN_GATE_STEP)
+                        for i, key in enumerate(("ms", "plain_ms", "device_ms"))})
+        out[name] = roofline(entry, rl(step))
+
+    # K3 over the shard's 2048 pixels
+    hk = 64 // SP_K
+    for b in (TRAIN_BATCH, b2):
+        cand, logits, grad = rand(b, 7, hk, 64, 3), randn(b, hk, 64, 7) * 3.0, randn(b, hk, 64, 3)
+        check(device_plan(cand, logits).staged == 7, f"K3 at [{b},7,32,64,3] did not take its staged instantiation")
+        e0, ok0 = max_err(K.composite(cand, logits)[0], K.composite_reference(cand, logits)[0], "float32")
+        got = K.composite_backward(cand, logits, grad)
+        want = plain_grads(lambda a, m: K.composite_reference(a, m)[0], (cand, logits), (grad,))
+        (e1, ok1), (e2, ok2) = max_err(got[0], want[0], "float32"), max_err(got[1], want[1], "float32")
+        print(f"K3 on a shard [{b},7,{hk},64,3], fp32 (staged K=7): forward max_abs_err {e0:.3g}, backward "
+              f"{max(e1, e2):.3g}")
+        check(ok0 and ok1 and ok2, f"K3 [{b},7,32,64,3] on the shard disagrees with its plain version")
+        fwd = dict(shapes=f"[{b},7,{hk},64,3]", max_abs_err=e0, library_ms=None,
+                   ms=cuda_ms(lambda: K.composite(cand, logits)),
+                   plain_ms=cuda_ms(lambda: K.composite_reference(cand, logits)),
+                   device_ms=device_ms(lambda: K.composite(cand, logits), "K3"))
+        fwd = roofline(fwd, RL.composite_forward(b, 7, hk, 64))
+        out.setdefault("composite", {"batches": {}})["batches"][b] = fwd
+    out["composite"].update(out["composite"]["batches"][b2])
+    entry = dict(shapes=f"[{b2},7,{hk},64,3]", max_abs_err=max(e1, e2), library_ms=None,
+                 ms=cuda_ms(lambda: K.composite_backward(cand, logits, grad)),
+                 plain_ms=plain_backward_ms(lambda a, m: K.composite_reference(a, m)[0], (cand, logits), (grad,)),
+                 device_ms=device_ms(lambda: K.composite_backward(cand, logits, grad), "K3"))
+    out["composite_backward"] = roofline(entry, RL.composite_backward(b2, 7, hk, 64))
+    for name, entry in out.items():
+        entry["launches_per_rank_per_step"] = per_rank_step[name]
+        print(timing_line(f"{name} on a dp1 x sp2 shard ({entry['shapes']})", entry))
+    return out
+
+
+def sp_memory_kth(ident: str) -> dict:
+    """Phase 26 (d), 128 px: ``kth/ours_savp_128``, one step, in one process
+    alone on the card at batch 16 (whether it fits, and its peak), then at
+    SP_KTH_BATCH in one process alone and as two gloo ranks at dp1 x sp2
+    sharing the card: each one's peak allocated MiB and ms. Two ranks of
+    16 do not fit one card together (each holds about 0.7 of the one
+    process's peak: PERF.md §5)."""
+    (alone,), _ = dp_spawn("sp_kth16_one", "gloo", ["cuda:0"], 1, 1, config="kth128_16")
+    fits = ("out of memory" if alone.get("oom") else
+            f"{alone['peak_mib']:.1f} MiB peak allocated, {alone['ms'][0]:.1f} ms")
+    (one,), _ = dp_spawn("sp_kth_one", "gloo", ["cuda:0"], 1, 1, config=f"kth128_{SP_KTH_BATCH}")
+    check(not one.get("oom"), f"kth/ours_savp_128 does not fit the card at batch {SP_KTH_BATCH}")
+    ranks, _ = dp_spawn("sp_kth_gloo", "gloo", ["cuda:0", "cuda:0"], 1, 1, SP_K, f"kth128_{SP_KTH_BATCH}")
+    for r, out in enumerate(ranks):
+        check(torch.isfinite(out["scalars"]).all().item(), f"kth128 rank {r}: losses {out['scalars']}")
+    print(f"spatial memory (d), kth/ours_savp_128 (128 px, 20 frames), one step: batch 16 in one process alone: "
+          f"{fits}; batch {SP_KTH_BATCH}: one process {one['peak_mib']:.1f} MiB peak allocated, each dp1 x sp2 rank "
+          f"{[round(o['peak_mib'], 1) for o in ranks]} MiB ({ranks[0]['peak_mib'] / one['peak_mib']:.3f} of it); ms "
+          f"{one['ms'][0]:.1f} against {[round(o['ms'][0], 1) for o in ranks]} (gloo, two processes on one card) "
+          f"[{ident}]")
+    return {"batch": SP_KTH_BATCH, "batch16_one_process_peak_mib": None if alone.get("oom") else alone["peak_mib"],
+            "one_process_peak_mib": one["peak_mib"], "rank_peak_mib": [o["peak_mib"] for o in ranks],
+            "one_process_ms": one["ms"][0], "rank_ms": [o["ms"][0] for o in ranks]}
+
+
+def sp_phase(dev, ident: str, per_step: dict, ref: dict, kernel_results: list) -> None:
+    """Phase 26: spatial partitioning (``--spatial_shards``; see the module
+    docstring): (a) two gloo ranks at dp1 x sp2 on this card against (b)
+    of phase 25's one process, (b) the kernels at the shard's shapes, (c)
+    (in phase 25's CLI run), (d) the peak memory per rank."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks, wall = dp_spawn("sp_gloo", "gloo", ["cuda:0", "cuda:0"], 1, DP_STEPS, SP_K)
+    figures = dp_compare("spatial (a) dp1 x sp2, gloo, two processes on cuda:0", ref, ranks, per_step, 1)
+    coll = ranks[0]["collectives"]
+    print(f"spatial (a): all-reduces a rank a train step {coll['calls']} ({coll['mb']:.1f} MB; halos, norm "
+          f"statistics, pools, gathers and the gradients'); ms a step {ranks[0]['ms'][1:]} against one process's "
+          f"{ref['ms'][1:]}; {wall:.2f} s wall with the processes' set-up [{ident}]")
+    print(f"spatial memory (d), flagship at batch 16, 3 steps: one process {ref['peak_mib']:.1f} MiB peak "
+          f"allocated, each dp1 x sp2 rank {[round(o['peak_mib'], 1) for o in ranks]} MiB "
+          f"({ranks[0]['peak_mib'] / ref['peak_mib']:.3f} of it) [{ident}]")
+    kth = sp_memory_kth(ident)
+    per_rank_step = {n: c for n, c in ranks[0]["launches"][-1].items()}
+    shard = sp_kernel_entries(dev, per_rank_step)
+    for entry in kernel_results:
+        if entry["name"] in shard:
+            entry["spatial"] = {**shard[entry["name"]], "figures": figures, "collectives_per_rank_step": coll,
+                                "flagship_peak_mib": {"one_process": ref["peak_mib"],
+                                                      "ranks": [o["peak_mib"] for o in ranks]},
+                                "kth128": kth, "rank_ms": ranks[0]["ms"][1:]}
+    print(f"spatial (c): NCCL at k = 2 not run (one card: NCCL refuses two ranks on one GPU)")
+    print(f"phase 26 (spatial partitioning): {time.perf_counter() - t_phase:.2f} s wall")
 
 
 def dtype_of(hp, name: str) -> str:
@@ -3234,13 +3492,13 @@ def dtype_of(hp, name: str) -> str:
     return hp.gate_dtype if name.startswith("fused_ln_gate") else "float32"
 
 
-def spc_host_batches(hp, n: int) -> list:
-    """``n`` batches of the ``synthetic`` train stream (uint8 images, actions) as CPU tensors."""
+def spc_host_batches(hp, n: int, size: int = 64) -> list:
+    """``n`` batches of the ``synthetic`` train stream (uint8 images, actions) of ``size`` px as CPU tensors."""
     from video_prediction_torch.configs.hparams import DatasetHparams
     from video_prediction_torch.data.synthetic import SyntheticVideoDataset
 
     dhp = DatasetHparams(context_frames=hp.context_frames, sequence_length=hp.sequence_length)
-    it = SyntheticVideoDataset(mode="train", hparams=dhp, seed=SPC_SEED).make_iterator(hp.batch_size)
+    it = SyntheticVideoDataset(mode="train", hparams=dhp, seed=SPC_SEED, image_size=size).make_iterator(hp.batch_size)
     return [{k: torch.from_numpy(v) for k, v in next(it).items()} for _ in range(n)]
 
 
@@ -3392,14 +3650,19 @@ def main() -> int:
         # 25. data parallel over torch.distributed: a 1-rank NCCL graph against
         # the graph without a group; the CLI under torchrun; two gloo ranks on
         # this card (and two NCCL ranks where there are two cards) against one process
-        dp_phase(dev, ident, per_train_step, kernel_results)
+        dp_ref = dp_phase(dev, ident, per_train_step, kernel_results)
+
+        # 26. spatial partitioning: two gloo ranks at dp1 x sp2 on this card
+        # against one process; the kernels at the shard's shapes; the peak
+        # memory per rank, flagship and kth/ours_savp_128
+        sp_phase(dev, ident, per_train_step, dp_ref, kernel_results)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
-    print(f"chip_smoke: phases 1-25 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)

@@ -27,7 +27,10 @@ at its next ``next()``; the end of the host iterator ends the feeder with
 ``StopIteration``; ``close()`` stops the thread. Data parallel (one process
 per GPU, ``parallel/``): each rank's feeder carries that rank's rows to its
 own device, ``cuda:LOCAL_RANK``: its side stream is made there, and its
-thread makes that device current before it pins and copies.
+thread makes that device current before it pins and copies. Spatial
+partitioning (``rows=(coord, k)``): it cuts each host batch's images to the
+``coord``-th of k slices of their height (``parallel/mesh.py#image_rows``)
+before the copy, so only this rank's rows are pinned and sent.
 """
 
 from __future__ import annotations
@@ -35,10 +38,12 @@ from __future__ import annotations
 import itertools
 import queue
 import threading
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from video_prediction_torch.parallel.mesh import image_rows
 
 _END = object()
 PREFETCH = 2  # batches queued ahead of the consumer, as in the JAX package
@@ -47,10 +52,13 @@ PREFETCH = 2  # batches queued ahead of the consumer, as in the JAX package
 class DeviceFeeder:
     """Background-thread prefetcher: numpy iterator -> tensors on ``device``."""
 
-    def __init__(self, host_iterator: Iterator[Dict[str, Any]], device, stack: int = 1):
+    def __init__(self, host_iterator: Iterator[Dict[str, Any]], device, stack: int = 1,
+                 rows: Optional[Tuple[int, int]] = None):
         if stack < 1:
             raise ValueError(f"stack must be at least 1, got {stack}")
         self._it = stack_batches(host_iterator, stack) if stack > 1 else host_iterator
+        self._rows = rows
+        self._stacked = stack > 1
         self._device = torch.device(device)
         self._cuda = self._device.type == "cuda"
         self._q: queue.Queue = queue.Queue(maxsize=PREFETCH)
@@ -65,6 +73,8 @@ class DeviceFeeder:
         self._thread.start()
 
     def _to_device(self, batch: Dict[str, Any], slot: int):
+        if self._rows is not None:
+            batch = image_rows(batch, *self._rows, stacked=self._stacked)
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if not self._cuda:
             return host, None

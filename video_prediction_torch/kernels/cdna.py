@@ -12,6 +12,13 @@ kernel too (``apply_cdna_kernels_backward``). The CUDA kernels are
 memory-bound at the slice's shapes; their designs are noted in the source.
 On CPU tensors the wrappers run the plain version below (and autograd
 differentiates it); on CUDA tensors they launch the kernels or raise.
+
+On a spatial shard (``parallel/mesh.py#spatial_context``: the image holds
+this rank's rows of the height) ``apply_cdna_kernels`` runs on the shard
+extended by a (k-1)//2-row halo above and below (``parallel/spatial.py#halo``,
+zeros at the global borders) and cuts the output to the shard's rows; the
+backward kernel's gradient of the halo rows goes back through the halo's
+adjoint.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from video_prediction_torch.kernels import _lib
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import current_spatial
 
 
 def apply_cdna_kernels_reference(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
@@ -104,7 +113,17 @@ class _CDNAFunction(torch.autograd.Function):
 
 def apply_cdna_kernels(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     """``[B,H,W,C] x [B,kh,kw,N] -> [B,N,H,W,C]``; the CUDA kernels (forward
-    and backward) on CUDA tensors."""
+    and backward) on CUDA tensors; on a spatial shard, on the halo-extended
+    shard, cut to its rows."""
+    mesh = current_spatial()
+    if mesh is None:
+        return _apply(image, kernels)
+    kh, h = kernels.shape[1], image.shape[1]
+    ph = (kh - 1) // 2
+    return _apply(SP.halo(image, mesh, ph, kh - 1 - ph), kernels).narrow(2, ph, h)
+
+
+def _apply(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     if _lib.on_cpu(image, kernels):
         return apply_cdna_kernels_reference(image, kernels)
     return _CDNAFunction.apply(image, kernels)

@@ -16,6 +16,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import SpatialMesh
+
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean absolute error."""
@@ -99,3 +102,19 @@ def total_variation(images: torch.Tensor) -> torch.Tensor:
     dh = (images[..., 1:, :, :] - images[..., :-1, :, :]).abs()
     dw = (images[..., :, 1:, :] - images[..., :, :-1, :]).abs()
     return dh.mean() + dw.mean()
+
+
+def total_variation_share(images: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
+    """This rank's share of ``total_variation`` of the whole images, of which
+    ``images [..., H/k, W, C]`` are the rows of spatial coordinate
+    ``mesh.coord``: its row differences (with the row above it, from a 1-row
+    halo, but at the global top) over the global H-1 rows' count, plus its
+    column differences' mean over k. The spatial group's shares sum to the
+    whole term."""
+    ext = SP.halo(images, mesh, 1, 0, dim=-3)
+    dh = (ext[..., 1:, :, :] - ext[..., :-1, :, :]).abs()
+    if mesh.coord == 0:
+        dh = dh[..., 1:, :, :]
+    h = images.shape[-3]
+    dw = (images[..., :, 1:, :] - images[..., :, :-1, :]).abs()
+    return dh.sum() / (images[..., :1, :, :].numel() * (h * mesh.k - 1)) + dw.mean() / mesh.k

@@ -30,6 +30,20 @@ package draws noise from a key, the port takes it as an input (``zs_prior``
 for the eval rollout; the ``noise`` dict of ``draw_noise`` for training) or
 draws it from an explicit ``torch.Generator``.
 
+Spatial partitioning (``parallel/mesh.py#spatial_context``, the JAX step
+traced under ``spatial_trace_mesh``): the batch's images hold this rank's
+rows of the height and the generator runs on them. The posterior (and its
+``z_l1`` re-encoding), the discriminators' clips and VGG's frames are
+gathered to full height (``parallel/spatial.py#gather_rows``) and run whole
+on every rank of the spatial group, outside the context (``whole``), where
+the JAX package re-constrains them to data parallel
+(``constrain_data_parallel``). Each rank's loss is its share of the global
+one: the pixel terms (l1, l2, tv) are this rank's sums over the global
+count, every term computed whole is weighted 1/k; so the group's sum of
+the ranks' gradients is the gradient of the whole loss, and the sum of
+their scalars the whole scalars (``train/step.py`` all-reduces both). The
+metrics are computed on gathered frames, equal on every rank.
+
 ``compute_dtype`` bfloat16 builds the generator, the posterior's convs and
 the discriminators in bf16 (``models/base.py:84-112`` of the JAX package);
 the parameters stay fp32, the images and ``gen_images`` too, and the losses
@@ -58,6 +72,8 @@ from video_prediction_torch.models.savp import SAVPGenerator
 from video_prediction_torch.models.vgg import VGGMetric
 from video_prediction_torch.ops.rnn import ConvLSTMCell
 from video_prediction_torch.ops.spectral import SpectralLayer, l2_normalize
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import current_spatial, whole
 from video_prediction_torch.train import schedules
 
 
@@ -286,7 +302,7 @@ class VideoPredictionModel(nn.Module):
             return dict(self.generator(images, use_gt, output_aux=output_aux, **gen_kwargs))
 
         out: Dict[str, torch.Tensor] = {}
-        mu_q, logvar_q = self.posterior(images)
+        mu_q, logvar_q = self._posterior(images)
         out["zs_mu"], out["zs_logvar"] = mu_q, logvar_q
         learn_prior = bool(hp.learn_prior)
 
@@ -329,6 +345,13 @@ class VideoPredictionModel(nn.Module):
             out.update({k + "_enc": v for k, v in gout.items()})
             out["gen_images"] = gout["gen_images"]  # the posterior rollout doubles as the main output
         return self._canonical_prior(out)
+
+    def _posterior(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The posterior encoder on ``images [B,T,H,W,C]``, gathered to full
+        height and run whole under a spatial context."""
+        full = SP.gathered(images, dim=2)
+        with whole():
+            return self.posterior(full)
 
     def _canonical_prior(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The learned prior's outputs under the names the losses read (JAX
@@ -374,12 +397,14 @@ class VideoPredictionModel(nn.Module):
         new_u)``. With ``update_spectral`` the discriminator's own parameters
         take gradients and the advanced ``u`` vectors come back; without, it
         runs on detached parameters (its gradients flow only into the
-        inputs) from the same stored ``u``, and ``new_u`` is None."""
+        inputs) from the same stored ``u``, and ``new_u`` is None. The clips
+        are whole (gathered under a spatial context): it runs outside one."""
         disc = self.discriminator[key]
-        if update_spectral:
-            return disc(clips, *extra)
-        params = {name: p.detach() for name, p in disc.named_parameters()}
-        logits, feats, _ = torch.func.functional_call(disc, params, (clips, *extra))
+        with whole():
+            if update_spectral:
+                return disc(clips, *extra)
+            params = {name: p.detach() for name, p in disc.named_parameters()}
+            logits, feats, _ = torch.func.functional_call(disc, params, (clips, *extra))
         return logits, feats, None
 
     # ------------------------------------------------------------------ #
@@ -431,8 +456,10 @@ class VideoPredictionModel(nn.Module):
             g_losses["l1"] = hp.l1_weight * L.l1_loss(recon_images, target)
         if hp.l2_weight:
             g_losses["l2"] = hp.l2_weight * L.l2_loss(recon_images, target)
+        mesh = current_spatial()
         if hp.tv_weight:
-            g_losses["tv"] = hp.tv_weight * L.total_variation(recon_images)
+            g_losses["tv"] = hp.tv_weight * (L.total_variation(recon_images) if mesh is None else
+                                             L.total_variation_share(recon_images, mesh))
         if hp.state_weight and "gen_states" in out and batch.get("states") is not None:
             # the posterior rollout's states where the doubled rollout ran
             # (JAX base.py:446-449: none when only the posterior rollout ran)
@@ -440,7 +467,9 @@ class VideoPredictionModel(nn.Module):
                                                             batch["states"][:, 1:])
         if self.vgg is not None:
             self.vgg.module.to(images.device)  # a no-op once there
-            g_losses["vgg_cdist"] = hp.vgg_cdist_weight * (1.0 - self.vgg(recon_images, target)).mean()
+            recon_full, target_full = SP.gathered(recon_images, dim=2), SP.gathered(target, dim=2)
+            with whole():
+                g_losses["vgg_cdist"] = hp.vgg_cdist_weight * (1.0 - self.vgg(recon_full, target_full)).mean()
         if self.has_vae and hp.kl_weight:
             anneal = schedules.kl_weight(step, hp)
             g_losses["kl"] = hp.kl_weight * anneal * L.kl_loss(out["zs_mu"], out["zs_logvar"],
@@ -448,16 +477,16 @@ class VideoPredictionModel(nn.Module):
         if self.has_vae and hp.z_l1_weight:
             # the latent cycle: the prior rollout re-encoded (after ground-truth
             # frame 0) gives back the z that made it (JAX base.py:464-473)
-            mu_hat, _ = self.posterior(torch.cat([images[:, :1], gen_images], dim=1))
+            mu_hat, _ = self._posterior(torch.cat([images[:, :1], gen_images], dim=1))
             g_losses["z_l1"] = hp.z_l1_weight * L.l1_loss(mu_hat, out["zs_sampled_prior"])
 
         new_spectral: Dict[str, Dict[str, torch.Tensor]] = {}
         if len(self.discriminator):
             start = noise["clip_start"]
-            real_clip = self._clip(target, start)
+            real_clip = SP.gathered(self._clip(target, start), dim=2)
 
             def run_pair(key: str, fake_frames: torch.Tensor, weight: float, prefix: str) -> None:
-                fake_clip = self._clip(fake_frames, start)
+                fake_clip = SP.gathered(self._clip(fake_frames, start), dim=2)
                 extra = (self._clip(self._transition_actions(batch), start),) if key.startswith("acvideo") else ()
                 # D update path: real and detached fake in one call; advances u
                 both = torch.cat([real_clip, fake_clip.detach()])
@@ -480,6 +509,9 @@ class VideoPredictionModel(nn.Module):
                 if name + "_vae" in self.discriminator and "gen_images_enc" in out:
                     run_pair(name + "_vae", out["gen_images_enc"], self._vae_gan_weight(name), f"{name}_vae_gan")
 
+        if mesh is not None:  # this rank's shares (tv's is its own)
+            g_losses = {k: v if k == "tv" else v / mesh.k for k, v in g_losses.items()}
+            d_losses = {k: v / mesh.k for k, v in d_losses.items()}
         zero = torch.zeros((), device=images.device)
         g_total = sum(g_losses.values()) if g_losses else zero
         d_total = sum(d_losses.values()) if d_losses else zero
@@ -501,8 +533,8 @@ class VideoPredictionModel(nn.Module):
         ``context..T-1``): the means of PSNR, SSIM and MSE, and the PSNR and
         SSIM curves ``[T - context]`` averaged over the batch."""
         ctx = self.hparams.context_frames
-        target = normalize_batch(batch)["images"][:, ctx:]
-        pred = outputs["gen_images"][:, ctx - 1:]
+        target = SP.gathered(normalize_batch(batch)["images"][:, ctx:], dim=2)
+        pred = SP.gathered(outputs["gen_images"][:, ctx - 1:], dim=2)
         psnr = M.peak_signal_to_noise_ratio(target, pred)  # [B, Tp]
         ssim = M.structural_similarity(target, pred)
         mse = M.mean_squared_error(target, pred)

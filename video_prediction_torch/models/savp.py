@@ -59,6 +59,16 @@ candidates cast to the compute dtype (``:369``, ``:376``); its logits are
 cast to fp32, exactly, for K3, whose softmax and sum are fp32
 (``:381-391``).
 
+Spatial partitioning (``parallel/mesh.py#spatial_context``): the images,
+the recurrent states and every activation hold this rank's rows of the
+height; the layers take their halos and statistics across the shards
+(``ops/layers.py``, ``ops/cdna.py``, ``ops/warp.py``); the global average
+pool in front of the CDNA and STP heads is all-reduced
+(``parallel/spatial.py#mean_hw``), so the kernels and affine parameters are
+whole on every rank; the learned prior runs on the gathered frame; the
+learned initial states are cut to this rank's rows; K2 and K3 run per pixel
+on the shard's rows.
+
 Module names follow the flax parameter tree (``stem``, ``down1``,
 ``enc_rnn1``, ..., ``mask_head``, ``state_head``, ``init_state_0``) so that
 ``convert.py`` maps it directly.
@@ -91,6 +101,8 @@ from video_prediction_torch.ops.layers import (
 )
 from video_prediction_torch.ops.rnn import ConvGRUCell, ConvLSTMCell
 from video_prediction_torch.ops.warp import apply_affine_kernels, image_warp
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import current_spatial, whole
 
 
 def _static_log2(n: int) -> int:
@@ -263,8 +275,10 @@ class SAVPCell(nn.Module):
             current_state = torch.where(use_gt[:, None], cast(x["state"], current_state.dtype), current_state)
         z = x.get("z")
         if self.learn_prior:
-            # p(z_t | the frame the cell consumes) (:205-219)
-            mu_p, logvar_p = self.prior(image)
+            # p(z_t | the frame the cell consumes) (:205-219), on the whole frame
+            full = SP.gathered(image)
+            with whole():
+                mu_p, logvar_p = self.prior(full)
             aux["prior_mu"], aux["prior_logvar"] = mu_p, logvar_p
             z_prior = mu_p + torch.exp(0.5 * logvar_p) * x["prior_eps"]
             z = z_prior if z is None else torch.where(x["use_prior_z"][:, None], z_prior, z)
@@ -308,7 +322,7 @@ class SAVPCell(nn.Module):
         n_trans = hp.num_transformed_images
         parts = []
         if hp.transformation == "cdna" and n_trans > 0:
-            raw = self.cdna_head(bottleneck.mean(dim=(1, 2)))
+            raw = self.cdna_head(SP.mean_hw(bottleneck))
             # row-major [kh, kw, N] reshape, as flax's; normalized in fp32
             kernels = normalize_kernels(cast(raw.reshape(b, kh, kw, n_trans), torch.float32), hp.kernel_normalization)
             aux["kernels"] = kernels
@@ -318,7 +332,7 @@ class SAVPCell(nn.Module):
             raw = cast(self.dna_head(feat_top), torch.float32).reshape(b, hgt, wid, kh, kw, 1)
             parts.append(apply_dna_kernels(image, normalize_kernels(raw, hp.kernel_normalization)))  # [B,1,H,W,C]
         elif hp.transformation == "stp" and n_trans > 0:
-            hfc = self.act(self.stp_fc(bottleneck.mean(dim=(1, 2))))
+            hfc = self.act(self.stp_fc(SP.mean_hw(bottleneck)))
             affine = cast(self.stp_head(hfc), torch.float32).reshape(b, n_trans, 6)
             for f in range(hp.last_frames):
                 parts.append(apply_affine_kernels(last_images[-(f + 1)], affine))  # [B,N,H,W,C]
@@ -407,8 +421,10 @@ class SAVPGenerator(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         hp = self.hparams
         b, t, hgt, wid, c = images.shape
-        if (hgt, wid, c) != self.image_shape:
-            raise ValueError(f"generator built for {self.image_shape} images, got {tuple(images.shape)}")
+        mesh = current_spatial()
+        if (SP.global_rows(hgt, mesh), wid, c) != self.image_shape:
+            raise ValueError(f"generator built for {self.image_shape} images, got {tuple(images.shape)}"
+                             + (f" on a shard of {mesh.k}" if mesh is not None else ""))
         if not hp.use_states:
             states = None
         for name, given, dim in (("action", actions, self.cell.action_dim), ("state", states, self.cell.state_dim)):
@@ -417,9 +433,11 @@ class SAVPGenerator(nn.Module):
                                  f"got {name}s {None if given is None else tuple(given.shape)}")
         rnn_states = self.cell.init_rnn_states(b, hgt, wid, images.device, self.dtype or images.dtype)
         if hp.learn_initial_state:
+            inits = [getattr(self, f"init_state_{i}") for i in range(len(_leaves(rnn_states)))]
+            if mesh is not None:
+                inits = [SP.take_rows(p, mesh) for p in inits]
             rnn_states = _unflatten(rnn_states, [
-                cast(getattr(self, f"init_state_{i}"), leaf.dtype).expand(leaf.shape).contiguous()
-                for i, leaf in enumerate(_leaves(rnn_states))
+                cast(p, leaf.dtype).expand(leaf.shape).contiguous() for p, leaf in zip(inits, _leaves(rnn_states))
             ])
         if self.cell.learn_prior:
             if prior_eps is None:

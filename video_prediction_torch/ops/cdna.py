@@ -17,6 +17,13 @@ the taps. Eager, the JAX package's form is 50 small kernels forward and
 slice gradients backward; on the card the unfold form takes less device
 time forward and backward together (the train step), the shifted form less
 forward alone at large batch (``PERF.md`` §6, ``chip_smoke.py`` phase 20).
+
+Under spatial partitioning (``parallel/mesh.py#spatial_context``) both read
+the rows of a halo (``parallel/spatial.py#halo``, zeros at the global
+borders): K1's wrapper runs the kernel on the shard extended by (k-1)//2
+rows above and below and cuts its output to the shard's rows
+(``kernels/cdna.py``); the DNA op's unfold pads W alone and reads the rows
+of H from the halo.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from video_prediction_torch.kernels.cdna import apply_cdna_kernels  # noqa: F401
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import current_spatial
 
 RELU_SHIFT = 1e-12
 
@@ -56,7 +65,11 @@ def apply_dna_kernels(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tenso
     b, h, w, kh, kw, n = kernels.shape
     c = image.shape[-1]
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
-    padded = F.pad(image.float().permute(0, 3, 1, 2), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    mesh = current_spatial()
+    if mesh is None:
+        padded = F.pad(image.float().permute(0, 3, 1, 2), (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    else:
+        padded = F.pad(SP.halo(image, mesh, ph, kh - 1 - ph).float().permute(0, 3, 1, 2), (pw, kw - 1 - pw))
     patches = F.unfold(padded, (kh, kw)).view(b, 1, c, kh * kw, h, w)  # tap (i, j) at i * kw + j
     taps = kernels.float().reshape(b, h, w, kh * kw, n).permute(0, 4, 3, 1, 2)[:, :, None]  # [B,N,1,K,H,W]
     out = (patches * taps).sum(dim=3)  # [B,N,C,H,W]

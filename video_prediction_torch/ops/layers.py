@@ -15,6 +15,18 @@ and stay ``F.conv2d`` (``F.conv_transpose2d``, ``deconv2d``; ``F.conv3d``,
 (``Local2D``, ``SeparableLocal2D``), keep the JAX layout of their per-pixel
 kernels and run as one ``F.unfold`` and one product, accumulated in fp32.
 
+Under spatial partitioning (a ``parallel/mesh.py#spatial_context``) each
+tensor holds this rank's rows of the image height, and the layers that
+read across rows take them from the neighbouring shards
+(``parallel/spatial.py``): a conv pads with a halo of the **global**
+height's SAME pads, the transposed conv and the bilinear resize with the
+rows they read (the edge row repeated at the global borders for the
+resize), and the group norm all-reduces its statistics over the global
+H x W. Pooling (VALID 2x2 on even shard heights), nearest upsampling and
+``LayerNorm`` read no other rows. ``Conv3D``, ``Local2D`` and
+``SeparableLocal2D``, which no generator uses, raise there. Outside a
+spatial context every layer computes as before, bit for bit.
+
 Mixed precision follows flax's ``dtype`` rule. Parameters are fp32. A layer
 built with ``dtype=torch.bfloat16`` casts its input and its parameters to
 bf16 and returns bf16; a layer built with ``dtype=None`` computes in the
@@ -31,6 +43,9 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import current_spatial
 
 NORM_EPS = 1e-6  # flax LayerNorm / GroupNorm default (torch's is 1e-5)
 Dtype = Optional[torch.dtype]
@@ -66,10 +81,20 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 def conv2d_nhwc(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, stride: int = 1
 ) -> torch.Tensor:
-    """SAME convolution of NHWC ``x`` with an OIHW ``weight``; NHWC, contiguous out."""
+    """SAME convolution of NHWC ``x`` with an OIHW ``weight``; NHWC, contiguous
+    out. Under a spatial context the rows of the global height's SAME pads
+    come from the neighbouring shards (zeros at the global borders), so
+    that a stride-s conv of a shard whose rows start at a multiple of s is
+    the shard of the whole conv."""
     _, h, w, _ = x.shape
     kh, kw = weight.shape[-2:]
-    (pt, pb), (pl, pr) = _same_pads(h, kh, stride), _same_pads(w, kw, stride)
+    mesh = current_spatial()
+    (pt, pb), (pl, pr) = _same_pads(SP.global_rows(h, mesh), kh, stride), _same_pads(w, kw, stride)
+    if mesh is not None:
+        if h % stride:
+            raise ValueError(f"a stride-{stride} conv of a {h}-row shard: the shards' rows must start on multiples "
+                             f"of the stride")
+        x, pt, pb = SP.halo(x, mesh, pt, pb), 0, 0
     xc = x.permute(0, 3, 1, 2)
     if pt == pb and pl == pr:
         y = F.conv2d(xc, weight, bias, stride=stride, padding=(pt, pl))
@@ -157,6 +182,8 @@ def pool2d(x: torch.Tensor, pool_size: int = 2, mode: str = "avg") -> torch.Tens
     pools = {"avg": F.avg_pool2d, "max": F.max_pool2d}
     if mode not in pools:
         raise ValueError(f"unknown pool mode {mode!r} (want 'avg'|'max')")
+    if current_spatial() is not None and x.shape[1] % pool_size:
+        raise ValueError(f"a {pool_size}x{pool_size} pool of a {x.shape[1]}-row shard would cross shards")
     return pools[mode](x.permute(0, 3, 1, 2), pool_size).permute(0, 2, 3, 1).contiguous()
 
 
@@ -169,7 +196,13 @@ def upsample2d(x: torch.Tensor, scale: int = 2, method: str = "nearest") -> torc
     if method == "nearest":
         return x[:, :, None, :, None, :].expand(b, h, scale, w, scale, c).reshape(b, h * scale, w * scale, c)
     if method == "bilinear":
-        y = F.interpolate(x.permute(0, 3, 1, 2), size=(h * scale, w * scale), mode="bilinear", align_corners=False)
+        mesh = current_spatial()
+        if mesh is not None:  # a row of each neighbour; clamped at the global borders
+            x = SP.halo(x, mesh, 1, 1, edge=True)
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=(x.shape[1] * scale, w * scale), mode="bilinear",
+                          align_corners=False)
+        if mesh is not None:
+            y = y[:, :, scale : scale * (h + 1)]
         return y.permute(0, 2, 3, 1).contiguous()
     raise ValueError(f"unknown upsample method {method!r}")
 
@@ -185,6 +218,12 @@ def add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """``y`` plus ``bias`` in ``y``'s dtype: after the product is rounded to
     it, as flax adds its bias."""
     return y if bias is None else y + cast(bias, y.dtype)
+
+
+def _unsharded(layer: str) -> None:
+    if current_spatial() is not None:
+        raise ValueError(f"{layer} is in no generator and has no spatially sharded form: it runs only outside "
+                         "spatial partitioning")
 
 
 class Conv2D(nn.Module):
@@ -218,6 +257,7 @@ class Conv3D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _unsharded("Conv3D")
         dt = layer_dtype(self.dtype, x, self.weight)
         fused, after = split_bias(self.bias, dt)
         return add_bias(conv3d_nthwc(cast(x, dt), cast(self.weight, dt), fused, self.strides), after)
@@ -239,6 +279,7 @@ class Local2D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _unsharded("Local2D")
         return local2d_apply(cast(x, self.dtype or x.dtype), self.kernel, self.bias)
 
 
@@ -259,6 +300,7 @@ class SeparableLocal2D(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _unsharded("SeparableLocal2D")
         return separable_local2d_apply(cast(x, self.dtype or x.dtype), self.vertical, self.horizontal, self.bias)
 
 
@@ -316,10 +358,19 @@ class ConvTranspose2D(nn.Module):
         dt = layer_dtype(self.dtype, x, self.weight)
         fused, after = split_bias(self.bias, dt)
         w = cast(self.weight, dt).transpose(0, 1).flip(2, 3)
-        y = F.conv_transpose2d(cast(x, dt).permute(0, 3, 1, 2), w, fused, stride=self.strides)
-        k = self.weight.shape[-1]
+        s, k, h = self.strides, self.weight.shape[-1], x.shape[1]
+        mesh = current_spatial()
+        if mesh is not None:
+            # the input rows this shard's output rows read: the dilated rows
+            # from s*r0 - pads[0] to s*(r0 + h) - 1 - pads[0] + k - 1
+            above = self.pads[0] // s
+            below = max(0, (s * (above + h) + k - 2 - self.pads[0]) // s - (above + h - 1))
+            x = SP.halo(x, mesh, above, below)
+        y = F.conv_transpose2d(cast(x, dt).permute(0, 3, 1, 2), w, fused, stride=s)
         a, b = k - 1 - self.pads[0], k - 1 - self.pads[1]  # conv_transpose2d's padding past flax's
         y = y[:, :, a : y.shape[2] - b, a : y.shape[3] - b]
+        if mesh is not None:
+            y = y[:, :, s * above : s * (above + h)]
         return add_bias(y.permute(0, 2, 3, 1).contiguous(), after)
 
 
@@ -369,8 +420,14 @@ class GroupNorm(nn.Module):
         b, h, w, c = x.shape
         out_dtype = layer_dtype(self.dtype, x, self.scale)
         xg = cast(x, torch.float32).reshape(b, h, w, self.num_groups, c // self.num_groups)
-        mu = xg.mean(dim=(1, 2, 4), keepdim=True)
-        var = (xg - mu).square().mean(dim=(1, 2, 4), keepdim=True)
+        mesh = current_spatial()
+        if mesh is None:
+            mu = xg.mean(dim=(1, 2, 4), keepdim=True)
+            var = (xg - mu).square().mean(dim=(1, 2, 4), keepdim=True)
+        else:  # the statistics of the global H x W, in GroupNorm's order: the mean, then the deviations
+            count = h * mesh.k * w * (c // self.num_groups)
+            mu = SP.all_reduce_sum(xg.sum(dim=(1, 2, 4), keepdim=True), mesh) / count
+            var = SP.all_reduce_sum((xg - mu).square().sum(dim=(1, 2, 4), keepdim=True), mesh) / count
         y = ((xg - mu) * torch.rsqrt(var + NORM_EPS)).reshape(b, h, w, c) * self.scale + self.bias
         return cast(y, out_dtype)
 

@@ -9,18 +9,26 @@ and a weighted sum, as the JAX package computes it; not ``F.grid_sample``,
 which normalizes, aligns and pads its coordinates its own way. No Pallas
 kernel covers these ops in the JAX package (XLA fuses them), so they stay
 torch ops.
+
+Under spatial partitioning (``parallel/mesh.py#spatial_context``) a sample
+may come from any row, so both warps sample a gathered, whole-height source
+image (``parallel/spatial.py#gather_rows``) at this rank's output rows only,
+their grid offset to the global rows.
 """
 
 from __future__ import annotations
 
 import torch
 
+from video_prediction_torch.parallel import spatial as SP
+from video_prediction_torch.parallel.mesh import current_spatial
 
-def flow_to_warp_grid(flow: torch.Tensor) -> torch.Tensor:
+
+def flow_to_warp_grid(flow: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """A flow field ``[B,H,W,2]`` (dy, dx) -> absolute sample coordinates
-    ``[B,H,W,2]`` (y, x): the pixel grid minus the flow."""
+    ``[B,H,W,2]`` (y, x): the pixel grid (its rows from ``row0``) minus the flow."""
     b, h, w, _ = flow.shape
-    gy = torch.arange(h, dtype=torch.float32, device=flow.device)[None, :, None].expand(b, h, w)
+    gy = torch.arange(row0, row0 + h, dtype=torch.float32, device=flow.device)[None, :, None].expand(b, h, w)
     gx = torch.arange(w, dtype=torch.float32, device=flow.device)[None, None, :].expand(b, h, w)
     return torch.stack([gy - flow[..., 0], gx - flow[..., 1]], dim=-1)
 
@@ -52,8 +60,8 @@ def bilinear_sample(image: torch.Tensor, qy: torch.Tensor, qx: torch.Tensor) -> 
 
 def image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Bilinear-warp ``image [B,H,W,C]`` by ``flow [B,H,W,2]`` (dy, dx)."""
-    coords = flow_to_warp_grid(flow.float())
-    return bilinear_sample(image, coords[..., 0], coords[..., 1])
+    coords = flow_to_warp_grid(flow.float(), SP.row_offset(image.shape[1], current_spatial()))
+    return bilinear_sample(SP.gathered(image), coords[..., 0], coords[..., 1])
 
 
 def apply_affine_kernels(image: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
@@ -62,11 +70,14 @@ def apply_affine_kernels(image: torch.Tensor, params: torch.Tensor) -> torch.Ten
     convention (normalized [-1, 1] coordinates, output grid -> source) given
     as deltas from the identity, so that a zero head starts at the identity
     warp. Returns ``[B,N,H,W,C]``."""
+    mesh = current_spatial()
+    rows = image.shape[1]
+    image = SP.gathered(image)
     b, h, w, c = image.shape
     n = params.shape[1]
     identity = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=image.device)
     theta = (params.float() + identity).reshape(b, n, 2, 3)
-    ys = torch.linspace(-1.0, 1.0, h, device=image.device)
+    ys = torch.linspace(-1.0, 1.0, h, device=image.device).narrow(0, SP.row_offset(rows, mesh), rows)
     xs = torch.linspace(-1.0, 1.0, w, device=image.device)
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # [H, W] each
     grid = torch.stack([gx, gy, torch.ones_like(gx)])  # [3, H, W]: rows (x, y, 1)

@@ -1,4 +1,4 @@
-"""Data-parallel training across processes: the process group
-(``distributed.py``) and the rows, noise, gradients and parameters each rank
-holds of it (``mesh.py``). Counterpart of ``video_prediction_tpu/parallel/``
-(its data axis; spatial partitioning is not ported yet)."""
+"""Training across processes: the process group (``distributed.py``), the
+rows, noise, gradients and parameters each rank holds of it and the spatial
+mesh (``mesh.py``), and the halo exchanges and gathers of spatial
+partitioning (``spatial.py``). Counterpart of ``video_prediction_tpu/parallel/``."""

@@ -92,10 +92,11 @@ def local_device(requested: str) -> torch.device:
     return device
 
 
-def per_host_batch(global_batch: int) -> int:
+def per_host_batch(global_batch: int, spatial: int = 1) -> int:
     """The rows of a global batch each process feeds (the group's ranks
-    together make up the batch)."""
-    n = world_size()
+    together make up the batch; the ``spatial`` ranks of a spatial group
+    feed the same rows)."""
+    n = world_size() // spatial
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by {n} hosts")
     return global_batch // n

@@ -76,6 +76,22 @@ printed summaries and progress, the profile and the checkpoints. Every
 rank runs every collective at the same steps. The process group is
 destroyed at exit, on an error too; after an error under a group no final
 checkpoint is written, since the other ranks may be inside a collective.
+
+``--spatial_shards k`` (the JAX CLI's flag) shards image height over k
+ranks, ``parallel/mesh.py#make_spatial_mesh``: rank r has data coordinate
+r // k and spatial coordinate r % k, and the world's ranks split into
+W/k data x k spatial. The k ranks of a spatial group read the same
+examples (streams seeded ``--seed`` plus the data coordinate, global batch
+/ (W/k) a rank) and keep their own rows of the images (the feeder cuts
+them on the host); the step's halos, statistics and gathers run over the
+spatial group (``parallel/spatial.py``). The first batch must pass
+``validate_spatial_mesh`` (at least 4 rows a shard at the bottleneck).
+The parameters are whole on every rank, so the checkpoints are those of
+an unsharded run; the GIF summaries gather the rows first. ``k`` must
+divide the world: ``--spatial_shards 2`` in one process raises, as the JAX
+CLI does on one device::
+
+    torchrun --standalone --nproc_per_node 2 -m video_prediction_torch.train --spatial_shards 2 --device cpu ...
 """
 
 
@@ -118,6 +134,9 @@ def parse_args(argv=None):
                    help="optimizer steps fused into one call (on CUDA one CUDA graph of K steps over stacked "
                    "batches); amortizes the host's per-step launch overhead. Training may overshoot max_steps "
                    "by up to K-1 steps when it is not a multiple of K")
+    p.add_argument("--spatial_shards", type=int, default=1,
+                   help="shard image HEIGHT over this many ranks (the mesh's second axis): spatial partitioning with "
+                   "halo exchanges. Divides per-device activation memory. The remaining ranks form the data axis")
     p.add_argument("--no_tensorboard", action="store_true", help="write no TensorBoard event file")
     p.add_argument("--device", default="cuda", help="torch device to run on, e.g. cuda, cuda:1 or cpu")
     p.add_argument("--profile_steps", default="", help="'start,stop' steps for a torch.profiler trace")
@@ -164,7 +183,13 @@ def _main(args, device: torch.device) -> Dict[str, object]:
     from video_prediction_torch.models import get_model_class, input_dims
     from video_prediction_torch.models.base import images_to_float
     from video_prediction_torch.parallel.distributed import is_primary, per_host_batch, rank
-    from video_prediction_torch.parallel.mesh import broadcast_module_
+    from video_prediction_torch.parallel.mesh import (
+        broadcast_module_,
+        image_rows,
+        make_spatial_mesh,
+        validate_spatial_mesh,
+    )
+    from video_prediction_torch.parallel.spatial import gather_rows
     from video_prediction_torch.train import schedules
     from video_prediction_torch.train.checkpoint import (
         has_train_state,
@@ -179,6 +204,8 @@ def _main(args, device: torch.device) -> Dict[str, object]:
     from video_prediction_torch.utils.summary import EventWriter
 
     group = dist.group.WORLD if dist.is_initialized() else None
+    spatial = make_spatial_mesh(args.spatial_shards)
+    k_sp = args.spatial_shards
     primary = is_primary()
     prof_start, prof_stop = parse_profile_steps(args.profile_steps)
 
@@ -208,12 +235,15 @@ def _main(args, device: torch.device) -> Dict[str, object]:
     spc = args.steps_per_call
     if spc < 1:
         raise ValueError(f"--steps_per_call must be at least 1, got {spc}")
-    local_bs = per_host_batch(hp.batch_size)
-    # the process index folded into the data seed only, as scripts/train.py does: every
-    # rank reads other examples, while the weights and the noise are seeded alike
-    data_seed = args.seed + rank()
+    local_bs = per_host_batch(hp.batch_size, k_sp)
+    # the data coordinate folded into the data seed only, as scripts/train.py folds the
+    # process index: every spatial group reads other examples, while the weights and the
+    # noise are seeded alike
+    data_seed = args.seed + rank() // k_sp
     host_iter = dataset_cls(args.input_dir, mode="train", hparams=dhp, seed=data_seed).make_iterator(local_bs)
     batch = next(host_iter)
+    validate_spatial_mesh(k_sp, *batch["images"].shape[-3:-1])
+    rows = (spatial.coord, k_sp) if spatial is not None else None
     # the first batch fixes the parameter shapes, as in the JAX package's init
     model = model_cls(hp, **input_dims(hp, batch))
     ts = create_train_state(model, args.seed, device, steps_per_call=spc)
@@ -224,6 +254,7 @@ def _main(args, device: torch.device) -> Dict[str, object]:
     if group is not None:
         log(f"data parallel: {dist.get_world_size()} ranks ({dist.get_backend()}), {local_bs} of the global batch of "
             f"{hp.batch_size} a rank")
+    log(f"data axis: {dist.get_world_size() // k_sp if group is not None else 1}, spatial axis: {k_sp}")
     warm_started = []
     if args.resume and has_train_state(args.output_dir):
         # the whole train state; the data stream is not replayed up to the
@@ -235,8 +266,8 @@ def _main(args, device: torch.device) -> Dict[str, object]:
         log(f"warm-started {len(warm_started)} of {len(list(ts.model.parameters()))} params from {args.checkpoint}")
     if group is not None:
         broadcast_module_(ts.model, 0, group)
-    train_step = make_train_step(model, steps_per_call=spc, group=group)
-    eval_step = make_eval_step(model, group=group)
+    train_step = make_train_step(model, steps_per_call=spc, group=group, spatial=spatial)
+    eval_step = make_eval_step(model, group=group, spatial=spatial)
     # one persistent val iterator: successive eval firings walk on through the
     # validation set, as in the JAX CLI
     val_dir = args.val_input_dir or args.input_dir
@@ -264,7 +295,7 @@ def _main(args, device: torch.device) -> Dict[str, object]:
 
     # the train stream, from the batch that fixed the shapes, on the device,
     # stacked [K, B, ...] for K steps a call
-    train_iter = DeviceFeeder(_prepend(batch, host_iter), device, stack=spc)
+    train_iter = DeviceFeeder(_prepend(batch, host_iter), device, stack=spc, rows=rows)
     profiler: Optional[torch.profiler.profile] = None
     finished = False
     try:
@@ -293,6 +324,8 @@ def _main(args, device: torch.device) -> Dict[str, object]:
                 gen, _ = eval_step(last, generator=rng)
                 gt = images_to_float(last["images"])
                 side = torch.cat([gt[:, 1:], gen], dim=3)  # [B, T-1, H, 2W, C]: ground truth | prediction
+                if spatial is not None:  # every rank of the group joins the gather
+                    side = gather_rows(side, spatial, dim=2)
                 if writer is not None:  # rank 0's rows, as scripts/train.py's _local_np gives them
                     grid = tile_image_grid(side[:8].cpu().numpy())
                     writer.image(step, "gen_images", encode_gif(grid, fps=4), *grid.shape[1:])
@@ -302,7 +335,10 @@ def _main(args, device: torch.device) -> Dict[str, object]:
                     rng = torch.Generator(device=device).manual_seed(args.seed + step)
                     accum: Dict[str, torch.Tensor] = {}
                     for _ in range(n_eval):
-                        _, metrics = eval_step(batch_to_device(next(val_iter), device), generator=rng)
+                        val = next(val_iter)
+                        if rows is not None:
+                            val = image_rows(val, *rows)
+                        _, metrics = eval_step(batch_to_device(val, device), generator=rng)
                         for k, v in metrics.items():
                             if v.ndim == 0:
                                 accum[k] = accum[k] + v if k in accum else v

@@ -48,6 +48,18 @@ that does not capture into a CUDA graph. With NCCL the all-reduce is
 captured into ``MultiStep``'s graph (its eager first call also creates the
 communicator); gloo collectives do not capture, so a ``MultiStep`` on CUDA
 tensors under gloo raises.
+
+Spatial partitioning (``spatial``, a ``parallel/mesh.py#SpatialMesh``; the
+JAX step's ``model`` mesh axis, ``_lazy_spatial_jit``): ``batch`` holds
+this rank's rows of its data coordinate's samples, the noise is sliced by
+the data coordinate and size (the k ranks of a spatial group draw the same
+``use_gt_u``, ``eps_q``, ``z_p`` and ``clip_start``), and the losses run in
+a ``spatial_context``, where each rank's loss is its share of its group's
+(``models/base.py``). The one flat all-reduce over ``group`` (the world)
+then sums the gradients and scalars over the spatial group and means them
+over the data group, divided by the data size. Every halo, statistic and
+gather inside the step is an all-reduce of its own (``parallel/spatial.py``),
+captured into ``MultiStep``'s graph under NCCL like the gradients'.
 """
 
 from __future__ import annotations
@@ -59,7 +71,7 @@ import torch
 import torch.distributed as dist
 
 from video_prediction_torch import kernels as K
-from video_prediction_torch.parallel.mesh import all_reduce_mean_, shard_noise
+from video_prediction_torch.parallel.mesh import SpatialMesh, all_reduce_mean_, shard_noise, spatial_context
 from video_prediction_torch.train import schedules
 from video_prediction_torch.train.state import TrainState
 
@@ -67,13 +79,16 @@ Scalars = Dict[str, torch.Tensor]
 
 
 def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict[str, Any]],
-            step: int | torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> Scalars:
+            step: int | torch.Tensor, group: Optional[dist.ProcessGroup] = None,
+            spatial: Optional[SpatialMesh] = None) -> Scalars:
     """One train step at ``step`` (an int, or a 0-d tensor on the batch's
     device) on ``batch`` with ``noise`` (drawn from ``ts.rng`` when None):
     the backward pass, the mean over ``group``'s ranks of the gradients and
-    scalars, both Adam updates and the spectral ``u``. Returns the step's
-    0-d loss tensors; ``ts.step`` is left to the caller."""
-    total, aux = ts.model.compute_losses(batch, step, noise=noise, generator=ts.rng)
+    scalars (under ``spatial``: the sum over the spatial group, the mean
+    over the data group), both Adam updates and the spectral ``u``. Returns
+    the step's 0-d loss tensors; ``ts.step`` is left to the caller."""
+    with spatial_context(spatial):
+        total, aux = ts.model.compute_losses(batch, step, noise=noise, generator=ts.rng)
     optimizers = [opt for opt in (ts.opt_g, ts.opt_d) if opt is not None]
     for opt in optimizers:
         opt.zero_grad(set_to_none=True)
@@ -92,7 +107,7 @@ def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict
         **{f"d/{k}": v.detach() for k, v in aux["d_losses"].items()},
     }
     if group is not None:  # every rank the same layout: the zero gradients above first
-        all_reduce_mean_(grads + list(scalars.values()), group)
+        all_reduce_mean_(grads + list(scalars.values()), group, spatial.data_size if spatial else None)
     lr = schedules.learning_rate(step, ts.model.hparams)  # optax reads the count before it increments
     for opt in optimizers:
         for param_group in opt.param_groups:
@@ -109,25 +124,34 @@ def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict
     return scalars
 
 
+def _data_axis(group: dist.ProcessGroup, spatial: Optional[SpatialMesh]) -> Tuple[int, int]:
+    """(data coordinate, data size) of this rank."""
+    if spatial is not None:
+        return spatial.data_rank, spatial.data_size
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
 def _rank_noise(ts: TrainState, images: torch.Tensor, noise: Optional[Dict[str, Any]],
-                group: dist.ProcessGroup) -> Dict[str, Any]:
+                group: dist.ProcessGroup, spatial: Optional[SpatialMesh] = None) -> Dict[str, Any]:
     """This rank's slice of the step noise: ``noise`` as drawn for the global
     batch, or drawn so from ``ts.rng`` when None (``images`` ``[B, T, ...]``,
-    this rank's B rows)."""
-    world = dist.get_world_size(group)
+    this rank's B rows), by the data coordinate."""
+    rank, size = _data_axis(group, spatial)
     if noise is None:
-        noise = ts.model.draw_noise(images.shape[0] * world, images.shape[1], ts.rng, images.device)
-    return shard_noise(noise, dist.get_rank(group), world)
+        noise = ts.model.draw_noise(images.shape[0] * size, images.shape[1], ts.rng, images.device)
+    return shard_noise(noise, rank, size)
 
 
-def _check_data_parallel(model, group: Optional[dist.ProcessGroup]) -> None:
-    if group is not None and dist.get_world_size(group) > 1 and model.hparams.schedule_sampling_exact:
+def _check_data_parallel(model, group: Optional[dist.ProcessGroup], spatial: Optional[SpatialMesh] = None) -> None:
+    if spatial is not None and group is None:
+        raise ValueError("spatial partitioning needs the process group that its spatial groups divide")
+    if group is not None and _data_axis(group, spatial)[1] > 1 and model.hparams.schedule_sampling_exact:
         raise ValueError("schedule_sampling_exact picks round(p * B) samples of the whole batch; a rank sees only "
                          "its rows, so data-parallel training does not take it")
 
 
-def make_train_step(model, steps_per_call: int = 1,
-                    group: Optional[dist.ProcessGroup] = None) -> Callable[..., Scalars]:
+def make_train_step(model, steps_per_call: int = 1, group: Optional[dist.ProcessGroup] = None,
+                    spatial: Optional[SpatialMesh] = None) -> Callable[..., Scalars]:
     """The train step of ``model``, updating ``ts`` in place and returning the
     0-d loss tensors ``g_loss``, ``d_loss``, ``g/<term>`` and ``d/<term>``.
 
@@ -138,18 +162,21 @@ def make_train_step(model, steps_per_call: int = 1,
     one's scalars; ``noises`` a list of K such dicts. ``group``: data
     parallel over that process group; ``batch`` holds this rank's rows,
     ``noise`` is drawn for the global batch (B x the world size rows) and the
-    scalars are the global means."""
+    scalars are the global means. ``spatial``: spatial partitioning within
+    ``group`` (the module docstring); ``batch`` then holds this rank's rows
+    of its data coordinate's samples, and ``noise`` is drawn for the global
+    batch of B x the data size samples."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
-    _check_data_parallel(model, group)
+    _check_data_parallel(model, group, spatial)
     if steps_per_call > 1:
-        return MultiStep(steps_per_call, group)
+        return MultiStep(steps_per_call, group, spatial)
 
     def train_step(ts: TrainState, batch: Dict[str, torch.Tensor],
                    noise: Optional[Dict[str, Any]] = None) -> Scalars:
         if group is not None:
-            noise = _rank_noise(ts, batch["images"], noise, group)
-        scalars = _update(ts, batch, noise, ts.step, group)
+            noise = _rank_noise(ts, batch["images"], noise, group, spatial)
+        scalars = _update(ts, batch, noise, ts.step, group, spatial)
         ts.step += 1
         return scalars
 
@@ -171,9 +198,11 @@ class MultiStep:
     ``keep_graph``, set before the capture, keeps the captured
     ``cudaGraph_t`` so that ``dump_graph`` can list its nodes."""
 
-    def __init__(self, steps_per_call: int, group: Optional[dist.ProcessGroup] = None):
+    def __init__(self, steps_per_call: int, group: Optional[dist.ProcessGroup] = None,
+                 spatial: Optional[SpatialMesh] = None):
         self.k = steps_per_call
         self.group = group
+        self.spatial = spatial
         self.keep_graph = False
         self.calls = 0
         self.keys: List[str] = []
@@ -192,7 +221,8 @@ class MultiStep:
         stacked ``[K, len(keys)]`` and sets ``keys``."""
         rows = []
         for k in range(self.k):
-            scalars = _update(ts, {key: v[k] for key, v in batches.items()}, noises[k], step, self.group)
+            scalars = _update(ts, {key: v[k] for key, v in batches.items()}, noises[k], step, self.group,
+                              self.spatial)
             step.add_(1)
             rows.append(torch.stack([v.float() for v in scalars.values()]))
         self.keys = list(scalars)
@@ -207,7 +237,7 @@ class MultiStep:
             raise ValueError(f"steps_per_call={self.k} takes {self.k} noise dicts, got {len(noises)}")
         images = batches["images"]
         if self.group is not None:  # the global batch's noise, this rank's slice
-            noises = [_rank_noise(ts, images[k], None if noises is None else noises[k], self.group)
+            noises = [_rank_noise(ts, images[k], None if noises is None else noises[k], self.group, self.spatial)
                       for k in range(self.k)]
         elif noises is None:
             noises = [ts.model.draw_noise(images.shape[1], images.shape[2], ts.rng, images.device)
@@ -306,7 +336,7 @@ class MultiStep:
         self._graph = graph
 
 
-def make_eval_step(model, group: Optional[dist.ProcessGroup] = None
+def make_eval_step(model, group: Optional[dist.ProcessGroup] = None, spatial: Optional[SpatialMesh] = None
                    ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
     """``eval_step(batch, zs_prior=None, generator=None) -> (gen_images,
     metrics)`` for ``model``: the prior rollout of ``forward(train=False)``
@@ -314,11 +344,14 @@ def make_eval_step(model, group: Optional[dist.ProcessGroup] = None
     prior z is ``zs_prior`` when given, else drawn from ``generator`` (a
     ``torch.Generator`` on the batch's device). ``group``: the 0-d metrics
     are their means over its ranks (each on its own rows); ``gen_images``
-    are this rank's."""
+    are this rank's. ``spatial``: ``batch`` holds this rank's rows of the
+    height, ``gen_images`` are this rank's rows (the JAX spatial eval
+    step's ``out_data="images"``), and the metrics, taken on gathered
+    frames, are equal on the ranks of a spatial group."""
 
     def eval_step(batch: Dict[str, torch.Tensor], zs_prior: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        with torch.inference_mode():
+        with torch.inference_mode(), spatial_context(spatial):
             out = model(batch, train=False, zs_prior=zs_prior, generator=generator)
             metrics = model.metrics_fn(out, batch)
             if group is not None:
