@@ -198,6 +198,19 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     and of ``kth/ours_savp_128`` (128 px, 20 frames), one step, one process
     alone at batch 16 (whether it fits), then at 8 alone and as the gloo
     pair;
+27. a JAX run directory carried into the port (``tools/export_jax_run.py``
+    where jax is, ``video_prediction_torch.convert`` here): (a) the JAX run
+    of ``tests/fixtures/jax_run_small`` (32 px, small width, its step-3
+    export, the batches and JAX step noise of steps 3-4 and JAX's losses of
+    them) converted, resumed at K = 1 and under ``MultiStep(2)``, TF32 off
+    and cuDNN's deterministic algorithms: g_loss and d_loss within phase
+    9's 1e-4 of JAX's, Adam's steps at 5; (b) the full-width flagship's
+    train state (``tests/fixtures/jax_state_shapes/``'s leaves filled from
+    a seed at init scale, step and Adam counts 1000) converted, then
+    ``generate`` and ``evaluate`` on the converted directory and
+    ``train --resume --steps_per_call 4`` for one call: "resumed from step
+    1000", finite losses, Adam's steps at 1004, phase 8's launches a step;
+    the conversions' seconds and files' MB printed;
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -3487,6 +3500,248 @@ def sp_phase(dev, ident: str, per_step: dict, ref: dict, kernel_results: list) -
     print(f"phase 26 (spatial partitioning): {time.perf_counter() - t_phase:.2f} s wall")
 
 
+# ---------------------------------------------------------------------------
+# a JAX run directory carried into the port (phase 27)
+# ---------------------------------------------------------------------------
+# tools/write_jax_fixtures.py writes both from the JAX package (this machine has no jax)
+JAX_RUN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "jax_run_small")
+JAX_FLAGSHIP_SHAPES = os.path.join(ROOT, "tests", "fixtures", "jax_state_shapes", "bair_action_free_ours_savp.json")
+JAX_SAVED_STEP, JAX_STEPS = 3, (3, 4)  # the fixture's checkpoint, then its two recorded steps
+JAX_RESUME_STEP = 1000  # (b): the filled state's step and Adam counts, the schedules mid-way
+JAX_RESUME_K = 4
+JAX_FILL_SEED = 27
+
+
+def run_dir_model(run_dir: str, batch: dict):
+    """The port model a run directory's option files describe, for ``batch``'s shapes."""
+    from video_prediction_torch.configs.hparams import apply_overrides, load_hparams_json
+    from video_prediction_torch.models import get_model_class, input_dims
+
+    with open(os.path.join(run_dir, "options.json")) as f:
+        cls = get_model_class(json.load(f)["model"])
+    hp = apply_overrides(cls.default_hparams(), load_hparams_json(os.path.join(run_dir, "model_hparams.json")))
+    return cls(hp, **input_dims(hp, batch))
+
+
+def convert_jax_export(export_dir: str, port_dir: str, label: str) -> dict:
+    """``python -m video_prediction_torch.convert``'s ``convert_run``, its
+    seconds and the files' MB printed."""
+    import shutil
+
+    from video_prediction_torch.convert import convert_run
+
+    shutil.rmtree(port_dir, ignore_errors=True)
+    out = convert_run(export_dir, port_dir)
+    sizes = ", ".join(f"{os.path.basename(k)} {n / 1e6:.1f} MB" for k, n in out["bytes"].items())
+    print(f"convert {label}: step {out['step']} in {out['seconds']:.2f} s; {sizes}")
+    return out
+
+
+def adam_steps(opts) -> set:
+    return {float(slots["step"]) for opt in opts if opt is not None for slots in opt.state.values()}
+
+
+def jax_resume_phase(dev, port_dir: str) -> dict:
+    """Phase 27 (a): the converted JAX run resumed on the card, TF32 off and
+    cuDNN's deterministic algorithms, at K = 1 and under ``MultiStep(2)``
+    (capturable Adams, device step tensors); steps 3 and 4 on the fixture's
+    batches with the JAX step's noise, each loss within phase 9's rule of
+    the loss JAX recorded. Returns the largest relative difference by K."""
+    import numpy as np
+
+    from video_prediction_torch.train.checkpoint import load_train_state
+    from video_prediction_torch.train.state import create_train_state
+    from video_prediction_torch.train.step import make_train_step
+
+    with np.load(os.path.join(JAX_RUN_FIXTURE, "steps.npz")) as npz:
+        rec = {k: npz[k] for k in npz.files}
+    batches = [{key: torch.from_numpy(rec[f"step{k}/{key}"]).to(dev) for key in ("images", "actions")}
+               for k in JAX_STEPS]
+    noises = [{key: int(rec[f"step{k}/noise/{key}"]) if key == "clip_start" else
+               torch.from_numpy(rec[f"step{k}/noise/{key}"]).to(dev)
+               for key in ("use_gt_u", "eps_q", "z_p", "clip_start")} for k in JAX_STEPS]
+    want = [(float(rec[f"step{k}/g_loss"]), float(rec[f"step{k}/d_loss"])) for k in JAX_STEPS]
+    worst = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        with NoTF32():
+            for k in (1, len(JAX_STEPS)):
+                model = run_dir_model(port_dir, {key: v.cpu() for key, v in batches[0].items()})
+                ts = create_train_state(model, 0, dev, steps_per_call=k)
+                load_train_state(port_dir, ts)
+                check(ts.step == JAX_SAVED_STEP, f"the converted run resumed at step {ts.step}")
+                step = make_train_step(model, steps_per_call=k)
+                if k == 1:
+                    got = []
+                    for batch, noise in zip(batches, noises):
+                        s = step(ts, batch, noise=noise)
+                        got.append((float(s["g_loss"]), float(s["d_loss"])))
+                else:
+                    step(ts, {key: torch.stack([b[key] for b in batches]) for key in batches[0]}, noises=noises)
+                    table = step.scalars_by_step.cpu()
+                    got = [(float(row[step.keys.index("g_loss")]), float(row[step.keys.index("d_loss")]))
+                           for row in table]
+                steps = adam_steps((ts.opt_g, ts.opt_d))
+                check(ts.step == JAX_STEPS[-1] + 1 and steps == {float(ts.step)},
+                      f"K={k}: step {ts.step}, Adam steps {steps}")
+                worst[k] = 0.0
+                for (a, b), (ja, jb) in zip(got, want):
+                    for name, x, ref in (("g_loss", a, ja), ("d_loss", b, jb)):
+                        worst[k] = max(worst[k], abs(x - ref) / abs(ref))
+                        check(abs(x - ref) <= TRAIN_LOSS_RTOL * abs(ref) + 1e-7,
+                              f"K={k}: {name} {x} on the card, {ref} from JAX")
+                print(f"JAX run resumed at step {JAX_SAVED_STEP}, K={k}"
+                      f"{' (MultiStep: capturable Adams, device step)' if k > 1 else ''}: steps "
+                      f"{JAX_STEPS} (g_loss, d_loss) {got} against JAX's {want}: worst rel {worst[k]:.3g} (tol "
+                      f"{TRAIN_LOSS_RTOL}); Adam steps {sorted(steps)}")
+                del ts, model, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return worst
+
+
+def fill_jax_state(spec: dict, seed: int, step: int) -> dict:
+    """Values for the leaf table of a shape file at about init scale: kernels
+    N(0, 1/fan_in), scales 1 + N(0, 0.1), biases and ``u`` N(0, 0.1), Adam's
+    mu N(0, 1e-3) and nu |N(0, 1e-6)|, each count and the step ``step``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, (shape, dtype) in sorted(spec["leaves"].items()):
+        if dtype == "int32":
+            out[path] = np.full(shape, step, np.int32)
+            continue
+        if dtype == "uint32":
+            out[path] = rng.integers(0, 2**31, size=shape, dtype=np.uint32)
+            continue
+        v = rng.standard_normal(shape, dtype=np.float32)
+        leaf = path.split("/")[-1]
+        if "/nu/" in path:
+            v = np.abs(v) * np.float32(1e-6)
+        elif "/mu/" in path:
+            v *= np.float32(1e-3)
+        elif leaf == "scale":
+            v = np.float32(1.0) + np.float32(0.1) * v
+        elif leaf in ("bias", "u"):
+            v *= np.float32(0.1)
+        else:
+            v *= np.float32(1.0 / math.sqrt(max(1, math.prod(shape[:-1]))))
+        out[path] = v
+    return out
+
+
+def jax_flagship_phase(ident: str, per_step: dict, vgg_path: str, lin_path: str) -> dict:
+    """Phase 27 (b): the full-width flagship's JAX train state (the shape
+    file's leaves filled from a seed at step 1000), exported as the JAX
+    side exports it and converted; ``generate`` and ``evaluate`` on the
+    converted directory, then the train CLI's ``--resume --steps_per_call
+    4`` for one call: "resumed from step 1000", finite losses, Adam's steps
+    at 1004, phase 8's launches a step. Returns the readings."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from video_prediction_torch import evaluate, generate
+    from video_prediction_torch import kernels as K
+    from video_prediction_torch.convert import JAX_STATE_FILE, RUN_FILES
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    with open(JAX_FLAGSHIP_SHAPES) as f:
+        spec = json.load(f)
+    export_dir = os.path.join(WORK_DIR, "jax_flagship_export")
+    port_dir = os.path.join(WORK_DIR, "jax_flagship")
+    shutil.rmtree(export_dir, ignore_errors=True)
+    os.makedirs(export_dir)
+    t0 = time.perf_counter()
+    for name, key in zip(RUN_FILES, ("options", "model_hparams", "dataset_hparams")):
+        with open(os.path.join(export_dir, name), "w") as f:
+            json.dump(spec[key], f, indent=2)
+    np.savez(os.path.join(export_dir, JAX_STATE_FILE), **fill_jax_state(spec, JAX_FILL_SEED, JAX_RESUME_STEP))
+    print(f"filled {len(spec['leaves'])} leaves of {os.path.basename(JAX_FLAGSHIP_SHAPES)} at step "
+          f"{JAX_RESUME_STEP} in {time.perf_counter() - t0:.2f} s")
+    readings = {"convert": convert_jax_export(export_dir, port_dir, "the full-width flagship")}
+    shutil.rmtree(export_dir)
+
+    set_tf32_default()
+    results = os.path.join(WORK_DIR, "jax_flagship_results")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen = generate.main(["--checkpoint", port_dir, "--dataset", "synthetic", "--results_dir", results,
+                         "--device", "cuda", "--batch_size", str(BATCH), "--num_samples", str(BATCH)])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    want = {k: n * gen["rollouts"] for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(gen["all_finite"] and gen["gifs"] == BATCH and launches == want,
+          f"generate on the converted run: {gen}, launches {launches}, want {want}")
+    readings["generate_s"] = time.perf_counter() - t0
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    ev = evaluate.main(["--checkpoint", port_dir, "--dataset", "synthetic", "--results_dir", results,
+                        "--device", "cuda", "--batch_size", str(BATCH), "--num_samples", str(BATCH),
+                        "--num_stochastic_samples", "8", "--vgg_weights_path", vgg_path,
+                        "--lpips_weights_path", lin_path])
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    want = {k: n * ev["rollouts"] for k, n in LAUNCHES_PER_ROLLOUT.items()}
+    want.update({k: 0 for k in BACKWARD})
+    check(ev["no_nan"] and ev["rollouts"] == 1 and launches == want,
+          f"evaluate on the converted run: {ev}, launches {launches}, want {want}")
+    readings["evaluate_s"] = time.perf_counter() - t0
+    print(f"generate and evaluate on the converted run: {gen['rollouts']} and {ev['rollouts']} rollouts in "
+          f"{readings['generate_s']:.2f} s and {readings['evaluate_s']:.2f} s wall (restore and set-up included); "
+          f"evaluate means {ev['metrics']}")
+
+    torch.cuda.empty_cache()
+    end = JAX_RESUME_STEP + JAX_RESUME_K
+    argv = ["--dataset", "synthetic", "--model", "savp", "--model_hparams_dict",
+            os.path.join(port_dir, "model_hparams.json"), "--output_dir", port_dir, "--resume", "--device", "cuda",
+            "--batch_size", str(TRAIN_BATCH), "--steps_per_call", str(JAX_RESUME_K), "--max_steps", str(end),
+            "--progress_freq", str(JAX_RESUME_K), "--no_tensorboard"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out = train_main(argv)
+    torch.cuda.synchronize()
+    readings["train_s"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    print(log.getvalue(), end="")
+    want = {k: n * JAX_RESUME_K for k, n in per_step.items()}
+    check(f"resumed from step {JAX_RESUME_STEP}" in log.getvalue(), "the train CLI did not log the resume")
+    check((out["start_step"], out["step"]) == (JAX_RESUME_STEP, end) and out["all_finite"],
+          f"train --resume on the converted run: {out}")
+    check(launches == want, f"train --resume launches {launches}, want {want} ({JAX_RESUME_K} steps)")
+    state = torch.load(os.path.join(port_dir, "checkpoints", "train_state.pt"), weights_only=True)
+    steps = {float(slots["step"]) for key in ("opt_g", "opt_d") for slots in state[key]["state"].values()}
+    check(state["step"] == end and steps == {float(end)}, f"saved step {state['step']}, Adam steps {steps}")
+    readings.update({"losses": out["scalars"], "launches": launches})
+    print(f"train --resume --steps_per_call {JAX_RESUME_K} on the converted full-width flagship: steps "
+          f"{JAX_RESUME_STEP}-{end} in {readings['train_s']:.2f} s wall (one eager call; set-up and checkpoint "
+          f"included), g_loss {out['scalars']['g_loss']:.6g}, d_loss {out['scalars']['d_loss']:.6g}; Adam steps "
+          f"{sorted(steps)}; launches {launches} [{ident}]")
+    return readings
+
+
+def jax_run_phase(ident: str, per_step: dict, vgg_path: str, lin_path: str) -> None:
+    """Phase 27: a JAX run directory carried into the port, (a) against
+    the losses JAX recorded, (b) at full width through the entry points."""
+    t_phase = time.perf_counter()
+    port_dir = os.path.join(WORK_DIR, "jax_run_small")
+    convert = convert_jax_export(JAX_RUN_FIXTURE, port_dir, "tests/fixtures/jax_run_small")
+    worst = jax_resume_phase(torch.device("cuda", 0), port_dir)
+    flagship = jax_flagship_phase(ident, per_step, vgg_path, lin_path)
+    summary = {"small": {"convert_s": convert["seconds"], "worst_loss_rel_by_k": worst},
+               "flagship": {"convert_s": flagship["convert"]["seconds"],
+                            "mb": {os.path.basename(k): n / 1e6 for k, n in flagship["convert"]["bytes"].items()},
+                            **{k: flagship[k] for k in ("generate_s", "evaluate_s", "train_s", "losses")}}}
+    print(f"phase 27 readings [{ident}]: {json.dumps(summary)}")
+    print(f"phase 27 (JAX run carried into the port): {time.perf_counter() - t_phase:.2f} s wall")
+
+
 def dtype_of(hp, name: str) -> str:
     """The dtype ``name`` launches on in the model of ``hp``: K2 in the gate dtype, K1 and K3 fp32."""
     return hp.gate_dtype if name.startswith("fused_ln_gate") else "float32"
@@ -3656,13 +3911,18 @@ def main() -> int:
         # against one process; the kernels at the shard's shapes; the peak
         # memory per rank, flagship and kth/ours_savp_128
         sp_phase(dev, ident, per_train_step, dp_ref, kernel_results)
+
+        # 27. a JAX run directory carried into the port: the small run against
+        # JAX's recorded losses (K = 1 and MultiStep), the full-width flagship
+        # through generate, evaluate and train --resume --steps_per_call 4
+        jax_run_phase(ident, per_train_step, vgg_path, lin_path)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
-    print(f"chip_smoke: phases 1-26 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-27 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)

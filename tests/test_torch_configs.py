@@ -158,7 +158,7 @@ def test_port_never_imports_jax_or_flax():
         data = ["native", "data.base", "data.native_loader", "data.records", "data.loader", "data.bair", "data.kth",
                 "data.something", "data.variants", "data.convert", "data.synthetic"]
         generator = ["ops.cdna", "ops.warp", "ops.rnn", "ops.layers", "models.savp", "models.model_zoo"]
-        tools = ["bench", "bench_common", "bench_generate", "bench_probe"]
+        tools = ["bench", "bench_common", "bench_generate", "bench_probe", "convert"]
         parallel = ["parallel", "parallel.distributed", "parallel.mesh"]
         assert not [m for m in training + evaluation + data + generator + tools + parallel
                     if "video_prediction_torch." + m not in names], names

@@ -9,10 +9,16 @@ package's ``scripts/train.py`` writes — and the port's own checkpoints:
 - ``checkpoints/train_state.pt``: the full train state for ``--resume``
   (the counterpart of the JAX package's orbax ``TrainState``, in
   ``torch.save`` form): the step, the model's ``state_dict``, both Adam
-  states and the step-noise generator's state.
+  states with their slots keyed by parameter name
+  (``state.optimizer_state``), and the step-noise generator's state, or a
+  seed for it.
 
-(The JAX package's orbax checkpoints cannot be read without jax;
-``convert.py`` maps a flax params tree to the ``state_dict``.)
+The JAX package's orbax checkpoints cannot be read without jax: a JAX run
+directory is carried over in two stages, ``tools/export_jax_run.py`` where
+jax is, then ``python -m video_prediction_torch.convert``, which writes a
+run directory of this form (``train_state.pt``'s generator as a seed:
+the JAX key is not carried). The port keeps one checkpoint a run directory
+where the JAX package keeps the last three; the exporter picks one step.
 
 Under a process group (``parallel/distributed.py``) the writers write on rank
 0 only, then every rank waits at a barrier, so that no rank reads a file
@@ -31,7 +37,7 @@ import torch.nn as nn
 
 from video_prediction_torch.configs.hparams import DatasetHparams, ModelHparams
 from video_prediction_torch.parallel.distributed import barrier, is_primary
-from video_prediction_torch.train.state import load_optimizer
+from video_prediction_torch.train.state import load_optimizer, optimizer_param_names, optimizer_state
 
 PARAMS_FILE = os.path.join("checkpoints", "params.pt")
 TRAIN_STATE_FILE = os.path.join("checkpoints", "train_state.pt")
@@ -108,6 +114,10 @@ def write_run_dir(run_dir: str, model_name: str, dataset_name: str, hparams: Mod
     save_params(run_dir, model)
 
 
+def _adam_state(model: nn.Module, opt: Optional[torch.optim.Adam]) -> Optional[dict]:
+    return None if opt is None else optimizer_state(opt, optimizer_param_names(model, opt))
+
+
 def save_train_state(run_dir: str, ts) -> None:
     """Write ``checkpoints/train_state.pt`` and ``checkpoints/params.pt`` for
     the train state ``ts`` (``train.state.TrainState``)."""
@@ -115,8 +125,8 @@ def save_train_state(run_dir: str, ts) -> None:
         _save({
             "step": ts.step,
             "model": _cpu_state_dict(ts.model),
-            "opt_g": ts.opt_g.state_dict() if ts.opt_g is not None else None,
-            "opt_d": ts.opt_d.state_dict() if ts.opt_d is not None else None,
+            "opt_g": _adam_state(ts.model, ts.opt_g),
+            "opt_d": _adam_state(ts.model, ts.opt_d),
             "rng": ts.rng.get_state(),
         }, os.path.join(run_dir, TRAIN_STATE_FILE))
     save_params(run_dir, ts.model)
@@ -128,9 +138,11 @@ def has_train_state(run_dir: str) -> bool:
 
 def load_train_state(run_dir: str, ts) -> None:
     """Restore ``ts`` in place from ``checkpoints/train_state.pt`` (strict:
-    every parameter, buffer and optimizer slot). A state saved by a run of
-    one step a call resumes into Adams built for several
-    (``state.make_optimizers``), and the reverse."""
+    every parameter, buffer and optimizer slot, by name; a file with the
+    slots by position, written before names were, loads too). A state saved
+    by a run of one step a call resumes into Adams built for several
+    (``state.make_optimizers``), and the reverse. An int in place of the
+    generator's state (a converted JAX run) seeds the generator."""
     path = os.path.join(run_dir, TRAIN_STATE_FILE)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     ts.model.load_state_dict(saved["model"])
@@ -138,6 +150,9 @@ def load_train_state(run_dir: str, ts) -> None:
         if (opt is None) != (saved[key] is None):
             raise RuntimeError(f"train state {path}: {key} does not fit the model")
         if opt is not None:
-            load_optimizer(opt, saved[key])
-    ts.rng.set_state(saved["rng"])
+            load_optimizer(opt, saved[key], optimizer_param_names(ts.model, opt))
+    if isinstance(saved["rng"], int):
+        ts.rng.manual_seed(saved["rng"])
+    else:
+        ts.rng.set_state(saved["rng"])
     ts.step = int(saved["step"])

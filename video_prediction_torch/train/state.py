@@ -13,6 +13,12 @@ step writes in place each step, and, on CUDA, ``capturable=True`` (Adam's
 step count and bias corrections on the device), so that a CUDA graph holds
 the whole update. ``load_optimizer`` restores a saved Adam into either kind.
 
+A saved Adam (``optimizer_state``) keys its slots by parameter name (the
+model's ``state_dict`` key), not by position: ``convert.py`` writes one from
+a JAX run without building the model, and the loader maps the names onto
+the model it is given. Files written before that, keyed by position in
+``split_params`` order, still load.
+
 Data parallel (``parallel/``): every rank builds the same state, the weights
 from the same seed and the noise generator seeded alike, so that every rank
 draws the global batch's noise and keeps its slice (``train/step.py``); the
@@ -76,21 +82,60 @@ def make_optimizers(model: nn.Module, steps_per_call: int = 1
     return adam(g), adam(d)
 
 
-def load_optimizer(opt: torch.optim.Adam, saved: dict) -> None:
-    """``opt.load_state_dict(saved)``, keeping ``opt``'s own learning-rate
-    form and ``capturable`` flag (``load_state_dict`` takes both from the
-    saved groups): a state saved by one kind of Adam resumes into the other,
-    with Adam's step count on the device where ``opt`` is capturable, on the
-    CPU where not, as ``torch.optim.Adam`` keeps it."""
-    own = [{k: group[k] for k in ("lr", "capturable")} for group in opt.param_groups]
-    opt.load_state_dict(saved)  # moves each slot to its parameter's device
-    for group, keep in zip(opt.param_groups, own):
-        group.update(keep)
-        for p in group["params"]:
-            slots = opt.state.get(p)
-            if slots and "step" in slots:
-                device = p.device if keep["capturable"] else torch.device("cpu")
-                slots["step"] = slots["step"].to(device=device, dtype=torch.float32)
+def optimizer_param_names(model: nn.Module, opt: torch.optim.Adam) -> List[str]:
+    """The ``state_dict`` names of ``opt``'s parameters, in its order."""
+    names = {id(p): name for name, p in model.named_parameters()}
+    return [names[id(p)] for group in opt.param_groups for p in group["params"]]
+
+
+def optimizer_state(opt: torch.optim.Adam, names: List[str]) -> dict:
+    """``opt.state_dict()`` with the slots and each group's parameters keyed by
+    ``names`` (``optimizer_param_names``) instead of position."""
+    saved = opt.state_dict()
+    return {"state": {names[i]: slots for i, slots in saved["state"].items()},
+            "param_groups": [{**group, "params": [names[i] for i in group["params"]]}
+                             for group in saved["param_groups"]]}
+
+
+def load_optimizer(opt: torch.optim.Adam, saved: dict, names: List[str]) -> None:
+    """Restore ``opt``'s slots from ``saved``, whose parameters are ``names``
+    (``optimizer_param_names``): keyed by name, as ``optimizer_state`` and
+    ``convert.py`` write them, or by position in ``split_params`` order, as
+    files from before names were written. The saved groups must name exactly
+    ``opt``'s parameters (a parameter with no slots yet, before the first
+    step, has none). ``opt`` keeps its own hyperparameters, learning-rate
+    form and ``capturable`` flag: a state saved by one kind of Adam resumes
+    into the other, each moment on its parameter's device, Adam's step count
+    on the device where ``opt`` is capturable, on the CPU where not, as
+    ``torch.optim.Adam`` keeps it."""
+    saved_names = [n for group in saved["param_groups"] for n in group["params"]]
+    slots_by_name = saved["state"]
+    if saved_names and all(isinstance(n, int) for n in saved_names):  # by position
+        if sorted(saved_names) != list(range(len(names))):
+            raise ValueError(f"saved Adam of {len(saved_names)} parameters does not fit one of {len(names)}")
+        saved_names = [names[i] for i in saved_names]
+        slots_by_name = {names[i]: slots for i, slots in slots_by_name.items()}
+    missing, unexpected = sorted(set(names) - set(saved_names)), sorted(set(saved_names) - set(names))
+    if missing or unexpected or len(saved_names) != len(names):
+        raise ValueError(f"saved Adam does not fit the model: missing {missing}, unexpected {unexpected}")
+    opt.state.clear()
+    owned = [(group, p) for group in opt.param_groups for p in group["params"]]
+    for name, (group, p) in zip(names, owned):
+        if name not in slots_by_name:
+            continue
+        restored = {}
+        for key, v in slots_by_name[name].items():
+            if key == "step":
+                device = p.device if group["capturable"] else torch.device("cpu")
+                restored[key] = torch.as_tensor(v).to(device=device, dtype=torch.float32)
+            elif torch.is_tensor(v):
+                if v.shape != p.shape:
+                    raise ValueError(f"saved Adam slot {key} of {name}: shape {tuple(v.shape)}, the parameter's "
+                                     f"{tuple(p.shape)}")
+                restored[key] = v.to(device=p.device, dtype=p.dtype)
+            else:
+                restored[key] = v
+        opt.state[p] = restored
 
 
 def create_train_state(model: nn.Module, seed: int, device: torch.device | str,
