@@ -37,7 +37,9 @@ and ``nvidia-smi``. Phases, each fatal on failure:
 8. drive ``python -m video_prediction_torch.train``'s ``main`` at the full
    ``ours_savp`` width, batch 16, for 3 steps, then ``--resume`` for one
    more, and check finite losses, the forward and backward launch counts per
-   train step, the moved spectral u and the resumed step counter;
+   train step (``train_launches``: the zoo file's ``remat`` recomputes the
+   cell in the backward pass, so K1-K3 run forward twice a step), the moved
+   spectral u and the resumed step counter;
 9. compare one GPU train step (kernels) with the CPU train step (plain
    versions) of the same weights, batch and noise at a small width, TF32
    off: every loss term, gradient and parameter after the step;
@@ -151,7 +153,9 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     deterministic algorithms, every step's loss terms, each parameter leaf
     and each spectral ``u`` within ``SPC_SPREAD_RATIO`` times the spread of
     a second eager run plus ``SPC_FLOOR``; (b) each call's launches, the capture's taken out, 4
-    times phase 8's per step in the config's dtypes; (c) ms a step eager
+    times ``train_launches`` of the config (the flagship recomputes with
+    ``remat`` ``full``, ``synthetic/ours_savp`` at ``scan_unroll=0`` does
+    not) in the config's dtypes; (c) ms a step eager
     against graphed (and against a graph of one step) in turns, each one's
     busy share in a profiled window (the graphs' windows checked against the
     replays' launch counts), the capture time and each run's peak memory; (d) ``train``'s ``main`` with
@@ -195,9 +199,8 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     phases 3-4; (c) ``--spatial_shards 1`` in phase 25's ``torchrun`` run,
     its log's ``spatial axis: 1`` (k = 2 under NCCL needs two cards); (d)
     the peak memory allocated of each rank in (a) against the one process,
-    and of ``kth/ours_savp_128`` (128 px, 20 frames), one step, one process
-    alone at batch 16 (whether it fits), then at 8 alone and as the gloo
-    pair;
+    and of ``kth/ours_savp_128`` (128 px, 20 frames), one step, at 8 in one
+    process alone and as the gloo pair (at 16 alone: phase 28 (b));
 27. a JAX run directory carried into the port (``tools/export_jax_run.py``
     where jax is, ``video_prediction_torch.convert`` here): (a) the JAX run
     of ``tests/fixtures/jax_run_small`` (32 px, small width, its step-3
@@ -211,6 +214,19 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     ``train --resume --steps_per_call 4`` for one call: "resumed from step
     1000", finite losses, Adam's steps at 1004, phase 8's launches a step;
     the conversions' seconds and files' MB printed;
+28. ``remat``, the generator cell recomputed in the backward pass
+    (``models/savp.py#recomputes``): (a) one flagship train step at batch 16
+    with ``remat`` off, ``full`` and ``names`` from the same weights, batch
+    and noise, TF32 off and cuDNN's deterministic algorithms: the loss terms
+    and gradient leaves of ``full`` and ``names`` under phase 9's rule
+    against off, and each setting's launches exactly ``train_launches``
+    (22 / 132 / 22 forward and 11 / 66 / 11 backward with recompute, 11 /
+    66 / 11 each way without); (b) in a process of its own, the flagship and
+    ``kth/ours_savp_128`` at batch 16, each setting, TF32 convs: ms a step
+    and peak allocated MiB eagerly and as ``MultiStep(4)`` (every
+    recomputing run must fit the card; off may not); (c) ``MultiStep(4)``
+    with ``names`` against eager steps under phase 24's rule (phase 24 holds
+    the flagship's ``full``), with its launches;
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -222,6 +238,7 @@ fields:
 
 - ``launches``: launches in phase 8's four train steps; ``launches_per_train_step``
   and ``launches_per_rollout`` (a no-grad rollout of 11 generator steps);
+  ``remat``: phase 28 (a)'s ``launches_per_train_step`` by setting;
   ``objectives``: ``launches`` in phase 21's four train steps and
   ``launches_per_train_step``;
 - ``max_abs_err``: fp32 kernel against plain version;
@@ -307,6 +324,20 @@ REDUCTION_RTOL = 1e-4
 LAUNCHES_PER_ROLLOUT = {"apply_cdna_kernels": 11, "fused_ln_gate": 66, "composite": 11}
 BACKWARD = {"apply_cdna_kernels_backward": "apply_cdna_kernels", "fused_ln_gate_backward": "fused_ln_gate",
             "composite_backward": "composite"}
+
+
+def train_launches(hp, steps: int = 1, per_rollout: dict = LAUNCHES_PER_ROLLOUT) -> dict:
+    """Kernel launches of ``steps`` train steps of the model of ``hp``: one
+    rollout a step forward (of the doubled batch, where there is one), run
+    again in the backward pass where the cell is recomputed
+    (``models/savp.py#recomputes``: ``remat`` and (``scan_unroll != 0`` or
+    ``remat_prevent_cse``)), and one rollout's backward kernels."""
+    from video_prediction_torch.models.savp import recomputes
+
+    forward = 2 if recomputes(hp) else 1
+    want = {k: n * forward * steps for k, n in per_rollout.items()}
+    want.update({k: per_rollout[fwd] * steps for k, fwd in BACKWARD.items()})
+    return want
 # |GPU - CPU| of the metrics on the same frames: PSNR in dB (TF32 on: the
 # SSIM filter is fp32 regardless), SSIM; VGG cosine and LPIPS with TF32 off
 METRIC_TOL = {"psnr": 1e-4, "ssim": 1e-5, "perceptual": 1e-5}
@@ -862,9 +893,8 @@ def train_phase(init_seed: int = 0) -> dict:
     check(first["all_finite"] and resumed["all_finite"], "train produced non-finite losses")
     check((first["start_step"], first["step"]) == (0, 3), f"unexpected first run {first}")
     check((resumed["start_step"], resumed["step"]) == (3, 4), f"the resumed run did not continue at step 3: {resumed}")
-    # one doubled-batch rollout and its backward per step
-    want = {k: n * TRAIN_STEPS for k, n in LAUNCHES_PER_ROLLOUT.items()}
-    want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
+    # one doubled-batch rollout a step, again in the backward pass (remat), and its backward
+    want = train_launches(slice_hparams(), TRAIN_STEPS)
     check(launches == want, f"kernel launches {launches}, want {want} ({TRAIN_STEPS} train steps)")
 
     from video_prediction_torch.models import get_model_class
@@ -1346,8 +1376,7 @@ def bf16_train_phase(dev) -> dict:
     check(first["all_finite"] and resumed["all_finite"], "train (bf16) produced non-finite losses")
     check((first["start_step"], first["step"], resumed["start_step"], resumed["step"]) == (0, 2, 2, 3),
           f"unexpected bf16 train runs {first}, {resumed}")
-    want = {k: n * BF16_TRAIN_STEPS for k, n in LAUNCHES_PER_ROLLOUT.items()}
-    want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
+    want = train_launches(tpu_hparams(), BF16_TRAIN_STEPS)  # scan_unroll=0: no recompute
     check(launches == want, f"train bf16 kernel launches {launches}, want {want}")
 
     for seed in BF16_STEP_SEEDS:
@@ -1628,7 +1657,7 @@ def records_train_phase(dirs: dict, per_step: dict, dev) -> str:
     check(summary["all_finite"] and summary["step"] == 3, f"train on records: {summary}")
     check("eval/psnr" in summary["summaries"], "train on records: no eval firing")
     # 3 train steps as phase 8's, and 8 no-grad eval rollouts
-    want = {k: 3 * n + 8 * LAUNCHES_PER_ROLLOUT.get(k, 0) for k, n in per_step.items()}
+    want = {k: n + 8 * LAUNCHES_PER_ROLLOUT.get(k, 0) for k, n in train_launches(slice_hparams(), 3).items()}
     check(launches == want, f"train on records: launches {launches}, want {want} (phase 8 a step: {per_step})")
 
     with open(os.path.join(run_dir, "dataset_hparams.json")) as f:
@@ -1665,7 +1694,8 @@ def records_train_phase(dirs: dict, per_step: dict, dev) -> str:
     print(f"action-conditioned bair/ours_savp on records (use_state=True): 1 step, losses {ac['scalars']}; "
           f"launches {launches}; stem input channels {widths[1]} (action-free {widths[0]})")
     check(ac["all_finite"] and ac["step"] == 1, f"action-conditioned step: {ac}")
-    check(launches == per_step, f"action-conditioned step launches {launches}, want {per_step}")
+    want = train_launches(ac_hparams("savp", "ours_savp"))
+    check(launches == want, f"action-conditioned step launches {launches}, want {want}")
     check(widths[1] - widths[0] == 4, f"stem input channels {widths}: the 4 action dims did not reach the model")
     return run_dir
 
@@ -1887,8 +1917,7 @@ def ac_train_phase(dirs: dict) -> tuple:
         check(summary["all_finite"] and summary["step"] == AC_TRAIN_STEPS, f"train {zoo}: {summary}")
         check(("g/state" in summary["scalars"]) == bool(state_weight),
               f"train {zoo}: state_weight {state_weight}, loss terms {sorted(summary['scalars'])}")
-        per_step = {**AC_PER_ROLLOUT[model], **{k: AC_PER_ROLLOUT[model][fwd] for k, fwd in BACKWARD.items()}}
-        want = {k: AC_TRAIN_STEPS * n for k, n in per_step.items()}
+        want = train_launches(ac_hparams(model, zoo), AC_TRAIN_STEPS, AC_PER_ROLLOUT[model])
         check(launches == want, f"train {zoo}: launches {launches}, want {want}")
         check(stem == AC_STEM_CHANNELS, f"train {zoo}: stem input channels {stem}, want {AC_STEM_CHANNELS}")
         runs[model] = run_dir
@@ -2171,9 +2200,8 @@ def objectives_train_phase(dirs: dict, vgg_path: str) -> tuple:
     g_terms = sorted(k[2:] for k in scalars if k.startswith("g/"))
     d_terms = sorted(k[2:] for k in scalars if k.startswith("d/"))
     check(g_terms == OBJ_G_TERMS and d_terms == OBJ_D_TERMS, f"loss terms g {g_terms}, d {d_terms}")
-    # one doubled-batch rollout (prior and posterior) and its backward a step, as phase 8
-    want = {k: n * OBJ_TRAIN_STEPS for k, n in LAUNCHES_PER_ROLLOUT.items()}
-    want.update({k: want[fwd] for k, fwd in BACKWARD.items()})
+    # one doubled-batch rollout (prior and posterior) a step, recomputed, and its backward, as phase 8
+    want = train_launches(objectives_hparams(vgg_path), OBJ_TRAIN_STEPS)
     check(launches == want, f"train with the objectives: launches {launches}, want {want}")
     params = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)
     check(any(k.startswith("generator.cell.prior.") for k in params) and not any("vgg" in k for k in params),
@@ -2304,8 +2332,6 @@ def objectives_phase(dirs: dict, dev, ident: str, vgg_path: str, kernel_results:
 # ---------------------------------------------------------------------------
 BENCH_GEN_BATCH = 256  # the bench's generation row: 64 examples x 4 samples in one rollout
 BENCH_ROWS = ("batch16", "batch32", "batch64")
-# the bench's train rows run K1-K3 forward and backward once a generator step each
-BENCH_PER_STEP = {**LAUNCHES_PER_ROLLOUT, **{k: LAUNCHES_PER_ROLLOUT[fwd] for k, fwd in BACKWARD.items()}}
 
 
 def bench_kernel_entries(dev) -> dict:
@@ -2456,6 +2482,7 @@ def bench_phase(dev, ident: str, kernel_results: list) -> None:
     row's doubled batch and, forward, the batch-256 timings."""
     from video_prediction_torch import bench
     from video_prediction_torch import kernels as K
+    from video_prediction_torch.bench_common import savp_bench_hparams
 
     t0 = time.perf_counter()
     timed = bench_kernel_entries(dev)
@@ -2475,8 +2502,12 @@ def bench_phase(dev, ident: str, kernel_results: list) -> None:
     check(sorted(line["rows"]) == sorted(BENCH_ROWS), f"bench rows {sorted(line['rows'])}")
     for key, row in line["rows"].items():
         check(math.isfinite(row["g_loss"]) and math.isfinite(row["d_loss"]), f"bench {key}: non-finite losses")
-        check(row["launches_per_step"] == BENCH_PER_STEP,
-              f"bench {key}: launches a step {row['launches_per_step']}, want {BENCH_PER_STEP}")
+        # scan_unroll=0 without the CSE barrier: K1-K3 forward and backward once a generator step each
+        b = int(key[len("batch"):])
+        want = train_launches(savp_bench_hparams(b, scan_unroll=bench.UNROLL[b], lstm_gate_conv=bench.GATE_CONV[b],
+                                                 prevent_cse=bench.PREVENT_CSE.get(b, False),
+                                                 gate_dtype=bench.GATE_DTYPE[b]))
+        check(row["launches_per_step"] == want, f"bench {key}: launches a step {row['launches_per_step']}, want {want}")
         for m in ("mfu", "mfu_model"):
             check(row[m] is not None and 0.0 < row[m] <= 1.0, f"bench {key}: {m} {row[m]} not in (0, 1]")
         check(row["peak_gib"] > 0.0, f"bench {key}: peak_gib {row['peak_gib']}")
@@ -2765,9 +2796,10 @@ def spc_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
             graph = spc_run(model, dev, batches, SPC)
         finally:
             torch.backends.cudnn.deterministic = False
+        per_config = train_launches(hp)  # the flagship recomputes (remat full), synthetic/ours_savp not
         for run, k in ((eager, 1), (graph, SPC)):
             for c, counts in enumerate(run["calls"]):
-                want = {name: {dtype_of(hp, name): per * k} for name, per in per_step.items()}
+                want = {name: {dtype_of(hp, name): per * k} for name, per in per_config.items()}
                 check(counts == want, f"{label}: launches of call {c} ({k} steps a call) {counts}, want {want}")
         check(graph["step"] == n, f"{label}: the graphed run took {graph['step']} steps, want {n}")
         spread, apart = spc_diff(eager, again, init), spc_diff(eager, graph, init)
@@ -2784,7 +2816,7 @@ def spc_phase(dev, ident: str, per_step: dict, kernel_results: list) -> None:
         torch.cuda.empty_cache()
         for entry in (e for e in kernel_results if e["name"] in per_step):  # not phase 20's composite_k3
             entry.setdefault("steps_per_call", {})[label] = {
-                "launches_per_step": per_step[entry["name"]], "dtype": dtype_of(hp, entry["name"]),
+                "launches_per_step": per_config[entry["name"]], "dtype": dtype_of(hp, entry["name"]),
                 "eager_ms": timing["eager_ms"], "graph_ms": timing["graph_ms"], "graph1_ms": timing["graph1_ms"]}
     launches = spc_cli_phase(per_step)
     for entry in (e for e in kernel_results if e["name"] in per_step):
@@ -2807,18 +2839,19 @@ DOT_KIND = re.compile(r'label="\{\s*(\w+)')  # KERNEL, MEMCPY, MEMSET, ...
 DOT_KERNEL = re.compile(r'\| \{ID \| [^|]*\| (\S+?)\\<\\<\\<')  # the kernel's mangled name before <<<
 
 
-def dp_flagship(dev):
-    """The flagship at batch 16 from DP_SEED's weights, on ``dev``."""
+def dp_flagship(dev, remat: str = ""):
+    """The flagship at batch 16 from DP_SEED's weights, on ``dev``; ``remat``
+    a key of REMAT (phase 28) or "" for the zoo file's (``full``)."""
     from video_prediction_torch.models import get_model_class
 
-    hp = slice_hparams().replace(batch_size=TRAIN_BATCH)
+    hp = slice_hparams().replace(batch_size=TRAIN_BATCH, **REMAT.get(remat, {}))
     model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
     model.init_weights(torch.Generator().manual_seed(DP_SEED))
     return model.to(dev)
 
 
 def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1, spatial: int = 1,
-           config: str = "flagship") -> dict:
+           config: str = "flagship", remat: str = "") -> dict:
     """``calls`` calls of ``k`` train steps of the flagship, TF32 off, with
     cuDNN's deterministic algorithms, on this rank's rows of the global
     batches of the synthetic stream (batch 16), from DP_SEED's weights and
@@ -2833,8 +2866,9 @@ def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1, s
     coordinate's samples, and the all-reduces of the last call counted
     (``collectives``: calls and MB a step). ``config`` "kth128_<batch>":
     ``kth/ours_savp_128`` at that batch (phase 26 (d)) instead of the
-    flagship. ``peak_mib``: the most memory allocated during the run above
-    what was allocated at its start."""
+    flagship. ``remat``: the model's ``REMAT`` setting ("": its zoo file's).
+    ``peak_mib``: the most memory allocated during the run above what was
+    allocated at its start."""
     import torch.distributed as dist
 
     from video_prediction_torch import kernels as K
@@ -2851,7 +2885,8 @@ def dp_run(dev, k: int, calls: int, group=None, rank: int = 0, world: int = 1, s
     mesh = make_spatial_mesh(spatial) if spatial > 1 else None
     reduce_calls = []
     try:
-        model = dp_flagship(dev) if config == "flagship" else sp_kth_model(dev, int(config.split("_")[1]))
+        model = (dp_flagship(dev, remat) if config == "flagship" else
+                 sp_kth_model(dev, int(config.split("_")[1]), remat))
         ts = TrainState(model, *make_optimizers(model, k), 0, torch.Generator(device=dev).manual_seed(DP_SEED))
         step = make_train_step(model, k, group=group, spatial=mesh)
         host = spc_host_batches(model.hparams, k * calls, model.generator.image_shape[0])
@@ -3314,19 +3349,21 @@ def dp_phase(dev, ident: str, per_step: dict, kernel_results: list) -> dict:
 # spatial partitioning (phase 26)
 # ---------------------------------------------------------------------------
 SP_K = 2  # spatial shards: dp1 x sp2 on the one card
-SP_KTH_BATCH = 8  # kth/ours_savp_128: one process fits the card alone at 16, two ranks of 16 together do not
+SP_KTH_BATCH = 8  # kth/ours_savp_128: without remat two ranks of 16 did not fit the card together
 
 
-def sp_kth_model(dev, batch: int):
+def sp_kth_model(dev, batch: int, remat: str = ""):
     """``kth/ours_savp_128`` (128 px, 4 scales) at ``batch`` with the KTH
     dataset's 10 context frames of 20 (``data/kth.py:37``), from DP_SEED's
-    weights, on ``dev``; the synthetic clips' actions condition it."""
+    weights, on ``dev``; the synthetic clips' actions condition it.
+    ``remat`` as ``dp_flagship``'s."""
     from video_prediction_torch.configs.hparams import resolve_model_hparams, zoo_dir
     from video_prediction_torch.models import get_model_class
 
     zoo = zoo_dir() / "kth" / "ours_savp_128" / "model_hparams.json"
     hp = resolve_model_hparams(get_model_class("savp").default_hparams(), str(zoo),
-                               extra=dict(batch_size=batch, context_frames=10, sequence_length=20))
+                               extra=dict(batch_size=batch, context_frames=10, sequence_length=20,
+                                          **REMAT.get(remat, {})))
     model = get_model_class("savp")(hp, image_shape=(128, 128, 3), action_dim=4)
     model.init_weights(torch.Generator().manual_seed(DP_SEED))
     return model.to(dev)
@@ -3447,27 +3484,21 @@ def sp_kernel_entries(dev, per_rank_step: dict) -> dict:
 
 
 def sp_memory_kth(ident: str) -> dict:
-    """Phase 26 (d), 128 px: ``kth/ours_savp_128``, one step, in one process
-    alone on the card at batch 16 (whether it fits, and its peak), then at
-    SP_KTH_BATCH in one process alone and as two gloo ranks at dp1 x sp2
-    sharing the card: each one's peak allocated MiB and ms. Two ranks of
-    16 do not fit one card together (each holds about 0.7 of the one
-    process's peak: PERF.md §5)."""
-    (alone,), _ = dp_spawn("sp_kth16_one", "gloo", ["cuda:0"], 1, 1, config="kth128_16")
-    fits = ("out of memory" if alone.get("oom") else
-            f"{alone['peak_mib']:.1f} MiB peak allocated, {alone['ms'][0]:.1f} ms")
+    """Phase 26 (d), 128 px: ``kth/ours_savp_128``, one step, at SP_KTH_BATCH
+    in one process alone and as two gloo ranks at dp1 x sp2 sharing the
+    card: each one's peak allocated MiB and ms (one process alone at batch
+    16: phase 28 (b), with ``remat`` off, ``full`` and ``names``)."""
     (one,), _ = dp_spawn("sp_kth_one", "gloo", ["cuda:0"], 1, 1, config=f"kth128_{SP_KTH_BATCH}")
     check(not one.get("oom"), f"kth/ours_savp_128 does not fit the card at batch {SP_KTH_BATCH}")
     ranks, _ = dp_spawn("sp_kth_gloo", "gloo", ["cuda:0", "cuda:0"], 1, 1, SP_K, f"kth128_{SP_KTH_BATCH}")
     for r, out in enumerate(ranks):
         check(torch.isfinite(out["scalars"]).all().item(), f"kth128 rank {r}: losses {out['scalars']}")
-    print(f"spatial memory (d), kth/ours_savp_128 (128 px, 20 frames), one step: batch 16 in one process alone: "
-          f"{fits}; batch {SP_KTH_BATCH}: one process {one['peak_mib']:.1f} MiB peak allocated, each dp1 x sp2 rank "
+    print(f"spatial memory (d), kth/ours_savp_128 (128 px, 20 frames, remat full), one step: batch {SP_KTH_BATCH}: "
+          f"one process {one['peak_mib']:.1f} MiB peak allocated, each dp1 x sp2 rank "
           f"{[round(o['peak_mib'], 1) for o in ranks]} MiB ({ranks[0]['peak_mib'] / one['peak_mib']:.3f} of it); ms "
           f"{one['ms'][0]:.1f} against {[round(o['ms'][0], 1) for o in ranks]} (gloo, two processes on one card) "
           f"[{ident}]")
-    return {"batch": SP_KTH_BATCH, "batch16_one_process_peak_mib": None if alone.get("oom") else alone["peak_mib"],
-            "one_process_peak_mib": one["peak_mib"], "rank_peak_mib": [o["peak_mib"] for o in ranks],
+    return {"batch": SP_KTH_BATCH, "one_process_peak_mib": one["peak_mib"], "rank_peak_mib": [o["peak_mib"] for o in ranks],
             "one_process_ms": one["ms"][0], "rank_ms": [o["ms"][0] for o in ranks]}
 
 
@@ -3742,6 +3773,228 @@ def jax_run_phase(ident: str, per_step: dict, vgg_path: str, lin_path: str) -> N
     print(f"phase 27 (JAX run carried into the port): {time.perf_counter() - t_phase:.2f} s wall")
 
 
+# ---------------------------------------------------------------------------
+# remat: the generator cell recomputed in the backward pass (phase 28)
+# ---------------------------------------------------------------------------
+REMAT = {"off": dict(remat=False), "full": dict(remat=True, remat_policy="full"),
+         "names": dict(remat=True, remat_policy="names")}
+REMAT_WORKER = "--remat-memory"  # chip_smoke.py REMAT_WORKER <job dir>: phase 28 (b) in a process of its own
+REMAT_TIMEOUT = 600  # seconds for (b)'s process
+REMAT_CONFIGS = ("flagship", "kth128_16")  # dp_run's configs at batch 16
+REMAT_ORDER = ("full", "names", "off")  # off last: the one that may not fit the card
+
+
+def remat_step_phase(dev) -> dict:
+    """Phase 28 (a): one flagship train step at batch 16 with ``remat`` off,
+    ``full`` and ``names`` (``dp_run``: the same weights, batch and noise,
+    TF32 off, cuDNN's deterministic algorithms): each loss term of ``full``
+    and ``names`` within phase 9's rule of the step without recompute, each
+    gradient leaf within phase 9's leaf rule, and each setting's launches
+    exactly ``train_launches`` (22 / 132 / 22 forward and 11 / 66 / 11
+    backward where the cell is recomputed). Returns the readings."""
+    from video_prediction_torch.models.savp import recomputes
+
+    runs, out = {}, {}
+    for policy in REMAT:
+        torch.cuda.empty_cache()
+        run = runs[policy] = dp_run(dev, 1, 1, remat=policy)
+        hp = slice_hparams().replace(**REMAT[policy])
+        want = train_launches(hp)
+        check(recomputes(hp) == (policy != "off"), f"remat {policy}: recomputes(hp) is {recomputes(hp)}")
+        check(run["launches"][0] == want, f"remat {policy}: launches a step {run['launches'][0]}, want {want}")
+        check(bool(torch.isfinite(run["scalars"]).all()), f"remat {policy}: losses {run['scalars']}")
+        out[policy] = {"launches": run["launches"][0], "ms": run["ms"][0], "peak_mib": run["peak_mib"]}
+    off = runs["off"]
+    gmax = max(float(g.abs().max()) for g in off["grads1"].values())
+    for policy in ("full", "names"):
+        run = runs[policy]
+        check(run["keys"] == off["keys"], f"remat {policy}: loss terms {run['keys']} vs {off['keys']}")
+        a, b = off["scalars"], run["scalars"]
+        over = (b - a).abs() > TRAIN_LOSS_RTOL * a.abs() + 1e-7
+        check(not bool(over.any()), f"remat {policy}: loss terms off at {over.nonzero().tolist()}: {b} vs {a}")
+        rel = []
+        for name, g in off["grads1"].items():
+            err = float((run["grads1"][name] - g).abs().max())
+            scale = float(g.abs().max())
+            check(err <= TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * gmax,
+                  f"remat {policy}: gradient of {name} off by {err} (max |g| {scale})")
+            rel.append(err / max(scale, 1e-30))
+        median = sorted(rel)[len(rel) // 2]
+        check(median <= TRAIN_GRAD_MEDIAN_TOL, f"remat {policy}: median leaf {median}")
+        out[policy].update(loss_max_abs_diff=float((b - a).abs().max()), grad_median_rel=median,
+                           grad_max_rel=max(rel))
+        print(f"remat (a) {policy} against off, flagship at batch 16, one step, TF32 off, deterministic cuDNN: "
+              f"loss terms max |diff| {out[policy]['loss_max_abs_diff']:.3g}, gradient leaves max rel "
+              f"{max(rel):.3g} (median {median:.3g}); launches {run['launches'][0]}")
+    print(f"remat (a): ms a step (TF32 off; one step, the first of its process's model) and peak allocated MiB: "
+          + "; ".join(f"{p} {o['ms']:.1f} ms {o['peak_mib']:.1f} MiB" for p, o in out.items()))
+    return out
+
+
+def _out_of_memory(e: BaseException) -> bool:
+    """Whether ``e``, or an error it was raised while handling, is the card running out of memory."""
+    while e is not None:
+        if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e):
+            return True
+        e = e.__context__
+    return False
+
+
+def remat_memory_run(dev, config: str, policy: str) -> dict:
+    """Phase 28 (b), one model and ``remat`` setting: ms a step and the peak
+    memory allocated above what was allocated before the model was built,
+    eagerly (3 steps, the last two timed) and graphed (``MultiStep(SPC)``,
+    SPC_CALLS calls: the first eager, the second captured, the third
+    replayed and timed; the cache is emptied before the capture, so that the
+    graph's pool can take what the eager call freed), TF32 convs as the CLIs
+    run. A mode that runs out of memory reads ``{"oom": True}``, and the
+    graph is not tried after an eager one does."""
+    import gc
+
+    from video_prediction_torch.train.state import TrainState, make_optimizers
+    from video_prediction_torch.train.step import make_train_step
+
+    set_tf32_default()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    batch = int(config.split("_")[1]) if config != "flagship" else TRAIN_BATCH
+    model = dp_flagship(dev, policy) if config == "flagship" else sp_kth_model(dev, batch, policy)
+    ts = TrainState(model, *make_optimizers(model, SPC), 0, torch.Generator(device=dev).manual_seed(DP_SEED))
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in spc_host_batches(model.hparams, SPC, model.generator.image_shape[0])]
+    out = {}
+    for mode, k in (("eager", 1), ("graph", SPC)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        step = make_train_step(model, k)
+        ms = []
+        try:
+            for c in range(SPC_CALLS):
+                if k > 1 and c == 1:
+                    torch.cuda.empty_cache()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                step(ts, batches[c] if k == 1 else spc_stack(batches))
+                torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3 / k)
+        except RuntimeError as e:
+            if not _out_of_memory(e):
+                raise
+            out[mode] = {"oom": True}
+            break
+        peak_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        out[mode] = {"ms": ms[1:] if k == 1 else ms[2:], "peak_mib": peak_mib}
+        if k > 1:
+            out[mode]["capture_s"] = step.capture_s
+        del step
+    del ts, model, batches
+    return out
+
+
+def remat_worker(argv) -> int:
+    """Phase 28 (b) in a process of its own (``REMAT_WORKER <job dir>``):
+    ``remat_memory_run`` of every config of REMAT_CONFIGS for every setting in
+    REMAT_ORDER, written to ``<job dir>/readings.json``."""
+    sys.path.insert(0, ROOT)
+    dev = torch.device("cuda", 0)
+    readings = {config: {policy: remat_memory_run(dev, config, policy) for policy in REMAT_ORDER}
+                for config in REMAT_CONFIGS}
+    with open(os.path.join(argv[0], "readings.json"), "w") as f:
+        json.dump(readings, f)
+    return 0
+
+
+def remat_memory_phase(ident: str) -> dict:
+    """Phase 28 (b): ``remat_worker`` in a process of its own (the card
+    otherwise empty of this process's cache), within REMAT_TIMEOUT; prints
+    each config's and setting's ms a step and peak allocated MiB. Every
+    recomputing run must fit the card."""
+    import shutil
+
+    path = os.path.join(WORK_DIR, "remat_memory")
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"remat (b): the card has {free / 2**20:.1f} of {total / 2**20:.1f} MiB free for the worker (this process "
+          f"holds {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved, and its context)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), REMAT_WORKER, path], cwd=ROOT,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=REMAT_TIMEOUT)
+    check(proc.returncode == 0, f"remat (b): the worker exited {proc.returncode}:\n{proc.stdout[-3000:]}")
+    with open(os.path.join(path, "readings.json")) as f:
+        readings = json.load(f)
+    for config, by_policy in readings.items():
+        for policy, modes in by_policy.items():
+            if policy != "off":
+                check(not any(m.get("oom") for m in modes.values()), f"remat (b) {config} {policy}: {modes}")
+            print(f"remat (b) {config} at batch 16, remat {policy} (TF32 convs): " + "; ".join(
+                f"{mode} out of memory" if m.get("oom") else
+                f"{mode} {', '.join(str(t) for t in m['ms'])} ms a step, {m['peak_mib']} MiB peak allocated"
+                + (f", capture {m['capture_s']} s" if "capture_s" in m else "")
+                for mode, m in modes.items()) + f" [{ident}]")
+    print(f"remat (b): {time.perf_counter() - t0:.2f} s wall with the process's set-up")
+    return readings
+
+
+def remat_graph_phase(dev, ident: str) -> dict:
+    """Phase 28 (c): phase 24 (a) and (b) for the flagship with ``remat_policy
+    names`` (phase 24 runs the flagship with its zoo file's ``full``):
+    SPC_CALLS calls of ``MultiStep(SPC)`` against SPC_CALLS x SPC eager steps
+    from the same weights, batches and noise seed, with cuDNN's
+    deterministic algorithms, within SPC_SPREAD_RATIO times the spread of a
+    second eager run plus SPC_FLOOR; each call's launches SPC times
+    ``train_launches``."""
+    from video_prediction_torch.models import get_model_class
+
+    hp = slice_hparams().replace(batch_size=TRAIN_BATCH, **REMAT["names"])
+    model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+    model.init_weights(torch.Generator().manual_seed(SPC_SEED))
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in spc_host_batches(hp, SPC * SPC_CALLS)]
+    set_tf32_default()
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = spc_run(model, dev, batches, 1)
+        again = spc_run(model, dev, batches, 1)
+        graph = spc_run(model, dev, batches, SPC)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    per_step = train_launches(hp)
+    for run, k in ((eager, 1), (graph, SPC)):
+        for c, counts in enumerate(run["calls"]):
+            want = {name: {dtype_of(hp, name): n * k} for name, n in per_step.items()}
+            check(counts == want, f"remat (c): launches of call {c} ({k} steps a call) {counts}, want {want}")
+    spread, apart = spc_diff(eager, again, init), spc_diff(eager, graph, init)
+    worst = spc_check("remat (c) names", apart, spread)
+    multi = graph["multi"]
+    print(f"remat (c) names: MultiStep({SPC}) against eager steps, worst (name, graph, eager spread, allowance): "
+          f"{worst}; capture {multi.capture_s} s; launches a replay {multi.graph_launches}; peak "
+          f"{eager['peak_gib']:.2f} GiB eager, {graph['peak_gib']:.2f} GiB graphed [{ident}]")
+    out = {"worst": {kind: list(w) for kind, w in worst.items()}, "capture_s": multi.capture_s,
+           "graph_launches": multi.graph_launches}
+    del eager, again, graph, multi, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(dev, ident: str, kernel_results: list) -> None:
+    """Phase 28: ``remat`` on the card, (a) ``remat_step_phase``, (b)
+    ``remat_memory_phase``, (c) ``remat_graph_phase``."""
+    t_phase = time.perf_counter()
+    steps = remat_step_phase(dev)
+    memory = remat_memory_phase(ident)
+    graph = remat_graph_phase(dev, ident)
+    for entry in (e for e in kernel_results if e["name"] in steps["off"]["launches"]):
+        entry["remat"] = {"launches_per_train_step": {p: r["launches"][entry["name"]] for p, r in steps.items()}}
+    summary = {"steps": {p: {k: v for k, v in r.items() if k != "launches"} for p, r in steps.items()},
+               "memory": memory, "names_graph": graph}
+    print(f"phase 28 readings [{ident}]: {json.dumps(summary)}")
+    print(f"phase 28 (remat): {time.perf_counter() - t_phase:.2f} s wall")
+
+
 def dtype_of(hp, name: str) -> str:
     """The dtype ``name`` launches on in the model of ``hp``: K2 in the gate dtype, K1 and K3 fp32."""
     return hp.gate_dtype if name.startswith("fused_ln_gate") else "float32"
@@ -3828,7 +4081,7 @@ def main() -> int:
 
         # 8. the training entry point at full width, with a resume
         launches = train_phase()
-        per_train_step = {k: n // TRAIN_STEPS for k, n in launches.items()}
+        per_train_step = train_launches(slice_hparams())  # phase 8 held its launches to 4 x these
         for entry in kernel_results:
             entry["launches"] = launches[entry["name"]]
             entry["launches_per_train_step"] = launches[entry["name"]] // TRAIN_STEPS
@@ -3916,13 +4169,19 @@ def main() -> int:
         # JAX's recorded losses (K = 1 and MultiStep), the full-width flagship
         # through generate, evaluate and train --resume --steps_per_call 4
         jax_run_phase(ident, per_train_step, vgg_path, lin_path)
+
+        # 28. remat: the generator cell recomputed in the backward pass: one
+        # flagship step off, full and names against each other and their
+        # launches; ms a step and peak memory, eager and graphed, flagship and
+        # kth/ours_savp_128 at 16; MultiStep(4) with names against eager steps
+        remat_phase(dev, ident, kernel_results)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
-    print(f"chip_smoke: phases 1-27 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)
@@ -3933,4 +4192,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == [DP_WORKER] else main())
+    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == [DP_WORKER] else
+             remat_worker(sys.argv[2:]) if sys.argv[1:2] == [REMAT_WORKER] else main())

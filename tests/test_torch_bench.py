@@ -312,7 +312,7 @@ def test_bench_generate_and_probe_result_lines(capsys):
     r = bench_probe.main(TINY + ["--batch", "2", "--steps", "1", "--gate", "merged", "--gate_dtype", "bfloat16",
                                  "--hparams", SMALL])
     line = capsys.readouterr().out.strip().splitlines()[-1]
-    assert re.fullmatch(r"RESULT batch=2 unroll=1 gate=merged gate_dtype=bfloat16 "
+    assert re.fullmatch(r"RESULT batch=2 unroll=1 gate=merged prevent_cse=False gate_dtype=bfloat16 "
                         r"hparams='ngf=4,nef=8,ndf=4,nz=4' ms_per_step=\d+\.\d frames_per_sec=\d+\.\d "
                         r"compile_s=\d+ g_loss=\d+\.\d{4}", line), line
     assert np.isfinite(r["g_loss"])

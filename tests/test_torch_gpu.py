@@ -464,7 +464,8 @@ def test_steps_per_call_graph_replays_the_eager_steps(dev, no_tf32, deterministi
     algorithms: every step's loss terms and each parameter leaf within twice
     the spread of two eager runs plus 1e-3 (chip_smoke.py phase 24's rule);
     the replayed call counts each kernel's launches once, as 2 eager steps
-    do (K1 5, K2 30, K3 5 a step, each way)."""
+    do (K1 5, K2 30, K3 5 a step backward, and twice that forward: the
+    flagship's ``remat`` recomputes the cell in the backward pass)."""
     g = torch.Generator().manual_seed(1)
     batches = [{"images": torch.randint(0, 256, (2, 6, 64, 64, 3), generator=g, dtype=torch.uint8).to(dev),
                 "actions": torch.randn(2, 6, 4, generator=g).to(dev)} for _ in range(4)]
@@ -472,6 +473,7 @@ def test_steps_per_call_graph_replays_the_eager_steps(dev, no_tf32, deterministi
     assert graph[4] == eager[4] == 4
     per_step = {"apply_cdna_kernels": 5, "fused_ln_gate": 30, "composite": 5}
     per_step.update({f"{k}_backward": n for k, n in per_step.items()})
+    per_step.update({k: 2 * n for k, n in per_step.items() if not k.endswith("_backward")})
     assert graph[3] == {k: {"float32": 2 * n} for k, n in per_step.items()}
     assert eager[3] == {k: {"float32": n} for k, n in per_step.items()}
 
@@ -484,6 +486,32 @@ def test_steps_per_call_graph_replays_the_eager_steps(dev, no_tf32, deterministi
         change = float((p - init[name]).norm().clamp_min(1e-30))
         spread = float((again[1][name] - p).norm()) / change
         assert float((graph[1][name] - p).norm()) / change <= 2.0 * spread + 1e-3, name
+
+
+def test_remat_draws_no_random_numbers_on_the_card(dev):
+    """The small flagship's loss and backward with ``remat`` ``full`` and
+    ``names`` (the cell recomputed in the backward pass) leave the CUDA
+    generator's state as it was: the checkpoint keeps no RNG state, and the
+    cell draws none (its noise comes from the step's own generator)."""
+    cls = get_model_class("savp")
+    for policy in ("full", "names"):
+        hp = resolve_model_hparams(
+            cls.default_hparams(), str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+            extra=dict(ngf=8, nef=8, ndf=8, sequence_length=6, batch_size=2, learn_prior=True, remat_policy=policy),
+        )
+        model = cls(hp, image_shape=(64, 64, 3), action_dim=4)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        g = torch.Generator().manual_seed(1)
+        batch = {"images": torch.rand(2, 6, 64, 64, 3, generator=g).to(dev),
+                 "actions": torch.randn(2, 6, 4, generator=g).to(dev)}
+        before = torch.cuda.get_rng_state(dev)
+        K.reset_launch_counts()
+        total, _ = model.compute_losses(batch, 0, generator=torch.Generator(device=dev).manual_seed(2))
+        total.backward()
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cuda.get_rng_state(dev), before), policy
+        assert K.launch_counts()["composite"] == 10 and K.launch_counts()["composite_backward"] == 5, policy
 
 
 def test_device_feeder_batches_equal_the_host_batches(dev):

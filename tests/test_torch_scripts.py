@@ -103,7 +103,30 @@ def test_evaluate_all_evaluates_each_run_of_a_runs_root(tmp_path):
     assert (out / "index.html").is_file()
 
 
-@pytest.mark.parametrize("script", ["train_all.sh", "evaluate_all.sh"])
+def test_convergence_rehearses_on_the_cpu_and_repeat_scores_as_in_jax(tmp_path):
+    """``convergence.sh`` at a small width on the CPU (2 steps, one seed): a
+    trained run and ``repeat`` each print their best-of-4 means over 64 test
+    sequences, finite; ``repeat`` does not depend on the model, and on the
+    port's synthetic stream (the JAX package's bytes) it scores the JAX
+    package's 14.83 dB / 0.662 (``ARCHITECTURE.md``'s convergence table)."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    python = bin_dir / "python"
+    python.write_text(f'#!/usr/bin/env bash\nexec "{sys.executable}" "$@"\n')
+    python.chmod(0o755)
+    env = {**_env(bin_dir), "STEPS": "2", "DEVICE": "cpu", "BATCH": "2", "MODEL_HPARAMS": "ngf=4,nef=8,ndf=4,nz=4"}
+    proc = subprocess.run(["bash", str(PORT_SCRIPTS / "convergence.sh"), str(tmp_path / "runs"), "7"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=TIMEOUT)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    found = re.findall(r"^convergence (\w+): psnr_max (\S+) ssim_max (\S+)$", proc.stdout, re.M)
+    lines = {name: (float(p), float(q)) for name, p, q in found}
+    assert sorted(lines) == ["repeat", "seed7"] and np.isfinite(list(lines.values())).all()
+    assert "convergence seed7: trained 2 steps" in proc.stdout
+    psnr, ssim = lines["repeat"]
+    assert round(psnr, 2) == 14.83 and round(ssim, 3) == 0.662
+
+
+@pytest.mark.parametrize("script", ["train_all.sh", "evaluate_all.sh", "convergence.sh"])
 def test_the_drivers_are_executable_and_parse(script):
     path = PORT_SCRIPTS / script
     assert os.access(path, os.X_OK)

@@ -11,7 +11,7 @@ the synthetic BAIR-shaped batch (64x64x3, context 2, 10 frames predicted)
 with random weights from a seed, at the JAX package's rows: batch 16
 (the headline), 32 and 64, bf16 compute and bf16 ConvLSTM gates, gate convs
 merged, merged and split, ``scan_unroll=0`` (in the port: the split mask
-input). Then the generation row: the eval-path rollout at batch 64 x 4
+input, and no recompute: ``models/savp.py#recomputes``). Then the generation row: the eval-path rollout at batch 64 x 4
 samples = effective batch 256 (``bench_common.generation_probe``). It prints
 ONE JSON line, with the JAX package's keys (``metric``, ``value``, ``unit``,
 ``vs_baseline``, ``device_kind``, ``timing``, ``rows``, ``generation``) and
@@ -81,9 +81,9 @@ HEADLINE_BATCH = 16
 BATCHES = (16, 32, 64)
 # the JAX package's rows: the scan fully unrolled (in the port, scan_unroll=0
 # selects the split mask input), gate convs merged at 16 and 32 and split at
-# 64, bf16 gates; PREVENT_CSE (the remat CSE barrier, set in no row) only
-# keeps the rows' remat_prevent_cse field equal to the JAX rows': the port
-# has no remat and reads nothing of it
+# 64, bf16 gates; PREVENT_CSE (the remat CSE barrier) is set in no row, so
+# no row recomputes the cell in its backward pass, in JAX (XLA merges the
+# recompute back) or in the port (models/savp.py#recomputes)
 UNROLL = {16: 0, 32: 0, 64: 0}
 GATE_CONV = {16: "merged", 32: "merged", 64: "split"}
 PREVENT_CSE: dict[int, bool] = {}

@@ -48,8 +48,9 @@ def savp_bench_hparams(
     """The benchmark ``ModelHparams``: full SAVP, bf16 compute, the same
     fields and values as the JAX package's. ``extra`` is a ``k=v,...``
     override string applied last. In the port ``scan_unroll == 0`` selects
-    the split mask input (``models/savp.py``) and ``remat_prevent_cse``
-    changes nothing."""
+    the split mask input (``models/savp.py``), and the train step recomputes
+    the generator cell unless ``scan_unroll == 0`` without ``prevent_cse``
+    (``models/savp.py#recomputes``), as the JAX step does."""
     hp = ModelHparams(
         context_frames=context_frames,
         sequence_length=sequence_length,

@@ -1,7 +1,7 @@
 """Operating-point probe of the SAVP train step.
 
     python -m video_prediction_torch.bench_probe --batch B [--device cuda] [--unroll 1] [--gate split] \\
-        [--steps 20] [--sequence_length 12] [--context_frames 2] [--size 64] \\
+        [--steps 20] [--sequence_length 12] [--context_frames 2] [--size 64] [--prevent_cse] \\
         [--hparams k=v,...] [--gate_dtype float32]
 
 Port of ``scripts/bench_probe.py``. Times ONE (batch, scan_unroll,
@@ -10,9 +10,11 @@ measures (``bench_common.timed_train``: the same hparams, batch and clock,
 best of 2 rounds of ``--steps`` chained steps) and prints one ``RESULT ...``
 line with the JAX tool's fields; ``compile_s`` is the first step's seconds,
 with the kernels' first-use build where it happens. In the port ``--unroll
-0`` selects the split mask input. The JAX tool's ``--prevent_cse`` (a remat
-CSE barrier) is not taken, and its ``RESULT`` field is left out: the port
-has no remat. ``--device cuda`` (the default) without a CUDA device raises.
+0`` selects the split mask input. The step recomputes the generator cell in
+its backward pass (the hparams' ``remat``, ``full`` by default) unless
+``--unroll 0`` without ``--prevent_cse`` (the remat CSE barrier), as the
+JAX tool's step does (``models/savp.py#recomputes``). ``--device cuda``
+(the default) without a CUDA device raises.
 
 Examples:
     python -m video_prediction_torch.bench_probe --batch 48 --gate split
@@ -35,6 +37,7 @@ def probe(
     context_frames: int = 2,
     size: int = 64,
     rounds: int = 2,
+    prevent_cse: bool = False,
     gate_dtype: str = "float32",
     extra_hparams: str = "",
     device: torch.device | str = "cuda",
@@ -46,6 +49,7 @@ def probe(
         batch_size,
         scan_unroll=unroll,
         lstm_gate_conv=gate,
+        prevent_cse=prevent_cse,
         gate_dtype=gate_dtype,
         sequence_length=sequence_length,
         context_frames=context_frames,
@@ -74,6 +78,8 @@ def parse_args(argv=None):
     p.add_argument("--sequence_length", type=int, default=12)
     p.add_argument("--context_frames", type=int, default=2)
     p.add_argument("--size", type=int, default=64)
+    p.add_argument("--prevent_cse", action="store_true",
+                   help="keep the remat CSE barrier at --unroll 0: the cell is recomputed in the backward pass")
     p.add_argument("--hparams", default="", help="extra k=v,... ModelHparams overrides")
     p.add_argument("--gate_dtype", choices=("float32", "bfloat16"), default="float32",
                    help="ConvLSTM gate-math dtype")
@@ -94,13 +100,15 @@ def main(argv=None) -> dict:
         sequence_length=args.sequence_length,
         context_frames=args.context_frames,
         size=args.size,
+        prevent_cse=args.prevent_cse,
         gate_dtype=args.gate_dtype,
         extra_hparams=args.hparams,
         device=device,
     )
+    r["prevent_cse"] = args.prevent_cse
     r["hparams"] = args.hparams
     print(
-        "RESULT batch={batch} unroll={unroll} gate={gate} "
+        "RESULT batch={batch} unroll={unroll} gate={gate} prevent_cse={prevent_cse} "
         "gate_dtype={gate_dtype} hparams={hparams!r} "
         "ms_per_step={ms_per_step:.1f} frames_per_sec={frames_per_sec:.1f} "
         "compile_s={compile_s:.0f} g_loss={g_loss:.4f}".format(**r),

@@ -105,9 +105,11 @@ class ModelHparams:
     use_states: bool = False
     # --- numerics / memory ---
     compute_dtype: str = "float32"  # float32 | bfloat16
-    # remat, remat_policy, remat_prevent_cse and scan_unroll steer how the
-    # JAX package lowers its time scan; the port runs a Python time loop
-    # and accepts and ignores them
+    # recompute the generator cell in the backward pass (remat_policy
+    # "full": the whole cell; "names": all but the marked conv/ConvRNN
+    # outputs) where remat and (scan_unroll != 0 or remat_prevent_cse), as
+    # the JAX package's scan does (models/savp.py#recomputes); scan_unroll
+    # otherwise only picks the dependent mask head's form
     remat: bool = True
     remat_policy: str = "full"  # full | names
     remat_prevent_cse: bool = False

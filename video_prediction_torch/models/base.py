@@ -16,10 +16,12 @@ discriminator's GAN, VAE-GAN and feature-matching terms) and
 Every option of the JAX package's ``ModelHparams`` builds; the errors left
 are the JAX package's own (``latent_time_invariant`` with ``learn_prior``,
 ``vgg_cdist_weight`` without weights, the acvideo discriminator without
-actions). The TPU-only knobs ``remat``, ``remat_policy``,
-``remat_prevent_cse``, ``scan_unroll`` and ``disc_conv3d_taps`` steer how
-XLA lowers the same maths; the port accepts them and computes the same
-result (``models/savp.py``, ``ops/spectral.py``).
+actions). ``remat``, ``remat_policy`` and ``remat_prevent_cse`` choose
+what the generator keeps for the backward pass and what it recomputes, as
+in the JAX package (``models/savp.py#recomputes``); the TPU-only knobs
+``scan_unroll`` and ``disc_conv3d_taps`` steer how XLA lowers the same
+maths; the port accepts them and computes the same result
+(``models/savp.py``, ``ops/spectral.py``).
 
 Conventions as in the JAX package: ``batch`` holds ``images [B,T,H,W,C]``
 (uint8, or float in [0,1]) and optionally ``actions [B,T or T-1,na]`` and

@@ -18,15 +18,51 @@ with the linear state head; LSTM cells with or without LayerNorm and GRU
 cells; learned initial states; the four up- and downsample layers; the
 learned prior (``learn_prior``); fp32 or bf16 compute (``compute_dtype``)
 and gate maths (``gate_dtype``).
-``remat``, ``remat_policy``, ``remat_prevent_cse`` and ``scan_unroll``
-steer how JAX lowers its scan and mean nothing to a Python loop, save one
-choice that follows the JAX condition (``savp.py:364-366``): with
-``scan_unroll == 0`` (and not ``remat`` with ``remat_prevent_cse``) the
-dependent mask head runs as two convs over the slices of its kernel plus an
-add (``_SplitInputConv2D``), else as one conv over the concat. The two forms
-have the same parameters and agree within fp32; in bf16 they round
-differently. The JAX package's two compositing forms (fused sum and einsum,
-``savp.py:381-390``) are the same fp32 maths; both are K3 here.
+``scan_unroll`` steers how JAX lowers its scan and means nothing to a
+Python loop, save one choice that follows the JAX condition
+(``savp.py:364-366``): with ``scan_unroll == 0`` (and not ``remat`` with
+``remat_prevent_cse``) the dependent mask head runs as two convs over the
+slices of its kernel plus an add (``_SplitInputConv2D``), else as one conv
+over the concat. The two forms have the same parameters and agree within
+fp32; in bf16 they round differently. The JAX package's two compositing
+forms (fused sum and einsum, ``savp.py:381-390``) are the same fp32 maths;
+both are K3 here.
+
+Recompute (``remat``, ``remat_policy``, ``remat_prevent_cse``; JAX
+``savp.py:492-507``, which wraps the scanned cell in ``nn.remat``): a
+rollout under grad recomputes the cell in the backward pass where
+``recomputes(hp)`` holds, ``remat and (scan_unroll != 0 or
+remat_prevent_cse)``; at ``scan_unroll == 0`` without the CSE barrier XLA
+merges the JAX recompute back into the forward, so the port keeps
+everything there too. ``generate``, ``evaluate`` and the eval step run
+without grad and recompute nothing. The maths is the same either way; only
+what is kept between the passes changes (``torch.utils.checkpoint``,
+non-reentrant, no RNG state: the cell draws no random numbers).
+
+- ``full``: one checkpoint around the cell a timestep. It keeps the cell's
+  inputs and carry; the backward reruns the whole cell, in forward order,
+  once a timestep.
+- ``names``: the JAX save set, ``save_only_these_names("savp_saveable")``.
+  Each stretch of ``SAVPCell.stretches`` between two marked tensors is a
+  checkpoint of its own, which keeps only its inputs: the cell's inputs
+  and carry and the five marked sites, ``act(stem_norm(stem(.)))``
+  (``:243``), each ``act(down{s}_norm(down{s}(.)))`` (``:250``), each
+  encoder ConvRNN output ``h`` (``:256``), each ``act(up{s}_norm(up{s}(.)))``
+  (``:267``) and each decoder ConvRNN output ``h`` (``:272``). Not kept: the
+  conv outputs in front of a norm, the gate convs' outputs and K2's inputs
+  inside a ConvRNN, the concatenations with the skips, z and the
+  conditioning, and everything after ``feat_top`` (the heads, K1, K3). The
+  backward reruns every stretch once a timestep, each on its own, from the
+  heads back to the stem: every submodule of the cell reruns, as under
+  ``full`` (no submodule lies outside the stretches); what ``names``
+  changes is what is kept, more than ``full`` and less than no recompute,
+  and how much of one timestep is rebuilt at a time (one stretch).
+
+Both rerun K1-K3 forward in the backward, so a recomputing train step
+launches each twice a rollout forward and once backward. On a spatial
+shard the recompute reruns in the forward's ``spatial_context``
+(``_checkpoint``), with its halo exchanges and gathers, in the same order on
+every rank.
 
 The low-dim state (``use_states``, JAX ``savp.py:195-232``, :394-401,
 :457, :475-479): the carry holds the rolled-out state, started from
@@ -76,10 +112,11 @@ Module names follow the flax parameter tree (``stem``, ``down1``,
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from video_prediction_torch.configs.hparams import ModelHparams
 from video_prediction_torch.kernels.composite import composite
@@ -102,7 +139,9 @@ from video_prediction_torch.ops.layers import (
 from video_prediction_torch.ops.rnn import ConvGRUCell, ConvLSTMCell
 from video_prediction_torch.ops.warp import apply_affine_kernels, image_warp
 from video_prediction_torch.parallel import spatial as SP
-from video_prediction_torch.parallel.mesh import current_spatial, whole
+from video_prediction_torch.parallel.mesh import current_spatial, spatial_context, whole
+
+REMAT_POLICIES = ("full", "names")
 
 
 def _static_log2(n: int) -> int:
@@ -116,6 +155,36 @@ def generator_num_scales(height: int, width: int) -> int:
     """Encoder/decoder scale count for an input resolution: bottleneck at
     8x8 — 3 scales for 64 px, 4 for 128 px, at least 1."""
     return max(1, min(4, _static_log2(min(height, width)) - 3))
+
+
+def recomputes(hp: ModelHparams) -> bool:
+    """Whether a rollout under grad recomputes the generator cell in the
+    backward pass: ``remat`` and (``scan_unroll != 0`` or
+    ``remat_prevent_cse``), the JAX package's effective rule (its
+    ``hparams.py:134-141``, ``savp.py:502-505``: at ``scan_unroll == 0``
+    without the CSE barrier XLA merges the recompute back into the forward).
+    A rollout without grad recomputes nothing."""
+    return bool(hp.remat and (hp.scan_unroll != 0 or hp.remat_prevent_cse))
+
+
+def _call(fn: Callable, *args):
+    return fn(*args)
+
+
+def _checkpoint(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint``: what it saves
+    for the backward is dropped and recomputed there. The recompute runs in
+    the spatial context of this call: the backward runs after the train step
+    has left its context, and on CUDA on autograd's own thread, where the
+    context variable reads None. No RNG state is kept: the cell draws no
+    random numbers (its noise comes in through ``x``)."""
+    mesh = current_spatial()
+
+    def run(*a, **kw):
+        with spatial_context(mesh):
+            return fn(*a, **kw)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def split_input_conv(conv: Conv2D, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -261,15 +330,59 @@ class SAVPCell(nn.Module):
             for cell, s in zip(self.rnn_cells(), scales)
         ]
 
-    def forward(self, state: tuple, x: Dict[str, torch.Tensor], output_aux: bool = False):
-        hp = self.hparams
+    def stretches(self) -> List[List[str]]:
+        """The cell's stretches between the tensors ``remat_policy="names"``
+        keeps, in forward order, each as the submodules it calls: the stem
+        (with the learned prior), each downsampling and each encoder ConvRNN,
+        each upsampling and each decoder ConvRNN, then the heads."""
+        names = set(dict(self.named_children()))
+        out = [[n for n in ("prior", "stem", "stem_norm") if n in names]]
+        for s in range(1, self.num_scales + 1):
+            out += [[f"down{s}", f"down{s}_norm"], [f"enc_rnn{s}"]]
+        for s in range(self.num_scales - 1, -1, -1):
+            out += [[f"up{s}", f"up{s}_norm"], [f"dec_rnn{s}"]]
+        heads = ("cdna_head", "dna_head", "stp_fc", "stp_head", "flow_head", "scratch_head", "mask_head", "state_head")
+        return out + [[n for n in heads if n in names]]
+
+    def forward(self, state: tuple, x: Dict[str, torch.Tensor], output_aux: bool = False,
+                segment: Optional[Callable] = None):
+        """One timestep. ``segment`` (``remat_policy="names"``) runs each
+        stretch of ``stretches`` as ``segment(fn, *args)``; None calls it."""
+        run = segment or _call
         rnn_states, gen_image, last_images, current_state = state
+        image, current_state, z, cond, h, aux = run(self._stem, gen_image, current_state, x)
+        last_images = last_images[1:] + [image]  # the last `last_frames` inputs
+        cells = self.rnn_cells()
+
+        # ---- encoder ----
+        new_states = []
+        skips = [h]
+        for s in range(1, self.num_scales + 1):
+            h = run(self._down, s, h)
+            i = len(new_states)
+            st, h = run(self._enc_rnn, cells[i], rnn_states[i], h, z, cond)
+            new_states.append(st)
+            skips.append(h)
+        bottleneck = h
+
+        # ---- decoder ----
+        for s in range(self.num_scales - 1, -1, -1):
+            h = run(self._up, s, h)
+            i = len(new_states)
+            st, h = run(self._dec_rnn, cells[i], rnn_states[i], h, skips[s], z)
+            new_states.append(st)
+        gen_image_new, current_state, heads = run(self._heads, h, bottleneck, image, last_images, current_state, x,
+                                                  output_aux)
+        out = {"gen_image": gen_image_new, **aux, **heads}
+        return (new_states, gen_image_new, last_images, current_state), out
+
+    def _stem(self, gen_image: torch.Tensor, current_state: Optional[torch.Tensor], x: Dict[str, torch.Tensor]):
+        """The frame the cell consumes, the state, z and the conditioning
+        vector, the stem's output and the learned prior's statistics."""
+        hp = self.hparams
         use_gt = x["use_gt"]  # [B] bool
         image = torch.where(use_gt[:, None, None, None], x["image"], gen_image)
-        b, hgt, wid, c = image.shape
-        last_images = last_images[1:] + [image]  # the last `last_frames` inputs
         aux: Dict[str, torch.Tensor] = {}
-
         if current_state is not None and x.get("state") is not None:
             # the ground-truth state where the ground-truth image is taken (:195-202)
             current_state = torch.where(use_gt[:, None], cast(x["state"], current_state.dtype), current_state)
@@ -290,32 +403,36 @@ class SAVPCell(nn.Module):
             inputs = tile_concat(inputs, cond)
         if z is not None and hp.where_add in ("input", "all"):
             inputs = tile_concat(inputs, z)
+        return image, current_state, z, cond, self.act(self.stem_norm(self.stem(inputs))), aux
 
-        # ---- encoder ----
-        cells = iter(self.rnn_cells())
-        new_states = []
-        h = self.act(self.stem_norm(self.stem(inputs)))
-        skips = [h]
-        for s in range(1, self.num_scales + 1):
-            h = self.act(getattr(self, f"down{s}_norm")(getattr(self, f"down{s}")(h)))
-            if z is not None and hp.where_add == "all":
-                h = tile_concat(h, z)
-            if cond is not None and hp.where_add == "all":
-                h = tile_concat(h, cond)
-            st, h = next(cells)(rnn_states[len(new_states)], h)
-            new_states.append(st)
-            skips.append(h)
-        bottleneck = h
+    def _down(self, s: int, h: torch.Tensor) -> torch.Tensor:
+        return self.act(getattr(self, f"down{s}_norm")(getattr(self, f"down{s}")(h)))
 
-        # ---- decoder ----
-        for s in range(self.num_scales - 1, -1, -1):
-            h = self.act(getattr(self, f"up{s}_norm")(getattr(self, f"up{s}")(h)))
-            h = torch.cat([h, skips[s]], dim=-1)
-            if z is not None and hp.where_add in ("all", "middle"):
-                h = tile_concat(h, z)
-            st, h = next(cells)(rnn_states[len(new_states)], h)
-            new_states.append(st)
-        feat_top = h
+    def _up(self, s: int, h: torch.Tensor) -> torch.Tensor:
+        return self.act(getattr(self, f"up{s}_norm")(getattr(self, f"up{s}")(h)))
+
+    def _enc_rnn(self, cell: nn.Module, st, h: torch.Tensor, z: Optional[torch.Tensor], cond: Optional[torch.Tensor]):
+        if z is not None and self.hparams.where_add == "all":
+            h = tile_concat(h, z)
+        if cond is not None and self.hparams.where_add == "all":
+            h = tile_concat(h, cond)
+        return cell(st, h)
+
+    def _dec_rnn(self, cell: nn.Module, st, h: torch.Tensor, skip: torch.Tensor, z: Optional[torch.Tensor]):
+        h = torch.cat([h, skip], dim=-1)
+        if z is not None and self.hparams.where_add in ("all", "middle"):
+            h = tile_concat(h, z)
+        return cell(st, h)
+
+    def _heads(self, feat_top: torch.Tensor, bottleneck: torch.Tensor, image: torch.Tensor,
+               last_images: List[torch.Tensor], current_state: Optional[torch.Tensor], x: Dict[str, torch.Tensor],
+               output_aux: bool):
+        """The candidates, the masks and their composite (K1, K3), and the next
+        low-dim state: ``(gen_image, current_state, {gen_state?, kernels?,
+        flows?, masks?})``."""
+        hp = self.hparams
+        b, hgt, wid, c = image.shape
+        aux: Dict[str, torch.Tensor] = {}
 
         # ---- candidates [B,K,H,W,C], in savp.py's order ----
         kh, kw = hp.kernel_size
@@ -371,12 +488,11 @@ class SAVPCell(nn.Module):
             if output_aux:
                 aux["masks"] = masks
 
-        out = {"gen_image": gen_image_new, **aux}
         if current_state is not None and x.get("action") is not None:
             # the next state from the rolled-out [state, action] (:395-401)
             current_state = self.state_head(torch.cat([current_state, x["action"]], dim=-1))
-            out["gen_state"] = current_state
-        return (new_states, gen_image_new, last_images, current_state), out
+            aux["gen_state"] = current_state
+        return gen_image_new, current_state, aux
 
 
 class SAVPGenerator(nn.Module):
@@ -394,6 +510,9 @@ class SAVPGenerator(nn.Module):
     kept in it. With ``learn_initial_state`` each state tensor starts from a
     parameter ``init_state_{i}`` ``[1,h,w,f]`` (fp32, zero-initialized, in
     ``_leaves`` order) broadcast over the batch (JAX ``savp.py:440-455``).
+    Under grad, where ``recomputes(hparams)``, each timestep's cell is
+    recomputed in the backward pass by ``remat_policy`` (the module
+    docstring); an unknown policy raises when ``remat`` is on.
     """
 
     def __init__(self, hparams: ModelHparams, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0,
@@ -420,6 +539,9 @@ class SAVPGenerator(nn.Module):
         output_aux: bool = False,
     ) -> Dict[str, torch.Tensor]:
         hp = self.hparams
+        if hp.remat and hp.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {hp.remat_policy!r}")
+        recompute = torch.is_grad_enabled() and recomputes(hp)
         b, t, hgt, wid, c = images.shape
         mesh = current_spatial()
         if (SP.global_rows(hgt, mesh), wid, c) != self.image_shape:
@@ -461,7 +583,12 @@ class SAVPGenerator(nn.Module):
                 x["prior_eps"] = prior_eps[:, step]
                 if zs is not None:
                     x["use_prior_z"] = use_prior_z
-            state, out = self.cell(state, x, output_aux=output_aux)
+            if not recompute:
+                state, out = self.cell(state, x, output_aux=output_aux)
+            elif hp.remat_policy == "full":
+                state, out = _checkpoint(self.cell, state, x, output_aux=output_aux)
+            else:
+                state, out = self.cell(state, x, output_aux=output_aux, segment=_checkpoint)
             outs.append(out)
         result = {"gen_images": torch.stack([o["gen_image"] for o in outs], dim=1)}
         if "gen_state" in outs[0]:

@@ -38,6 +38,13 @@ from video_prediction_torch.parallel.mesh import current_spatial
 RELU_SHIFT = 1e-12
 
 
+def identity_kernel(kernel_size: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Delta kernel ``[k, k]``: applying it reproduces the input image exactly."""
+    k = torch.zeros((kernel_size, kernel_size), dtype=dtype)
+    k[kernel_size // 2, kernel_size // 2] = 1.0
+    return k
+
+
 def normalize_kernels(kernels: torch.Tensor, method: str = "softmax") -> torch.Tensor:
     """Normalize ``[..., kh, kw, N]`` kernels over the kh*kw tap axis:
     ``softmax`` (SAVP) or ``relu`` (Finn et al. CDNA: relu then divide by the

@@ -31,7 +31,10 @@ the CPU a call runs it eagerly: that is the plain version. On CUDA:
 A capture or replay error raises: there is no eager fallback. The train
 state must have Adams built for K > 1 (``state.make_optimizers``). The
 kernel wrappers count their launches as Python calls, so the capture's
-counts are taken back out and added once per replay.
+counts are taken back out and added once per replay. Where the generator
+cell is recomputed in the backward pass (``models/savp.py#recomputes``)
+the recompute runs inside ``total.backward()``, so it is captured with the
+step, and a step counts each forward kernel twice.
 
 Data parallel (``group``, the counterpart of the JAX step's mesh
 ``in_shardings`` and the gradient ``psum`` XLA emits from them): each rank
