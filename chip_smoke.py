@@ -223,10 +223,27 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     (22 / 132 / 22 forward and 11 / 66 / 11 backward with recompute, 11 /
     66 / 11 each way without); (b) in a process of its own, the flagship and
     ``kth/ours_savp_128`` at batch 16, each setting, TF32 convs: ms a step
-    and peak allocated MiB eagerly and as ``MultiStep(4)`` (every
-    recomputing run must fit the card; off may not); (c) ``MultiStep(4)``
-    with ``names`` against eager steps under phase 24's rule (phase 24 holds
-    the flagship's ``full``), with its launches;
+    and peak allocated MiB eagerly and as ``MultiStep(4)`` (kth only with
+    ``full`` graphed: its graph without recompute needs nearly the card;
+    every recomputing run must fit the card; off may not); (c)
+    ``MultiStep(4)`` with ``names`` against eager steps under phase 24's
+    rule (phase 24 holds the flagship's ``full``), with its launches;
+29. checkpoints kept per step (``train/checkpoint.py``): (a) ``train``'s
+    ``main`` at the flagship's full width, batch 16, ``--save_freq 1`` for
+    4 steps: four saves, each timed (seconds and MB), the final save of a
+    kept step writing nothing, the newest three steps kept and whole; (b)
+    ``python -m video_prediction_torch.train --save_freq 2`` killed with
+    SIGKILL once its first step is kept, then ``--resume``d 2 steps from the
+    newest kept step in this process, TF32 off and cuDNN's deterministic
+    algorithms: its train state (parameters, buffers, both Adams, the noise
+    generator) and losses equal that step's state taken the same steps by
+    hand on the fresh stream's first batches, bit for bit; (c)
+    ``generate`` and ``evaluate`` from (a)'s run directory at the newest
+    and the oldest kept step (``--checkpoint_step``), each restoring the
+    step it prints; (d) phase 20's ``dna_l2`` train step GPU against CPU
+    again, its median leaf printed beside ``Z_L1_GRAD_MEDIAN_TOL`` (the
+    norms keep the two-pass variance: flax's E[x^2] - E[x]^2 failed phases
+    20 and 21's gates, ``ROADMAP.md`` queue 3).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 at the train step's shapes (the forward kernels' at the generation shapes
@@ -874,6 +891,7 @@ def train_phase(init_seed: int = 0) -> dict:
     from video_prediction_torch import kernels as K
     from video_prediction_torch.configs.hparams import zoo_dir
     from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.train.checkpoint import PARAMS_FILE, checkpoint_file
 
     run_dir = os.path.join(WORK_DIR, "train")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -899,7 +917,7 @@ def train_phase(init_seed: int = 0) -> dict:
 
     from video_prediction_torch.models import get_model_class
 
-    trained = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)
+    trained = torch.load(checkpoint_file(run_dir, PARAMS_FILE), weights_only=True)
     init = get_model_class("savp")(slice_hparams(), image_shape=(64, 64, 3), action_dim=4)
     init.init_weights(torch.Generator().manual_seed(init_seed))
     start = init.state_dict()
@@ -1636,6 +1654,7 @@ def records_train_phase(dirs: dict, per_step: dict, dev) -> str:
     from video_prediction_torch.configs.hparams import DatasetHparams, apply_overrides, zoo_dir
     from video_prediction_torch.data import DeviceFeeder, get_dataset_class
     from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.train.checkpoint import PARAMS_FILE, checkpoint_file
 
     set_tf32_default()
     run_dir = os.path.join(WORK_DIR, "records_train")
@@ -1689,8 +1708,7 @@ def records_train_phase(dirs: dict, per_step: dict, dev) -> str:
     launches = K.launch_counts()
     # the actions from the records enter the generator's stem conv beside the image and z
     stem = "generator.cell.stem.weight"
-    widths = [torch.load(os.path.join(d, "checkpoints", "params.pt"), weights_only=True)[stem].shape[1]
-              for d in (run_dir, ac_dir)]
+    widths = [torch.load(checkpoint_file(d, PARAMS_FILE), weights_only=True)[stem].shape[1] for d in (run_dir, ac_dir)]
     print(f"action-conditioned bair/ours_savp on records (use_state=True): 1 step, losses {ac['scalars']}; "
           f"launches {launches}; stem input channels {widths[1]} (action-free {widths[0]})")
     check(ac["all_finite"] and ac["step"] == 1, f"action-conditioned step: {ac}")
@@ -1891,6 +1909,7 @@ def ac_train_phase(dirs: dict) -> tuple:
     from video_prediction_torch import kernels as K
     from video_prediction_torch.configs.hparams import zoo_dir
     from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.train.checkpoint import PARAMS_FILE, checkpoint_file
 
     set_tf32_default()
     runs, dna_launches = {}, None
@@ -1910,8 +1929,8 @@ def ac_train_phase(dirs: dict) -> tuple:
         launches = K.launch_counts()
         with open(os.path.join(run_dir, "model_hparams.json")) as f:
             state_weight = json.load(f)["state_weight"]
-        stem = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)[
-            "generator.cell.stem.weight"].shape[1]
+        stem = torch.load(checkpoint_file(run_dir, PARAMS_FILE),
+                          weights_only=True)["generator.cell.stem.weight"].shape[1]
         print(f"train {model} (bair/{zoo}) on records, use_state=True: {AC_TRAIN_STEPS} steps, {wall:.2f} s wall; "
               f"losses {summary['scalars']}; launches {launches}; stem input channels {stem}")
         check(summary["all_finite"] and summary["step"] == AC_TRAIN_STEPS, f"train {zoo}: {summary}")
@@ -2174,6 +2193,7 @@ def objectives_train_phase(dirs: dict, vgg_path: str) -> tuple:
     from video_prediction_torch import kernels as K
     from video_prediction_torch.configs.hparams import zoo_dir
     from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.train.checkpoint import PARAMS_FILE, checkpoint_file
 
     set_tf32_default()
     run_dir = os.path.join(WORK_DIR, "objectives")
@@ -2203,7 +2223,7 @@ def objectives_train_phase(dirs: dict, vgg_path: str) -> tuple:
     # one doubled-batch rollout (prior and posterior) a step, recomputed, and its backward, as phase 8
     want = train_launches(objectives_hparams(vgg_path), OBJ_TRAIN_STEPS)
     check(launches == want, f"train with the objectives: launches {launches}, want {want}")
-    params = torch.load(os.path.join(run_dir, "checkpoints", "params.pt"), weights_only=True)
+    params = torch.load(checkpoint_file(run_dir, PARAMS_FILE), weights_only=True)
     check(any(k.startswith("generator.cell.prior.") for k in params) and not any("vgg" in k for k in params),
           "the checkpoint should hold the learned prior and no VGG weights")
     return run_dir, launches
@@ -3267,6 +3287,8 @@ def dp_cli_phase() -> None:
     import shutil
 
     from video_prediction_torch.configs.hparams import zoo_dir
+    from video_prediction_torch.train.checkpoint import (TRAIN_STATE_FILE, checkpoint_file, has_train_state,
+                                                         kept_steps, latest_step)
     from video_prediction_torch.utils.summary import read_events
 
     run_dir = os.path.join(WORK_DIR, "train_dp")
@@ -3291,10 +3313,10 @@ def dp_cli_phase() -> None:
     check("data axis: 1, spatial axis: 1" in outs[0], f"torchrun train --spatial_shards 1: {outs[0][-2000:]}")
     check(f"resumed from step {first}" in outs[1] and f"done at step {end}" in outs[1],
           f"torchrun train --resume: {outs[1][-2000:]}")
-    for name in ("options.json", "model_hparams.json", "dataset_hparams.json", "checkpoints/train_state.pt",
-                 "checkpoints/params.pt"):
+    for name in ("options.json", "model_hparams.json", "dataset_hparams.json"):
         check(os.path.isfile(os.path.join(run_dir, name)), f"torchrun train wrote no {name}")
-    state = torch.load(os.path.join(run_dir, "checkpoints", "train_state.pt"), weights_only=True)
+    check(latest_step(run_dir) == end and has_train_state(run_dir), f"torchrun train kept steps {kept_steps(run_dir)}")
+    state = torch.load(checkpoint_file(run_dir, TRAIN_STATE_FILE), weights_only=True)
     check(state["step"] == end, f"the checkpoint is at step {state['step']}, want {end}")
     files = sorted(glob.glob(os.path.join(run_dir, "events.out.tfevents.*")))
     check(len(files) == 2, f"want one event file a run, got {files}")
@@ -3580,9 +3602,9 @@ def jax_resume_phase(dev, port_dir: str) -> dict:
     the loss JAX recorded. Returns the largest relative difference by K."""
     import numpy as np
 
-    from video_prediction_torch.train.checkpoint import load_train_state
     from video_prediction_torch.train.state import create_train_state
     from video_prediction_torch.train.step import make_train_step
+    from video_prediction_torch.train.checkpoint import load_train_state
 
     with np.load(os.path.join(JAX_RUN_FIXTURE, "steps.npz")) as npz:
         rec = {k: npz[k] for k in npz.files}
@@ -3679,6 +3701,7 @@ def jax_flagship_phase(ident: str, per_step: dict, vgg_path: str, lin_path: str)
     from video_prediction_torch import kernels as K
     from video_prediction_torch.convert import JAX_STATE_FILE, RUN_FILES
     from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.train.checkpoint import TRAIN_STATE_FILE, checkpoint_file
 
     with open(JAX_FLAGSHIP_SHAPES) as f:
         spec = json.load(f)
@@ -3746,7 +3769,7 @@ def jax_flagship_phase(ident: str, per_step: dict, vgg_path: str, lin_path: str)
     check((out["start_step"], out["step"]) == (JAX_RESUME_STEP, end) and out["all_finite"],
           f"train --resume on the converted run: {out}")
     check(launches == want, f"train --resume launches {launches}, want {want} ({JAX_RESUME_K} steps)")
-    state = torch.load(os.path.join(port_dir, "checkpoints", "train_state.pt"), weights_only=True)
+    state = torch.load(checkpoint_file(port_dir, TRAIN_STATE_FILE), weights_only=True)
     steps = {float(slots["step"]) for key in ("opt_g", "opt_d") for slots in state[key]["state"].values()}
     check(state["step"] == end and steps == {float(end)}, f"saved step {state['step']}, Adam steps {steps}")
     readings.update({"losses": out["scalars"], "launches": launches})
@@ -3782,6 +3805,10 @@ REMAT_WORKER = "--remat-memory"  # chip_smoke.py REMAT_WORKER <job dir>: phase 2
 REMAT_TIMEOUT = 600  # seconds for (b)'s process
 REMAT_CONFIGS = ("flagship", "kth128_16")  # dp_run's configs at batch 16
 REMAT_ORDER = ("full", "names", "off")  # off last: the one that may not fit the card
+# the settings each config runs graphed as well as eagerly: kth/ours_savp_128's graph
+# without recompute needs nearly the whole card (out of memory once after phases
+# 1-27, PR 16), and its names graph times as its full one (PR 16)
+REMAT_GRAPHED = {"flagship": REMAT_ORDER, "kth128_16": ("full",)}
 
 
 def remat_step_phase(dev) -> dict:
@@ -3840,15 +3867,15 @@ def _out_of_memory(e: BaseException) -> bool:
     return False
 
 
-def remat_memory_run(dev, config: str, policy: str) -> dict:
+def remat_memory_run(dev, config: str, policy: str, graphed: bool = True) -> dict:
     """Phase 28 (b), one model and ``remat`` setting: ms a step and the peak
     memory allocated above what was allocated before the model was built,
     eagerly (3 steps, the last two timed) and graphed (``MultiStep(SPC)``,
     SPC_CALLS calls: the first eager, the second captured, the third
     replayed and timed; the cache is emptied before the capture, so that the
-    graph's pool can take what the eager call freed), TF32 convs as the CLIs
-    run. A mode that runs out of memory reads ``{"oom": True}``, and the
-    graph is not tried after an eager one does."""
+    graph's pool can take what the eager call freed; unless ``graphed`` is
+    False), TF32 convs as the CLIs run. A mode that runs out of memory reads
+    ``{"oom": True}``, and the graph is not tried after an eager one does."""
     import gc
 
     from video_prediction_torch.train.state import TrainState, make_optimizers
@@ -3864,7 +3891,7 @@ def remat_memory_run(dev, config: str, policy: str) -> dict:
     batches = [{k: v.to(dev) for k, v in b.items()}
                for b in spc_host_batches(model.hparams, SPC, model.generator.image_shape[0])]
     out = {}
-    for mode, k in (("eager", 1), ("graph", SPC)):
+    for mode, k in (("eager", 1), ("graph", SPC))[:2 if graphed else 1]:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3896,11 +3923,12 @@ def remat_memory_run(dev, config: str, policy: str) -> dict:
 def remat_worker(argv) -> int:
     """Phase 28 (b) in a process of its own (``REMAT_WORKER <job dir>``):
     ``remat_memory_run`` of every config of REMAT_CONFIGS for every setting in
-    REMAT_ORDER, written to ``<job dir>/readings.json``."""
+    REMAT_ORDER (graphed as REMAT_GRAPHED says), written to ``<job
+    dir>/readings.json``."""
     sys.path.insert(0, ROOT)
     dev = torch.device("cuda", 0)
-    readings = {config: {policy: remat_memory_run(dev, config, policy) for policy in REMAT_ORDER}
-                for config in REMAT_CONFIGS}
+    readings = {config: {policy: remat_memory_run(dev, config, policy, policy in REMAT_GRAPHED[config])
+                         for policy in REMAT_ORDER} for config in REMAT_CONFIGS}
     with open(os.path.join(argv[0], "readings.json"), "w") as f:
         json.dump(readings, f)
     return 0
@@ -3993,6 +4021,214 @@ def remat_phase(dev, ident: str, kernel_results: list) -> None:
                "memory": memory, "names_graph": graph}
     print(f"phase 28 readings [{ident}]: {json.dumps(summary)}")
     print(f"phase 28 (remat): {time.perf_counter() - t_phase:.2f} s wall")
+
+
+# ---------------------------------------------------------------------------
+# checkpoints kept per step, the last three (phase 29)
+# ---------------------------------------------------------------------------
+CKPT_STEPS = 4  # (a): --save_freq 1, four saves, three kept
+CKPT_KILL_FREQ = 2  # (b): the killed run's --save_freq
+CKPT_KILL_TIMEOUT = 240  # seconds for the killed run to keep its first step
+CKPT_RESUME_STEPS = 2  # (b): the resumed run's steps past the newest kept one
+CKPT_SEED = 29
+
+
+def ckpt_argv(run_dir: str, steps: int, save_freq: int) -> list:
+    from video_prediction_torch.configs.hparams import zoo_dir
+
+    return ["--dataset", "synthetic", "--model", "savp",
+            "--model_hparams_dict", str(zoo_dir() / "bair_action_free" / "ours_savp" / "model_hparams.json"),
+            "--output_dir", run_dir, "--batch_size", str(TRAIN_BATCH), "--device", "cuda", "--max_steps", str(steps),
+            "--save_freq", str(save_freq), "--progress_freq", "1", "--no_tensorboard", "--seed", str(CKPT_SEED)]
+
+
+def ckpt_retention(run_dir: str) -> dict:
+    """Phase 29 (a): the train CLI at full width, batch 16, ``--save_freq 1``
+    for CKPT_STEPS steps: every periodic save writes its step, the final
+    save (a step kept already) writes nothing, the newest three steps are
+    kept, each whole, and nothing else. Returns the seconds and MB of each
+    save."""
+    import shutil
+
+    from video_prediction_torch.train import checkpoint
+    from video_prediction_torch.train.__main__ import main as train_main
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    saves, real_save = [], checkpoint.save_train_state
+
+    def timed(path, ts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wrote = real_save(path, ts)
+        saves.append((ts.step, wrote, time.perf_counter() - t0))
+        return wrote
+
+    checkpoint.save_train_state = timed
+    try:
+        out = train_main(ckpt_argv(run_dir, CKPT_STEPS, 1))
+    finally:
+        checkpoint.save_train_state = real_save
+    check(out["all_finite"] and out["step"] == CKPT_STEPS, f"checkpoints (a): train {out}")
+    want = [(s, True) for s in range(1, CKPT_STEPS + 1)] + [(CKPT_STEPS, False)]
+    check([(s, w) for s, w, _ in saves] == want, f"checkpoints (a): saves (step, wrote) {saves}, want {want}")
+    kept = list(range(CKPT_STEPS - checkpoint.MAX_TO_KEEP + 1, CKPT_STEPS + 1))
+    root = os.path.join(run_dir, checkpoint.CHECKPOINT_DIR)
+    check(checkpoint.kept_steps(run_dir) == kept and sorted(os.listdir(root)) == sorted(str(s) for s in kept),
+          f"checkpoints (a): {sorted(os.listdir(root))} kept, want {kept}")
+    mb = {}
+    for s in kept:
+        names = sorted(os.listdir(os.path.join(root, str(s))))
+        check(names == [checkpoint.PARAMS_FILE, checkpoint.TRAIN_STATE_FILE], f"checkpoints (a): step {s} holds {names}")
+        mb[s] = sum(os.path.getsize(os.path.join(root, str(s), n)) for n in names) / 1e6
+    seconds = [t for _, w, t in saves if w]
+    print(f"checkpoints (a): train --save_freq 1 at full width, batch 16, {CKPT_STEPS} steps: {len(seconds)} saves "
+          f"of {mb[kept[-1]]:.1f} MB (train state and params) in {', '.join(f'{t:.3f}' for t in seconds)} s (the "
+          f"copy to the host included), the final save of step {CKPT_STEPS} skipped in {saves[-1][2]:.4f} s; steps "
+          f"{kept} kept, {sum(mb.values()):.1f} MB")
+    return {"save_s": seconds, "skip_s": saves[-1][2], "step_mb": mb[kept[-1]], "kept": kept}
+
+
+def ckpt_kill_and_resume(run_dir: str) -> dict:
+    """Phase 29 (b): ``python -m video_prediction_torch.train`` with
+    ``--save_freq`` CKPT_KILL_FREQ killed with SIGKILL as soon as its first
+    step is kept (inside the next step), then the newest kept step restored
+    and ``--resume``d CKPT_RESUME_STEPS steps in this process, TF32 off and
+    cuDNN's deterministic algorithms: the resumed run's train state equals,
+    bit for bit, the newest kept step's state taken the same steps by hand
+    on the fresh stream's first batches (``tests/test_torch_train_cli.py``'s
+    ``test_resume_equals_an_unbroken_run`` at full width)."""
+    import shutil
+    import signal
+
+    from video_prediction_torch.configs.hparams import DatasetHparams, ModelHparams, apply_overrides
+    from video_prediction_torch.data.synthetic import SyntheticVideoDataset
+    from video_prediction_torch.generate import batch_to_device
+    from video_prediction_torch.models import get_model_class
+    from video_prediction_torch.train import checkpoint
+    from video_prediction_torch.train.__main__ import main as train_main
+    from video_prediction_torch.train.state import create_train_state, optimizer_param_names
+    from video_prediction_torch.train.step import make_train_step
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    torch.cuda.empty_cache()  # the card's memory for the process to be killed
+    log_path = os.path.join(run_dir, "killed.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "video_prediction_torch.train",
+                                 *ckpt_argv(run_dir, 1000, CKPT_KILL_FREQ)], cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            while not checkpoint.kept_steps(run_dir) and proc.poll() is None \
+                    and time.perf_counter() - t0 < CKPT_KILL_TIMEOUT:
+                time.sleep(0.05)
+        finally:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    newest = checkpoint.latest_step(run_dir)
+    check(proc.returncode == -signal.SIGKILL and newest is not None and newest % CKPT_KILL_FREQ == 0,
+          f"checkpoints (b): the run exited {proc.returncode} with steps {checkpoint.kept_steps(run_dir)}:\n{tail}")
+    killed_at = max((int(m) for m in re.findall(r"^step (\d+):", tail, re.M)), default=0)
+    kill_s = time.perf_counter() - t0
+
+    set_tf32_default()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        t1 = time.perf_counter()
+        end = newest + CKPT_RESUME_STEPS
+        out = train_main(ckpt_argv(run_dir, end, CKPT_KILL_FREQ) + ["--resume"])
+        resume_s = time.perf_counter() - t1
+        check((out["start_step"], out["step"]) == (newest, end) and out["all_finite"],
+              f"checkpoints (b): --resume {out}")
+        # by hand: the newest kept state, then the same steps on the fresh stream's first batches
+        dev = torch.device("cuda", 0)
+        with open(os.path.join(run_dir, "model_hparams.json")) as f:
+            hp = apply_overrides(ModelHparams(), json.load(f))
+        model = get_model_class("savp")(hp, image_shape=(64, 64, 3), action_dim=4)
+        ts = create_train_state(model, CKPT_SEED, dev)
+        checkpoint.load_train_state(run_dir, ts, step=newest)
+        with open(os.path.join(run_dir, "dataset_hparams.json")) as f:
+            dhp = apply_overrides(DatasetHparams(), json.load(f))
+        it = SyntheticVideoDataset("", mode="train", hparams=dhp, seed=CKPT_SEED).make_iterator(TRAIN_BATCH)
+        step = make_train_step(model)
+        for _ in range(CKPT_RESUME_STEPS):
+            scalars = step(ts, batch_to_device(next(it), dev))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        set_tf32_default()
+    check(out["scalars"] == {k: float(v) for k, v in scalars.items()},
+          f"checkpoints (b): the resumed run's last losses {out['scalars']}, by hand {scalars}")
+    saved = torch.load(checkpoint.checkpoint_file(run_dir, checkpoint.TRAIN_STATE_FILE), weights_only=True)
+    check(saved["step"] == ts.step == end, f"checkpoints (b): saved step {saved['step']}, by hand {ts.step}")
+    mine = ts.model.state_dict()
+    off = [k for k, v in saved["model"].items() if not torch.equal(v, mine[k].cpu())]
+    check(not off, f"checkpoints (b): the resumed run's parameters and buffers differ from by hand at {off[:8]}")
+    for key, opt in (("opt_g", ts.opt_g), ("opt_d", ts.opt_d)):
+        names = optimizer_param_names(ts.model, opt)
+        for name, p in zip(names, [q for g in opt.param_groups for q in g["params"]]):
+            for slot, v in opt.state[p].items():
+                check(torch.equal(saved[key]["state"][name][slot].cpu(), v.cpu()),
+                      f"checkpoints (b): {key} {name} {slot} differs from by hand")
+    check(torch.equal(saved["rng"], ts.rng.get_state()), "checkpoints (b): the noise generator differs from by hand")
+    print(f"checkpoints (b): train --save_freq {CKPT_KILL_FREQ} killed with SIGKILL at step {killed_at} (its log's "
+          f"last progress line) once step {newest} was kept, {kill_s:.2f} s after its launch; step {newest} restored "
+          f"and --resume'd to {end} in {resume_s:.2f} s (TF32 off, deterministic cuDNN): the train state (step, "
+          f"{len(saved['model'])} parameters and buffers, both Adams, the noise generator) and the losses equal "
+          f"by hand bit for bit; kept steps {checkpoint.kept_steps(run_dir)}")
+    return {"killed_at": killed_at, "resumed_from": newest, "end": end, "kill_s": kill_s, "resume_s": resume_s}
+
+
+def ckpt_readers(run_dir: str, older: int) -> dict:
+    """Phase 29 (c): ``generate`` and ``evaluate`` on (a)'s run directory, at
+    the newest kept step and at ``older``: each prints and returns the step
+    it restored, and its outputs are finite."""
+    import contextlib
+    import io
+
+    from video_prediction_torch import evaluate, generate
+    from video_prediction_torch.train.checkpoint import latest_step
+
+    out = {}
+    for step in (None, older):
+        want = latest_step(run_dir) if step is None else step
+        extra = [] if step is None else ["--checkpoint_step", str(step)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            gen = generate.main(["--checkpoint", run_dir, "--results_dir", os.path.join(run_dir, f"gen{want}"),
+                                 "--batch_size", str(BATCH), "--num_samples", str(BATCH), *extra])
+            ev = evaluate.main(["--checkpoint", run_dir, "--results_dir", os.path.join(run_dir, f"eval{want}"),
+                                "--batch_size", str(BATCH), "--num_samples", str(BATCH), "--num_stochastic_samples",
+                                "2", "--only_metrics", *extra])
+        check(gen["step"] == ev["step"] == want and buf.getvalue().count(f"restored step {want} from {run_dir}") == 2,
+              f"checkpoints (c): step {want}: generate {gen['step']}, evaluate {ev['step']}")
+        check(gen["all_finite"] and ev["no_nan"], f"checkpoints (c): step {want}: generate {gen}, evaluate {ev}")
+        out[want] = {"psnr_max": ev["metrics"]["psnr_max"], "ssim_max": ev["metrics"]["ssim_max"]}
+    print(f"checkpoints (c): generate and evaluate restored steps {sorted(out)} of {run_dir}: evaluate's means "
+          f"{out}")
+    return out
+
+
+def checkpoint_phase(dev, ident: str) -> dict:
+    """Phase 29: (a) ``ckpt_retention``, (b) ``ckpt_kill_and_resume``, (c)
+    ``ckpt_readers``, and (d) phase 20's ``dna_l2`` train step GPU against
+    CPU again, its median leaf printed beside ``Z_L1_GRAD_MEDIAN_TOL``."""
+    t_phase = time.perf_counter()
+    run_dir = os.path.join(WORK_DIR, "checkpoints")
+    readings = {"retention": ckpt_retention(run_dir)}
+    readings["kill"] = ckpt_kill_and_resume(os.path.join(WORK_DIR, "checkpoints_killed"))
+    readings["readers"] = ckpt_readers(run_dir, readings["retention"]["kept"][0])
+    median = train_cpu_vs_gpu_phase(dev, "dna", ac_hparams("dna", "dna_l2"))
+    set_tf32_default()
+    readings["dna_l2_grad_median"] = median
+    print(f"dna_l2 train step GPU vs CPU (TF32 off, the norms' two-pass variance): median leaf "
+          f"{median:.3g}, phase 9's tolerance {TRAIN_GRAD_MEDIAN_TOL}, Z_L1_GRAD_MEDIAN_TOL {Z_L1_GRAD_MEDIAN_TOL} "
+          f"[{ident}]")
+    print(f"phase 29 readings [{ident}]: {json.dumps(readings)}")
+    print(f"phase 29 (checkpoints): {time.perf_counter() - t_phase:.2f} s wall")
+    return readings
 
 
 def dtype_of(hp, name: str) -> str:
@@ -4175,13 +4411,19 @@ def main() -> int:
         # launches; ms a step and peak memory, eager and graphed, flagship and
         # kth/ours_savp_128 at 16; MultiStep(4) with names against eager steps
         remat_phase(dev, ident, kernel_results)
+
+        # 29. checkpoints kept per step: the train CLI at full width saving
+        # each step (three kept), killed with SIGKILL between saves and resumed
+        # bit for bit; generate and evaluate from the newest and an older step;
+        # the dna_l2 step GPU against CPU with flax's norm variance
+        checkpoint_phase(dev, ident)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
     from video_prediction_torch.kernels.bench import REPEATS
 
-    print(f"chip_smoke: phases 1-28 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-29 in {time.perf_counter() - t_start:.1f} s")
     print(f"device_ms: profiler sessions run again for lost device records (event counts; queued_ms where "
           f"none was whole): {json.dumps(REPEATS)}")
     print(ident)

@@ -11,7 +11,7 @@ import torch
 from video_prediction_torch import generate
 from video_prediction_torch.configs.hparams import DatasetHparams, resolve_model_hparams, zoo_dir
 from video_prediction_torch.models import get_model_class
-from video_prediction_torch.train.checkpoint import PARAMS_FILE, load_params, write_run_dir
+from video_prediction_torch.train.checkpoint import PARAMS_FILE, checkpoint_file, load_params, write_run_dir
 
 torch.set_num_threads(1)
 
@@ -49,7 +49,7 @@ def test_run_dir_round_trip(tmp_path):
     run_dir, model = _run_dir(tmp_path)
     with open(os.path.join(run_dir, "options.json")) as f:
         assert json.load(f) == {"model": "savp", "dataset": "synthetic", "seed": 0}
-    assert os.path.exists(os.path.join(run_dir, PARAMS_FILE))
+    assert os.path.exists(checkpoint_file(run_dir, PARAMS_FILE))
     clone = get_model_class("savp")(model.hparams, image_shape=(64, 64, 3), action_dim=4)
     load_params(run_dir, clone)
     for (k, a), (_, b) in zip(model.state_dict().items(), clone.state_dict().items()):
@@ -58,7 +58,7 @@ def test_run_dir_round_trip(tmp_path):
 
 def test_missing_params_raise(tmp_path):
     run_dir, model = _run_dir(tmp_path)
-    os.remove(os.path.join(run_dir, PARAMS_FILE))
+    os.remove(checkpoint_file(run_dir, PARAMS_FILE))
     with pytest.raises(FileNotFoundError, match="params"):
         load_params(run_dir, model)
 

@@ -42,8 +42,10 @@ from video_prediction_torch.models import get_model_class, input_dims
 from video_prediction_torch.train import schedules
 from video_prediction_torch.train.__main__ import main as train_main
 from video_prediction_torch.train.checkpoint import (
+    CHECKPOINT_DIR,
     PARAMS_FILE,
     TRAIN_STATE_FILE,
+    checkpoint_file,
     load_params,
     load_train_state,
     save_train_state,
@@ -379,7 +381,7 @@ def test_train_resumes_a_converted_run(entry_dir, tmp_path, capsys):
     assert s["lr"] == schedules.learning_rate(3, hp)
     assert s["schedule_sampling_prob"] == schedules.ground_truth_prob(3, hp)
     assert s["kl_weight"] == hp.kl_weight * schedules.kl_weight(3, hp)
-    state = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    state = torch.load(checkpoint_file(run, TRAIN_STATE_FILE), weights_only=True)
     for opt in ("opt_g", "opt_d"):
         assert {float(slots["step"]) for slots in state[opt]["state"].values()} == {4.0}
 
@@ -389,7 +391,7 @@ def test_train_warm_starts_from_a_converted_run(entry_dir, tmp_path):
                       str(entry_dir / "model_hparams.json"), "--output_dir", str(tmp_path / "warm"), "--checkpoint",
                       str(entry_dir), "--device", "cpu", "--max_steps", "1", "--no_tensorboard"])
     assert out["start_step"] == 0 and out["step"] == 1 and out["all_finite"]
-    saved = torch.load(entry_dir / PARAMS_FILE, weights_only=True)
+    saved = torch.load(checkpoint_file(entry_dir, PARAMS_FILE), weights_only=True)
     assert sorted(out["warm_started"]) == sorted(k for k in saved if not k.endswith(".u"))
 
 
@@ -411,8 +413,8 @@ def test_train_state_with_adam_slots_by_position_still_resumes(jax_side, tmp_pat
            "opt_d": ts.opt_d.state_dict(), "rng": ts.rng.get_state()}
     assert all(isinstance(i, int) for i in old["opt_g"]["state"])
     old_dir = tmp_path / "old"
-    (old_dir / "checkpoints").mkdir(parents=True)
-    torch.save(old, old_dir / TRAIN_STATE_FILE)
+    (old_dir / CHECKPOINT_DIR).mkdir(parents=True)
+    torch.save(old, old_dir / CHECKPOINT_DIR / TRAIN_STATE_FILE)  # and the flat layout before step directories
     fresh = create_train_state(_run_dir_model(port, run["batches"][0]), 5, "cpu")
     load_train_state(str(old_dir), fresh)
     assert fresh.step == fx.SAVED_STEP
@@ -425,7 +427,7 @@ def test_train_state_with_adam_slots_by_position_still_resumes(jax_side, tmp_pat
     assert {k: float(v) for k, v in a.items()} == {k: float(v) for k, v in b.items()}
     # and the port's own writer now keys the slots by name
     save_train_state(str(tmp_path / "new"), fresh)
-    new = torch.load(tmp_path / "new" / TRAIN_STATE_FILE, weights_only=True)
+    new = torch.load(checkpoint_file(tmp_path / "new", TRAIN_STATE_FILE), weights_only=True)
     assert sorted(new["opt_g"]["state"]) == sorted(optimizer_param_names(fresh.model, fresh.opt_g))
 
 
@@ -433,7 +435,7 @@ def test_load_optimizer_refuses_another_model(jax_side, tmp_path):
     run = jax_side.runs["ours_savp"]
     port = tmp_path / "port"
     convert_run(str(run["export"]), str(port))
-    saved = torch.load(port / TRAIN_STATE_FILE, weights_only=True)
+    saved = torch.load(checkpoint_file(port, TRAIN_STATE_FILE), weights_only=True)
     model = _run_dir_model(port, run["batches"][0])
     opt_g, _ = make_optimizers(model)
     names = optimizer_param_names(model, opt_g)

@@ -258,22 +258,86 @@ def test_multistep_refuses_gloo_on_cuda(one_rank_group):
 
 
 def test_data_parallel_refuses_exact_schedule_sampling(monkeypatch, one_rank_group):
-    """``schedule_sampling_exact`` counts ground-truth samples over the whole
-    batch, which no rank sees: a step over more than one rank raises."""
+    """``schedule_sampling_exact`` counts round(p * B) ground-truth samples a
+    timestep over the whole batch, which no rank sees: a data-parallel step
+    refuses to count them per rank. Each rank's mask is its columns of the
+    global batch's (``_rank_noise`` ranks the global uniforms before it
+    slices them), at one step and K a call, and a rank's own count would
+    differ: two of two samples at p = 2/3 where the global batch takes one."""
+    from video_prediction_torch.train import schedules
+    from video_prediction_torch.train.step import _rank_noise
+
     model = _port_model(schedule_sampling_exact=True)
-    make_train_step(model, group=one_rank_group)  # one rank sees the whole batch
+    hp = model.hparams
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
     for k in (1, K):
-        with pytest.raises(ValueError, match="schedule_sampling_exact"):
-            make_train_step(model, k, group=one_rank_group)
+        make_train_step(model, k, group=one_rank_group)  # builds: no refusal at any world size
+    ts = TrainState(model, None, None, 0, torch.Generator().manual_seed(3))
+    images = torch.zeros(1, 6, 32, 32, 3)
+    for step in (0, 1, 4):
+        noise = model.draw_noise(2, 6, torch.Generator().manual_seed(step))
+        whole = schedules.sample_use_gt_mask(2, 6, hp, True, step=step, uniforms=noise["use_gt_u"])
+        masks, own = [], []
+        for rank in range(2):
+            monkeypatch.setattr(dist, "get_rank", lambda group=None, r=rank: r)
+            mine = _rank_noise(ts, images, noise, one_rank_group)
+            masks.append(schedules.sample_use_gt_mask(1, 6, hp, True, step=step, uniforms=mine["use_gt_u"],
+                                                      ranks=mine["use_gt_rank"], total=mine["use_gt_batch"]))
+            own.append(schedules.sample_use_gt_mask(1, 6, hp, True, step=step, uniforms=mine["use_gt_u"]))
+        assert torch.equal(torch.cat(masks, dim=1), whole), step
+        assert int(whole[hp.context_frames:].sum()) == (hp.sequence_length - 1 - hp.context_frames) * round(
+            schedules.ground_truth_prob(step, hp) * 2)
+        if step == 0:
+            assert not torch.equal(torch.cat(own, dim=1), whole)
 
 
 # ---------------------------------------------------------------------------
 # two ranks against one process and against JAX
 # ---------------------------------------------------------------------------
 
+# schedule_sampling_exact, in a worker and in this process (no jax in it)
+EXACT = textwrap.dedent(
+    """
+    def exact_runs(job, group, rank):
+        \"\"\"``schedule_sampling_exact``: two single steps and one call of
+        ``MultiStep(k)`` from ``job["exact_model"]`` on the job's batches and
+        noise (this rank's rows of 2 under ``group``), each step's scalars, and
+        each single step's mask as the model takes it (this rank's columns).\"\"\"
+        import copy
+        import torch
+        from video_prediction_torch.parallel.mesh import shard_batch
+        from video_prediction_torch.train import schedules
+        from video_prediction_torch.train.state import TrainState, make_optimizers
+        from video_prediction_torch.train.step import _rank_noise, make_train_step
+
+        world = 1 if group is None else 2
+        m = copy.deepcopy(job["exact_model"])
+        ts = TrainState(m, *make_optimizers(m), 0, torch.Generator())
+        step = make_train_step(m, group=group)
+        out = {"steps": [], "masks": []}
+        for batch, noise in zip(job["batches"][:2], job["noises"]):
+            batch = shard_batch(batch, rank, world)
+            mine = noise if group is None else _rank_noise(ts, batch["images"], noise, group)
+            b, t = batch["images"].shape[:2]
+            out["masks"].append(schedules.sample_use_gt_mask(
+                b, t, m.hparams, True, step=ts.step, uniforms=mine["use_gt_u"], ranks=mine.get("use_gt_rank"),
+                total=mine.get("use_gt_batch")))
+            out["steps"].append({k: float(v) for k, v in step(ts, batch, noise).items()})
+        k = job["k"]
+        m = copy.deepcopy(job["exact_model"])
+        ts = TrainState(m, *make_optimizers(m, k), 0, torch.Generator())
+        multi = make_train_step(m, k, group=group)
+        stack = {key: torch.stack([b[key] for b in job["batches"][:k]]) for key in job["batches"][0]}
+        multi(ts, shard_batch(stack, rank, world, stacked=True), job["noises"][:k])
+        out["multi"] = multi.scalars_by_step.clone()
+        return out
+    """
+)
+_exact = {}
+exec(EXACT, _exact)
+
 # one rank of the 2-rank runs; argv: the job directory, the rank
-WORKER = textwrap.dedent(
+WORKER = EXACT + textwrap.dedent(
     """
     import copy, sys
     import torch
@@ -311,6 +375,7 @@ WORKER = textwrap.dedent(
             step(ts, shard_batch(stack, rank, 2, stacked=True), job["noises"][c * k:(c + 1) * k])
             out["multi"].append(step.scalars_by_step.clone())
         out["multi_state"] = copy.deepcopy(m.state_dict())
+        out["exact"] = exact_runs(job, group, rank)
         _, metrics = make_eval_step(m, group)(shard_batch(job["batches"][0], rank, 2),
                                               zs_prior=shard_batch({"z": job["zs_prior"]}, rank, 2)["z"])
         out["metrics"] = {k: v.clone() for k, v in metrics.items() if v.ndim == 0}
@@ -417,10 +482,15 @@ def runs(tmp_path_factory):
     one["multi_state"] = copy.deepcopy(m.state_dict())
     _, metrics = make_eval_step(m)(batches[0], zs_prior=zs_prior)
     one["metrics"] = {k: v for k, v in metrics.items() if v.ndim == 0}
+    exact_model = t_get_model_class("savp")(_port_hparams(schedule_sampling_exact=True), image_shape=(32, 32, 3),
+                                            action_dim=4)
+    exact_model.load_state_dict(model.state_dict())
+    job = {"model": model, "exact_model": exact_model, "batches": batches, "noises": noises, "steps": STEPS, "k": K,
+           "zs_prior": zs_prior}
+    one["exact"] = _exact["exact_runs"](job, None, 0)
 
     path = tmp_path_factory.mktemp("parallel")
-    torch.save({"model": model, "batches": batches, "noises": noises, "steps": STEPS, "k": K, "zs_prior": zs_prior},
-               path / "job.pt")
+    torch.save(job, path / "job.pt")
     spawn(WORKER, path)
     ranks = [torch.load(path / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
     return {"trajectory": trajectory, "one": one, "ranks": ranks, "lr": th.lr}
@@ -493,3 +563,19 @@ def test_eval_metrics_are_the_global_means(runs):
         assert sorted(r["metrics"]) == sorted(want)
         for k, v in want.items():
             np.testing.assert_allclose(float(r["metrics"][k]), float(v), rtol=LOSS_RTOL, err_msg=k)
+
+
+def test_two_rank_exact_schedule_sampling_equals_one_process(runs):
+    """``schedule_sampling_exact`` at 2 ranks (one sample each of the global
+    2): the ranks' masks side by side are one process's mask, which takes
+    round(p * 2) = 1 ground-truth sample a timestep at steps 0 and 1 where a
+    rank counting alone takes its own, 2 of 2; every step's loss terms,
+    single and ``MultiStep(3)``, within 1e-5 of one process's."""
+    one = runs["one"]["exact"]
+    ranks = [r["exact"] for r in runs["ranks"]]
+    for i, want in enumerate(one["masks"]):
+        assert torch.equal(torch.cat([r["masks"][i] for r in ranks], dim=1), want), i
+        assert int(want[2:].sum()) == want.shape[0] - 2, i  # one of two after the 2 context frames
+    for r in ranks:
+        _assert_steps_close(r["steps"], one["steps"])
+        np.testing.assert_allclose(r["multi"].numpy(), one["multi"].numpy(), rtol=LOSS_RTOL, atol=1e-7)

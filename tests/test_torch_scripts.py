@@ -126,6 +126,38 @@ def test_convergence_rehearses_on_the_cpu_and_repeat_scores_as_in_jax(tmp_path):
     assert round(psnr, 2) == 14.83 and round(ssim, 3) == 0.662
 
 
+def test_convergence_stage_b_rehearses_legs_a_kill_and_the_curves_on_the_cpu(tmp_path):
+    """``STAGE=b convergence.sh`` at a small width on the CPU: legs stopped at
+    step 4 and 12 (``--steps_per_call 4``, ``--save_freq 4``), each evaluated;
+    the leg past step 8 killed with SIGKILL once step 8 is kept and resumed
+    from the newest kept step; the run keeps three steps; the curves read
+    from the event files every 4 steps, and d_loss before the crossover."""
+    from video_prediction_torch.train.checkpoint import kept_steps
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    python = bin_dir / "python"
+    python.write_text(f'#!/usr/bin/env bash\nexec "{sys.executable}" "$@"\n')
+    python.chmod(0o755)
+    env = {**_env(bin_dir), "STAGE": "b", "STEPS": "12", "STOPS": "4", "SAVE_FREQ": "4", "KILL_AFTER": "8",
+           "KILL_DELAY": "0", "SUMMARY_FREQ": "4", "DEVICE": "cpu", "BATCH": "2",
+           "MODEL_HPARAMS": "ngf=4,nef=8,ndf=4,nz=4"}
+    proc = subprocess.run(["bash", str(PORT_SCRIPTS / "convergence.sh"), str(tmp_path / "runs"), "7"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=TIMEOUT)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    found = re.findall(r"^convergence (\w+): psnr_max (\S+) ssim_max (\S+)$", proc.stdout, re.M)
+    lines = {name: (float(p), float(q)) for name, p, q in found}
+    assert sorted(lines) == ["b_seed7_step12", "b_seed7_step4", "repeat"] and np.isfinite(list(lines.values())).all()
+    assert re.search(r"^convergence b_seed7: killed with SIGKILL 0 s after step 8 was kept; resuming from step "
+                     r"(8|12)$", proc.stdout, re.M), proc.stdout
+    assert "convergence b_seed7: trained to step 12" in proc.stdout
+    assert kept_steps(str(tmp_path / "runs" / "b_seed7")) == [4, 8, 12]
+    curve_steps = [int(n) for n in re.findall(r"^curve step (\d+): g_loss=\S+ d_loss=\S+", proc.stdout, re.M)]
+    assert curve_steps == [4, 8, 12], proc.stdout
+    assert re.search(r"^curve d_loss before the crossover \(step None\): mean \S+ over \d+ summaries", proc.stdout,
+                     re.M)
+
+
 @pytest.mark.parametrize("script", ["train_all.sh", "evaluate_all.sh", "convergence.sh"])
 def test_the_drivers_are_executable_and_parse(script):
     path = PORT_SCRIPTS / script

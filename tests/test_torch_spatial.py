@@ -23,6 +23,7 @@ scales, an 8-row bottleneck, 4 rows a shard at k = 2), ngf=4, nef=8, nz=4,
 import concurrent.futures
 import copy
 import json
+import os
 import textwrap
 
 import jax
@@ -177,15 +178,35 @@ def test_spatial_mesh_in_one_process():
 
 def test_exact_schedule_sampling_needs_a_data_size_of_one(one_rank_group):
     """``schedule_sampling_exact`` counts ground-truth samples over the whole
-    batch: a spatial group sees all of its data coordinate's samples, so
-    dp1 x sp2 takes it and dp2 x sp2 refuses it; a spatial mesh without the
-    group it divides is refused."""
+    batch, which needs no data size of one: at dp1 x sp2 a spatial group sees
+    all of its samples, and at dp2 x sp2 each data coordinate's mask is its
+    columns of the global batch's, alike on the ranks of its spatial group
+    (``_rank_noise`` ranks the global uniforms), so both take it; a spatial
+    mesh without the group it divides is refused."""
+    from video_prediction_torch.train import schedules
+    from video_prediction_torch.train.step import _rank_noise
+
     model = _model(_port_hparams(schedule_sampling_exact=True), {k: torch.from_numpy(v) for k, v in
                                                                  _host_batch()[0].items()})
     for k in (1, MULTI_K):
         make_train_step(model, k, group=one_rank_group, spatial=SpatialMesh(2, 0, 0, 1, None))
-        with pytest.raises(ValueError, match="schedule_sampling_exact"):
-            make_train_step(model, k, group=one_rank_group, spatial=SpatialMesh(2, 0, 1, 2, None))
+        make_train_step(model, k, group=one_rank_group, spatial=SpatialMesh(2, 0, 1, 2, None))
+    hp = model.hparams
+    t = hp.sequence_length
+    ts = TrainState(model, None, None, 0, torch.Generator())
+    noise = model.draw_noise(4, t, torch.Generator().manual_seed(1))
+    whole = schedules.sample_use_gt_mask(4, t, hp, True, step=0, uniforms=noise["use_gt_u"])
+    columns = []
+    for data_rank in range(2):
+        masks = []
+        for coord in range(2):
+            mine = _rank_noise(ts, torch.zeros(2, t, 16, 32, 3), noise, one_rank_group,
+                               SpatialMesh(2, coord, data_rank, 2, None))
+            masks.append(schedules.sample_use_gt_mask(2, t, hp, True, step=0, uniforms=mine["use_gt_u"],
+                                                      ranks=mine["use_gt_rank"], total=mine["use_gt_batch"]))
+        assert torch.equal(masks[0], masks[1])
+        columns.append(masks[0])
+    assert torch.equal(torch.cat(columns, dim=1), whole)
     with pytest.raises(ValueError, match="needs the process group"):
         make_train_step(model, spatial=SpatialMesh(2, 0, 0, 1, None))
 
@@ -742,7 +763,7 @@ def test_cli_trains_resumes_and_writes_from_rank_0_at_two_shards(tmp_path):
     with the summaries, a gathered GIF and an eval firing, then ``--resume``
     to 3; both ranks log the axes and end with the same scalars; rank 0's
     checkpoint and event files."""
-    from video_prediction_torch.train.checkpoint import PARAMS_FILE
+    from video_prediction_torch.train.checkpoint import PARAMS_FILE, TRAIN_STATE_FILE, checkpoint_file
     from video_prediction_torch.utils.summary import read_events
 
     run = tmp_path / "run"
@@ -755,8 +776,8 @@ def test_cli_trains_resumes_and_writes_from_rank_0_at_two_shards(tmp_path):
     assert "resumed from step 2" in resumed["log"] and "eval/psnr" in first["summary"]["summaries"]
     assert first["summary"]["all_finite"] and resumed["summary"]["all_finite"]
     assert ranks[1][0]["log"] == "" and ranks[1][1]["summary"]["scalars"] == resumed["summary"]["scalars"]
-    assert torch.load(run / "checkpoints" / "train_state.pt", weights_only=True)["step"] == 3
-    assert (run / PARAMS_FILE).is_file()
+    assert torch.load(checkpoint_file(run, TRAIN_STATE_FILE), weights_only=True)["step"] == 3
+    assert os.path.isfile(checkpoint_file(run, PARAMS_FILE))
     tags = {}
     for path in sorted(run.glob("events.out.tfevents.*")):
         for event in read_events(str(path)):

@@ -26,8 +26,10 @@ from video_prediction_torch.data.synthetic import SyntheticVideoDataset
 from video_prediction_torch.models import get_model_class
 from video_prediction_torch.train.__main__ import main as train_main
 from video_prediction_torch.train.checkpoint import (
+    CHECKPOINT_DIR,
     PARAMS_FILE,
     TRAIN_STATE_FILE,
+    checkpoint_file,
     load_params,
     load_train_state,
     save_train_state,
@@ -102,10 +104,10 @@ def test_resume_equals_an_unbroken_run(runs):
     assert resumed["scalars"] == {k: float(v) for k, v in scalars.items()}
     state = root / "by_hand"
     save_train_state(str(state), ts)
-    a = torch.load(root / "resumed" / TRAIN_STATE_FILE, weights_only=True)
-    _assert_same_state(a, torch.load(state / TRAIN_STATE_FILE, weights_only=True))
+    a = torch.load(checkpoint_file(root / "resumed", TRAIN_STATE_FILE), weights_only=True)
+    _assert_same_state(a, torch.load(checkpoint_file(state, TRAIN_STATE_FILE), weights_only=True))
     # the unbroken run trained step 3 on the stream's third batch: another state
-    b = torch.load(root / "whole" / TRAIN_STATE_FILE, weights_only=True)
+    b = torch.load(checkpoint_file(root / "whole", TRAIN_STATE_FILE), weights_only=True)
     assert a["step"] == b["step"] == 3 and torch.equal(a["rng"], b["rng"])
     assert any(not torch.equal(a["model"][k], b["model"][k]) for k in b["model"])
 
@@ -118,7 +120,7 @@ def test_losses_reported_and_spectral_u_moved(runs):
     }
     init = _model(root / "whole")
     init.init_weights(torch.Generator().manual_seed(SEED))  # what the run started from
-    trained = torch.load(root / "whole" / PARAMS_FILE, weights_only=True)
+    trained = torch.load(checkpoint_file(root / "whole", PARAMS_FILE), weights_only=True)
     for key in ("video", "video_vae"):
         for layer in ("sn_conv3d0", "sn_conv3d5"):  # sn_fc has one output: its u is 1
             name = f"discriminator.{key}.{layer}.u"
@@ -133,8 +135,8 @@ def test_generate_reads_the_training_run_dir(runs, tmp_path):
 
 
 def test_params_without_discriminators_load_for_generation(runs, tmp_path):
-    state = torch.load(runs[0] / "whole" / PARAMS_FILE, weights_only=True)
-    old = tmp_path / PARAMS_FILE
+    state = torch.load(checkpoint_file(runs[0] / "whole", PARAMS_FILE), weights_only=True)
+    old = tmp_path / CHECKPOINT_DIR / PARAMS_FILE  # the flat layout of a run directory written before steps
     old.parent.mkdir(parents=True)
     torch.save({k: v for k, v in state.items() if not k.startswith("discriminator.")}, old)
     model = _model(runs[0] / "whole")
@@ -236,7 +238,7 @@ def test_dna_on_bair_records_with_states_then_evaluate(bair_dirs, tmp_path):
                           "--accum_eval_summary_freq", "0", "--seed", str(SEED)])
     assert summary["step"] == 2 and summary["all_finite"]
     assert {"g/l2", "g/state"} <= set(summary["scalars"])
-    params = torch.load(run / PARAMS_FILE, weights_only=True)
+    params = torch.load(checkpoint_file(run, PARAMS_FILE), weights_only=True)
     assert params["generator.cell.stem.weight"].shape[1] == 3 + 4 + 3
     assert "generator.cell.dna_head.weight" in params and "generator.cell.state_head.weight" in params
     out = evaluate.main(["--checkpoint", str(run), "--input_dir", val_dir, "--results_dir", str(tmp_path / "eval"),
@@ -272,7 +274,7 @@ def test_checkpoint_warm_starts_matching_params(tmp_path):
     assert train_main(argv + ["--output_dir", str(tmp_path / "fresh")])["warm_started"] == []
 
     # the values: each copied tensor is the source's, every other keeps its init
-    source = torch.load(savp_run / PARAMS_FILE, weights_only=True)
+    source = torch.load(checkpoint_file(savp_run, PARAMS_FILE), weights_only=True)
     with open(sna_run / "model_hparams.json") as f:
         hp = apply_overrides(ModelHparams(), json.load(f))
     model = get_model_class("sna")(hp, image_shape=(64, 64, 3), action_dim=4, state_dim=3)
@@ -326,7 +328,7 @@ def test_steps_per_call_fires_on_crossings_overshoots_and_resumes(tmp_path, monk
 
     def record(run_dir, ts):
         saved.append(ts.step)
-        save(run_dir, ts)
+        return save(run_dir, ts)
 
     monkeypatch.setattr(checkpoint, "save_train_state", record)
     run = tmp_path / "spc"
@@ -340,7 +342,7 @@ def test_steps_per_call_fires_on_crossings_overshoots_and_resumes(tmp_path, monk
     assert "resumed from step 6" in capsys.readouterr().out
     assert (resumed["start_step"], resumed["step"]) == (6, 8) and resumed["all_finite"]
     assert saved == [4, 6, 8, 8]
-    state = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    state = torch.load(checkpoint_file(run, TRAIN_STATE_FILE), weights_only=True)
     assert state["step"] == 8
     assert all(int(slots["step"]) == 8 for slots in state["opt_g"]["state"].values())
 
@@ -354,7 +356,7 @@ def test_a_run_of_one_step_a_call_resumes_with_two(tmp_path):
     assert first["step"] == 2
     resumed = train_main(_spc_argv(run, 4, 2) + ["--resume"])
     assert (resumed["start_step"], resumed["step"]) == (2, 4) and resumed["all_finite"]
-    state = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    state = torch.load(checkpoint_file(run, TRAIN_STATE_FILE), weights_only=True)
     for opt in ("opt_g", "opt_d"):
         assert all(int(slots["step"]) == 4 for slots in state[opt]["state"].values())
         assert torch.is_tensor(state[opt]["param_groups"][0]["lr"])
@@ -405,7 +407,7 @@ CLI_WORKER = textwrap.dedent(
 
     def spy_state(run_dir, ts):
         states.append({k: v.detach().clone() for k, v in ts.model.state_dict().items()})
-        real_state(run_dir, ts)
+        return real_state(run_dir, ts)
 
     builtins.open, torch.save = spy_open, spy_save
     data.get_dataset_class, checkpoint.save_train_state = spy_get, spy_state
@@ -450,13 +452,15 @@ def test_two_ranks_write_from_rank_0_seed_their_streams_and_resume_across_world_
     assert "eval/psnr" in ranks[0]["summary"]["summaries"]
     assert not [p for p in ranks[1]["written"] if p.startswith(str(run))], ranks[1]["written"]
     names = {os.path.basename(p) for p in ranks[0]["written"]}
-    assert {"options.json", "model_hparams.json", "dataset_hparams.json", "train_state.pt.tmp",
-            "params.pt.tmp"} <= names, names
+    assert {"options.json", "model_hparams.json", "dataset_hparams.json", TRAIN_STATE_FILE, PARAMS_FILE} <= names, names
+    # each checkpoint file into a step's .tmp directory, renamed into place when whole
+    assert {os.path.basename(os.path.dirname(p)) for p in ranks[0]["written"]
+            if os.path.basename(p) in (TRAIN_STATE_FILE, PARAMS_FILE)} == {"4.tmp"}, ranks[0]["written"]
     events = sorted(run.glob("events.out.tfevents.*"))
     assert len(events) == len(events_before) + 1
     for k, v in ranks[0]["state"].items():
         assert torch.equal(v, ranks[1]["state"][k]), k
-    saved = torch.load(run / TRAIN_STATE_FILE, weights_only=True)
+    saved = torch.load(checkpoint_file(run, TRAIN_STATE_FILE), weights_only=True)
     assert saved["step"] == 4
     for k, v in ranks[0]["state"].items():
         assert torch.equal(saved["model"][k], v), k

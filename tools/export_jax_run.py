@@ -3,10 +3,13 @@
 
     python tools/export_jax_run.py RUN_DIR EXPORT_DIR [--step N]
 
-Runs where the JAX package runs (the TPU host, say). Reads the orbax train
-state of step N (default: the latest) in ``RUN_DIR/checkpoints`` with the JAX
-package's own reader, ``train/checkpoint.py#CheckpointManager.restore_dict``,
-and writes ``EXPORT_DIR``: the run's ``options.json``, ``model_hparams.json``
+Runs where jax and orbax run (the TPU host, say). Reads the orbax train
+state of step N (default: the latest) in ``RUN_DIR/checkpoints``, as the JAX
+package's ``train/checkpoint.py#CheckpointManager.restore_dict`` reads it
+(orbax's own reader, no template), but each array as a host numpy array:
+``restore_dict`` places each array as the mesh that saved it did, which a
+host without those devices refuses (a run trained on 8 devices, exported on
+one). It writes ``EXPORT_DIR``: the run's ``options.json``, ``model_hparams.json``
 and ``dataset_hparams.json`` as they are, and ``jax_train_state.npz``, every
 leaf of the restored tree under its ``/``-joined path, list positions as
 integers (``params/generator/...``, ``model_state/spectral/...``,
@@ -60,20 +63,31 @@ def checkpoint_steps(run_dir: str) -> list:
     return sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
 
 
+def restore_numpy(ckpt_dir: str, step: int) -> Any:
+    """The train state of ``step`` in the orbax directory ``ckpt_dir``, without
+    a template (an optax chain as a list), every array a numpy array on the
+    host, whatever devices or mesh wrote it."""
+    import jax
+    import orbax.checkpoint as ocp
+
+    mgr = ocp.CheckpointManager(os.path.abspath(ckpt_dir), item_handlers=ocp.PyTreeCheckpointHandler())
+    try:
+        meta = mgr.item_metadata(step)
+        meta = getattr(meta, "tree", meta)
+        args = jax.tree_util.tree_map(lambda _: ocp.RestoreArgs(restore_type=np.ndarray), meta)
+        return mgr.restore(step, args=ocp.args.PyTreeRestore(restore_args=args))
+    finally:
+        mgr.close()
+
+
 def export_run(run_dir: str, export_dir: str, step: Optional[int] = None) -> int:
     """Write ``export_dir`` from step ``step`` (default: the latest) of the
     JAX run directory ``run_dir``; returns the step."""
-    from video_prediction_tpu.train.checkpoint import CheckpointManager
-
     steps = checkpoint_steps(run_dir)
     step = steps[-1] if step is None and steps else step
     if step not in steps:
         raise FileNotFoundError(f"no checkpoint of step {step} in {run_dir}/checkpoints (steps: {steps})")
-    mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"))
-    try:
-        flat = flatten(mgr.restore_dict(step))
-    finally:
-        mgr.close()
+    flat = flatten(restore_numpy(os.path.join(run_dir, "checkpoints"), step))
     os.makedirs(export_dir, exist_ok=True)
     for name in RUN_FILES:
         shutil.copyfile(os.path.join(run_dir, name), os.path.join(export_dir, name))

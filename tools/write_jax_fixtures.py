@@ -17,7 +17,9 @@ Runs the JAX package on the CPU and writes:
   compiled).
 
 ``tests/test_torch_jax_run.py`` builds the same run and the same shapes
-afresh with these functions and holds the files to them.
+afresh with these functions and holds the files to them. ``mesh_run``, the
+small run trained and saved on a device mesh, writes no file here:
+``tests/test_torch_jax_mesh_run.py`` runs it where jax is.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ SMALL = dict(ngf=4, nef=8, ndf=4, nz=4, sequence_length=6, clip_length=4, kl_ann
 SMALL_SIZE = 32
 SAVED_STEP = 3  # the run's checkpoint; then steps 3 and 4 (0-based) on
 RUN_STEPS = 5
+MESH_BATCH = 4  # mesh_run's global batch: mesh_for_batch(4, spatial=2) on 8 devices is data 4 x spatial 2
+MESH_SAVED_STEPS = (2, SAVED_STEP)  # mesh_run's checkpoints
 SEED = 0
 # full width: (zoo directory, zoo file, model, extra hparams, the dataset the run trains on);
 # chip_smoke.py's OBJECTIVES on bair/ours_savp
@@ -123,6 +127,18 @@ def step_noise(rng, step: int, hp, b: int, t: int) -> Dict[str, np.ndarray]:
     }
 
 
+def _perturbed_state(model, batch: Dict[str, np.ndarray]):
+    """``create_train_state`` from ``SEED`` with each leaf of the params moved
+    off its init value (a numpy seed)."""
+    ts = create_train_state(model, jax.random.PRNGKey(SEED), {k: jnp.asarray(v) for k, v in batch.items()})
+    rs = np.random.RandomState(0)
+    return ts.replace(params=jax.tree_util.tree_map(
+        lambda a: jnp.asarray(np.asarray(a) * (1.0 + 0.2 * rs.randn(*a.shape)).astype(np.float32)
+                              + 0.05 * rs.randn(*a.shape).astype(np.float32)),
+        ts.params,
+    ))
+
+
 def small_run(config: str, run_dir: str) -> Dict[str, Any]:
     """A JAX run directory of ``config`` at ``SMALL`` in ``run_dir``: the
     weights of ``create_train_state`` from ``SEED``, each leaf moved off its
@@ -133,13 +149,7 @@ def small_run(config: str, run_dir: str) -> Dict[str, Any]:
     model_name, hp = small_hparams(config)
     model = get_model_class(model_name)(hp, mode="train")
     batches = small_batches()
-    ts = create_train_state(model, jax.random.PRNGKey(SEED), {k: jnp.asarray(v) for k, v in batches[0].items()})
-    rs = np.random.RandomState(0)
-    ts = ts.replace(params=jax.tree_util.tree_map(
-        lambda a: jnp.asarray(np.asarray(a) * (1.0 + 0.2 * rs.randn(*a.shape)).astype(np.float32)
-                              + 0.05 * rs.randn(*a.shape).astype(np.float32)),
-        ts.params,
-    ))
+    ts = _perturbed_state(model, batches[0])
     write_options(run_dir, model_name, "synthetic", hp, dataset_hparams("synthetic", hp))
     step = make_train_step(model, donate=False)
     losses = []
@@ -151,6 +161,45 @@ def small_run(config: str, run_dir: str) -> Dict[str, Any]:
     b, t = batches[0]["images"].shape[:2]
     return {"batches": batches, "losses": losses, "noise": [step_noise(ts.rng, i, hp, b, t) for i in range(RUN_STEPS)],
             "final": flatten(saveable(ts)), "hparams": hp, "model": model_name}
+
+
+def mesh_run(config: str, run_dir: str) -> Dict[str, Any]:
+    """``small_run`` on a device mesh: the weights of ``small_run``, then
+    ``RUN_STEPS`` train steps at the global batch ``MESH_BATCH`` through
+    ``make_train_step(model, mesh=mesh_for_batch(MESH_BATCH, spatial=2))``
+    (data 4 x spatial 2 on 8 devices: the batch sharded over the data axis,
+    image height over the spatial one, the state replicated), the orbax
+    checkpoint written by one ``CheckpointManager`` at each of
+    ``MESH_SAVED_STEPS``. Returns ``small_run``'s fields, and ``saved``: the
+    state at each saved step, flat by the exporter's paths."""
+    from video_prediction_tpu.parallel.mesh import mesh_for_batch, shard_batch
+
+    model_name, hp = small_hparams(config)
+    hp = hp.replace(batch_size=MESH_BATCH)
+    model = get_model_class(model_name)(hp, mode="train")
+    it = SyntheticVideoDataset(mode="train", seed=0, image_size=SMALL_SIZE).make_iterator(MESH_BATCH)
+    t = SMALL["sequence_length"]
+    batches = [{k: v[:, :t] for k, v in next(it).items() if k in ("images", "actions")} for _ in range(RUN_STEPS)]
+    ts = _perturbed_state(model, batches[0])
+    write_options(run_dir, model_name, "synthetic", hp, dataset_hparams("synthetic", hp))
+    mesh = mesh_for_batch(MESH_BATCH, spatial=2)
+    step = make_train_step(model, mesh=mesh, donate=False)
+    mgr = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    losses, saved = [], {}
+    try:
+        for i, batch in enumerate(batches):
+            if i in MESH_SAVED_STEPS:
+                assert mgr.save(ts)
+                saved[i] = flatten(saveable(ts))
+            ts, scalars = step(ts, shard_batch({k: jnp.asarray(v) for k, v in batch.items()}, mesh))
+            losses.append((float(scalars["g_loss"]), float(scalars["d_loss"])))
+        mgr.wait()
+    finally:
+        mgr.close()
+    b = batches[0]["images"].shape[0]
+    return {"batches": batches, "losses": losses, "noise": [step_noise(ts.rng, i, hp, b, t) for i in range(RUN_STEPS)],
+            "final": flatten(saveable(ts)), "saved": saved, "hparams": hp, "model": model_name,
+            "mesh": dict(mesh.shape)}
 
 
 def steps_arrays(run: Dict[str, Any]) -> Dict[str, np.ndarray]:

@@ -52,8 +52,9 @@ where torch is::
     python -m video_prediction_torch.convert EXPORT_DIR --output_dir PORT_RUN_DIR
 
 writes a run directory of the port (``train/checkpoint.py``): the three
-JSON files as they are, ``checkpoints/params.pt`` and
-``checkpoints/train_state.pt``, which ``generate``, ``evaluate`` and the
+JSON files as they are, and the exported step's checkpoint,
+``checkpoints/<step>/params.pt`` and ``train_state.pt``, which
+``generate``, ``evaluate`` and the
 train CLI's ``--resume`` and ``--checkpoint`` read. ``train_state_from_jax``
 does the mapping: the params and the spectral ``u`` as above; each optax
 chain ``[scale_by_adam {count, mu, nu}, scale_by_schedule {count}]`` becomes
@@ -185,7 +186,7 @@ def _adam(name: str, tree: Mapping[str, Any], step: int, params: Mapping[str, to
 def train_state_from_jax(flat: Mapping[str, np.ndarray], seed: int) -> Tuple[Dict[str, torch.Tensor], dict]:
     """A JAX train state, flat by ``/``-joined path as the exporter writes
     it, as the port's ``(state_dict, train_state)``: ``state_dict`` the
-    model's (``checkpoints/params.pt``), ``train_state`` what
+    model's (the params file), ``train_state`` what
     ``train/checkpoint.py#save_train_state`` writes, with the generator's
     state the seed ``seed + 1``. Raises on a leaf it does not place, a
     ``model_state`` other than ``spectral``, an Adam moment without its
@@ -224,12 +225,13 @@ def train_state_from_jax(flat: Mapping[str, np.ndarray], seed: int) -> Tuple[Dic
 
 def convert_run(export_dir: str, output_dir: str) -> dict:
     """Write the port run directory ``output_dir`` from the export directory
-    ``export_dir`` (the module docstring). The JSON files must parse with
-    the port's hparams. Returns the step, the seconds it took and the
-    files' sizes in bytes."""
+    ``export_dir`` (the module docstring): the option files and the
+    checkpoint of the exported step. The JSON files must parse with the
+    port's hparams. Returns the step, the seconds it took and the files'
+    sizes in bytes."""
     from video_prediction_torch.configs.hparams import (DatasetHparams, ModelHparams, apply_overrides,
                                                           load_hparams_json)
-    from video_prediction_torch.train.checkpoint import PARAMS_FILE, TRAIN_STATE_FILE
+    from video_prediction_torch.train.checkpoint import PARAMS_FILE, TRAIN_STATE_FILE, checkpoint_file, save_step
 
     t0 = time.perf_counter()
     apply_overrides(ModelHparams(), load_hparams_json(os.path.join(export_dir, "model_hparams.json")))
@@ -239,16 +241,15 @@ def convert_run(export_dir: str, output_dir: str) -> dict:
     with np.load(os.path.join(export_dir, JAX_STATE_FILE)) as npz:
         flat = {k: npz[k] for k in npz.files}
     state_dict, train_state = train_state_from_jax(flat, seed)
-    os.makedirs(os.path.join(output_dir, "checkpoints"), exist_ok=True)
+    os.makedirs(output_dir, exist_ok=True)
     for name in RUN_FILES:
         shutil.copyfile(os.path.join(export_dir, name), os.path.join(output_dir, name))
-    sizes = {}
-    for obj, name in ((state_dict, PARAMS_FILE), (train_state, TRAIN_STATE_FILE)):
-        path = os.path.join(output_dir, name)
-        torch.save(obj, path)
-        sizes[name] = os.path.getsize(path)
+    step = train_state["step"]
+    if not save_step(output_dir, step, lambda: {PARAMS_FILE: state_dict, TRAIN_STATE_FILE: train_state}):
+        raise FileExistsError(f"{output_dir} keeps a checkpoint of step {step} already")
+    sizes = {name: os.path.getsize(checkpoint_file(output_dir, name, step)) for name in (PARAMS_FILE, TRAIN_STATE_FILE)}
     sizes[JAX_STATE_FILE] = os.path.getsize(os.path.join(export_dir, JAX_STATE_FILE))
-    return {"step": train_state["step"], "seconds": time.perf_counter() - t0, "bytes": sizes}
+    return {"step": step, "seconds": time.perf_counter() - t0, "bytes": sizes}
 
 
 def main(argv=None) -> dict:

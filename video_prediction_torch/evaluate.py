@@ -3,9 +3,11 @@
     python -m video_prediction_torch.evaluate --checkpoint RUN_DIR --results_dir OUT [--device cuda]
     python -m video_prediction_torch.evaluate --model repeat --dataset synthetic --results_dir OUT
 
-Port of ``scripts/evaluate.py`` with the same flags, plus ``--device``.
-Restores a run directory (``options.json``, ``model_hparams.json``,
-``dataset_hparams.json`` and the port's ``checkpoints/params.pt``), or,
+Port of ``scripts/evaluate.py`` with the same flags, plus ``--device`` and
+``--checkpoint_step``. Restores a run directory (``options.json``,
+``model_hparams.json``, ``dataset_hparams.json`` and the params file of the
+newest kept step, or of ``--checkpoint_step``, ``train/checkpoint.py``) and
+prints ``restored step N from RUN_DIR``, or,
 without ``--checkpoint``, builds a parameter-free baseline (``ground_truth``,
 ``repeat``) from ``--model`` and ``--dataset``. For each test batch it rolls
 out ``--num_stochastic_samples`` prior samples in chunks of
@@ -41,6 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--input_dir", default="")
     p.add_argument("--checkpoint", default="",
                    help="run directory to restore; may be omitted for the baselines (--model ground_truth|repeat)")
+    p.add_argument("--checkpoint_step", type=int, default=None,
+                   help="the kept checkpoint step to restore (default: the newest)")
     p.add_argument("--dataset", default="")
     p.add_argument("--dataset_hparams", default="")
     p.add_argument("--model", default="")
@@ -148,7 +152,8 @@ def main(argv=None) -> Dict[str, object]:
     """Run the CLI. Returns a summary: ``results_dir``, the number of
     ``rollouts`` (generator calls), ``metrics`` (the mean of each written
     array, by file stem), and whether every written value was finite or
-    ``inf`` (``ground_truth``'s PSNR) rather than NaN (``no_nan``)."""
+    ``inf`` (``ground_truth``'s PSNR) rather than NaN (``no_nan``), and the
+    checkpoint ``step`` restored (None for a baseline)."""
     args = parse_args(argv)
 
     from video_prediction_torch.configs.hparams import (
@@ -200,7 +205,7 @@ def main(argv=None) -> Dict[str, object]:
             print(f"long rollout: sequence_length {dhp.sequence_length} -> {eval_len}")
         # the data only: the generator takes its length from the input, and
         # the model keeps the trained length, which sets its discriminators'
-        # widths, so that the trained params.pt fits it at any eval length
+        # widths, so that the trained params file fits it at any eval length
         dhp = dhp.replace(sequence_length=eval_len)
 
     dataset = get_dataset_class(dataset_name)(args.input_dir, mode=args.mode, hparams=dhp, seed=args.seed)
@@ -208,11 +213,12 @@ def main(argv=None) -> Dict[str, object]:
     # own, as the JAX CLI draws it, so that both walk the same test batches
     batch0 = next(dataset.make_iterator(args.batch_size))
     model = get_model_class(model_name)(hp, **input_dims(hp, batch0))
+    step = None  # the baselines restore nothing
     if model.trainable:
         if not run_dir:
             raise SystemExit(f"model {model_name!r} is trainable; --checkpoint is required")
-        load_params(run_dir, model, device)
-        print(f"restored {os.path.join(run_dir, 'checkpoints')}")
+        step = load_params(run_dir, model, device, args.checkpoint_step)
+        print(f"restored step {step} from {run_dir}")
     model.to(device).eval()
     rng = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -285,7 +291,8 @@ def main(argv=None) -> Dict[str, object]:
 
     if html is not None:
         print(f"gallery: {html.save()}")
-    return {"results_dir": results_dir, "rollouts": rollouts, "metrics": summary_metrics, "no_nan": no_nan}
+    return {"results_dir": results_dir, "rollouts": rollouts, "metrics": summary_metrics, "no_nan": no_nan,
+            "step": step}
 
 
 if __name__ == "__main__":

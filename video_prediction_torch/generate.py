@@ -2,9 +2,11 @@
 
     python -m video_prediction_torch.generate --checkpoint RUN_DIR --results_dir OUT [--device cuda]
 
-Port of ``scripts/generate.py`` with the same flags, plus ``--device``.
-Restores a run directory (``options.json``, ``model_hparams.json``,
-``dataset_hparams.json`` and the port's ``checkpoints/params.pt``), then rolls
+Port of ``scripts/generate.py`` with the same flags, plus ``--device`` and
+``--checkpoint_step``. Restores a run directory (``options.json``,
+``model_hparams.json``, ``dataset_hparams.json`` and the params file of the
+newest kept step, or of ``--checkpoint_step``, ``train/checkpoint.py``),
+prints ``restored step N from RUN_DIR``, then rolls
 out ``model.forward(..., train=False)`` — the no-grad prior rollout — for
 ``--num_samples`` sequences x ``--num_stochastic_samples`` draws of z and
 writes one GIF per sequence and draw under
@@ -26,6 +28,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--input_dir", default="")
     p.add_argument("--checkpoint", required=True, help="run directory")
+    p.add_argument("--checkpoint_step", type=int, default=None,
+                   help="the kept checkpoint step to restore (default: the newest)")
     p.add_argument("--dataset", default="")
     p.add_argument("--dataset_hparams", default="")
     p.add_argument("--model", default="")
@@ -61,8 +65,9 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
 
 def main(argv=None) -> Dict[str, object]:
     """Run the CLI. Returns a summary: ``out_dir``, the number of
-    ``rollouts`` (generator calls), of ``gifs`` written, and whether every
-    generated value was finite (``all_finite``)."""
+    ``rollouts`` (generator calls), of ``gifs`` written, whether every
+    generated value was finite (``all_finite``) and the checkpoint ``step``
+    restored."""
     args = parse_args(argv)
 
     from video_prediction_torch.configs.hparams import (
@@ -105,7 +110,8 @@ def main(argv=None) -> Dict[str, object]:
     batch0 = next(it)
     # the first batch fixes the parameter shapes, as in the JAX package's init
     model = get_model_class(model_name)(hp, **input_dims(hp, batch0)).to(device)
-    load_params(run_dir, model, device)
+    step = load_params(run_dir, model, device, args.checkpoint_step)
+    print(f"restored step {step} from {run_dir}")
     model.eval()
     rng = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -140,7 +146,7 @@ def main(argv=None) -> Dict[str, object]:
     print(f"wrote {gifs} generations from {rollouts} rollouts to {out_dir}")
     if not all_finite:
         print("warning: some generated values were not finite")
-    return {"out_dir": out_dir, "rollouts": rollouts, "gifs": gifs, "all_finite": all_finite}
+    return {"out_dir": out_dir, "rollouts": rollouts, "gifs": gifs, "all_finite": all_finite, "step": step}
 
 
 if __name__ == "__main__":

@@ -296,7 +296,8 @@ class VideoPredictionModel(nn.Module):
         if train:
             if noise is None:
                 noise = self.draw_noise(b, t, generator, images.device)
-            use_gt = schedules.sample_use_gt_mask(b, t, hp, True, images.device, step, noise["use_gt_u"])
+            use_gt = schedules.sample_use_gt_mask(b, t, hp, True, images.device, step, noise["use_gt_u"],
+                                                  noise.get("use_gt_rank"), noise.get("use_gt_batch"))
         else:
             use_gt = schedules.sample_use_gt_mask(b, t, hp, False, device=images.device)
 

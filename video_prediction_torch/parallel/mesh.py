@@ -45,6 +45,9 @@ import torch.distributed as dist
 # the step noise (models/base.py#draw_noise) split by rank: the batch dim of
 # each leaf; clip_start is not split, so every rank's discriminators see one clip
 NOISE_BATCH_DIM = {"use_gt_u": 1, "eps_q": 0, "z_p": 0}
+# and of the leaves the train step derives from it under data parallel
+# (train/step.py#_rank_noise): the ranks of use_gt_u in its global rows
+DERIVED_NOISE_DIM = {"use_gt_rank": 1}
 
 
 def _rows(n: int, rank: int, world: int) -> slice:
@@ -79,9 +82,10 @@ def image_rows(batch: Dict[str, Any], coord: int, k: int, stacked: bool = False)
 def shard_noise(noise: Dict[str, Any], rank: int, world: int) -> Dict[str, Any]:
     """Rank ``rank``'s slice of one step's noise drawn for the global batch:
     ``use_gt_u [T-1,B]`` along dim 1, ``eps_q`` and ``z_p`` ``[B,·,nz]``
-    along dim 0, ``clip_start`` whole."""
-    return {k: _take(v, NOISE_BATCH_DIM[k], rank, world).contiguous() if k in NOISE_BATCH_DIM else v
-            for k, v in noise.items()}
+    along dim 0, ``use_gt_rank`` as ``use_gt_u``, ``clip_start`` and
+    ``use_gt_batch`` whole."""
+    dims = {**NOISE_BATCH_DIM, **DERIVED_NOISE_DIM}
+    return {k: _take(v, dims[k], rank, world).contiguous() if k in dims else v for k, v in noise.items()}
 
 
 def _flat(tensors: Sequence[torch.Tensor], dtype: Optional[torch.dtype] = None) -> torch.Tensor:

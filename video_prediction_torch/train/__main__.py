@@ -10,12 +10,13 @@ Port of ``scripts/train.py`` with the same flag shape, plus ``--device``:
 resolves the hparams as it does (model-class defaults, then
 ``--model_hparams_dict``, then ``--model_hparams``; the dataset's sequence
 structure fills what neither set), writes the run directory's option files,
-builds the model and its train state from ``--seed``, restores
-``checkpoints/train_state.pt`` with ``--resume`` (the step, the model, both
+builds the model and its train state from ``--seed``, restores the newest
+kept step's train state (``checkpoints/<step>/train_state.pt``,
+``train/checkpoint.py``) with ``--resume`` (the step, the model, both
 Adams and the noise generator; the data stream starts afresh from
 ``--seed``, at the batch that fixed the shapes, as ``scripts/train.py``'s
 does), or else, with ``--checkpoint RUN_DIR``, warm-starts from another
-run's ``checkpoints/params.pt``: every parameter whose name and shape match
+run's newest params file: every parameter whose name and shape match
 is copied, the rest keep their initial values, and the step, the Adams and
 the spectral ``u`` buffers start afresh (``scripts/train.py:191-194``,
 ``checkpoint.py#_merge_matching``); then runs the train step until ``max_steps`` on batches that a
@@ -34,8 +35,11 @@ clips of the batch fetched next; every ``--eval_summary_freq`` and
 ``accum_eval/*``: the prior rollout's PSNR, SSIM and MSE) averaged over 8
 and 64 validation batches, drawn from one ``val`` iterator that walks on
 from firing to firing; every ``--save_freq`` steps, and at the end, it
-writes the train state and ``checkpoints/params.pt`` (what ``generate`` and
-``evaluate`` read). The summaries are printed, returned by ``main`` and
+writes the step's checkpoint, ``checkpoints/<step>/`` (the train state and
+the params file that ``generate`` and ``evaluate`` read), keeping the
+newest three, as ``scripts/train.py``'s ``CheckpointManager`` does; the
+final save writes nothing where a periodic one wrote that step. The
+summaries are printed, returned by ``main`` and
 written to a TensorBoard event file in ``output_dir``
 (``utils/summary.py``, no TensorFlow) unless ``--no_tensorboard``; the JAX
 CLI writes one only where TensorFlow imports.
@@ -116,9 +120,9 @@ def parse_args(argv=None):
     p.add_argument("--model_hparams", default="", help="comma-separated k=v overrides")
     p.add_argument("--model_hparams_dict", default="", help="JSON file of model hparams")
     p.add_argument("--output_dir", required=True)
-    p.add_argument("--resume", action="store_true", help="resume from the train state in output_dir")
+    p.add_argument("--resume", action="store_true", help="resume from the newest kept train state in output_dir")
     p.add_argument("--checkpoint", default="", help="warm-start the params matching by name and shape from "
-                   "this run dir's checkpoints/params.pt (--resume takes precedence)")
+                   "this run dir's newest checkpoint (--resume takes precedence)")
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--batch_size", type=int, default=0, help="0 -> hparams.batch_size")
     p.add_argument("--max_steps", type=int, default=0, help="0 -> hparams.max_steps")

@@ -97,7 +97,8 @@ def ground_truth_prob(step: Step, hp: ModelHparams) -> Value:
 
 def sample_use_gt_mask(batch: int, seq_len: int, hp: ModelHparams, train: bool,
                        device: torch.device | str = "cpu", step: Step = 0,
-                       uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       uniforms: Optional[torch.Tensor] = None, ranks: Optional[torch.Tensor] = None,
+                       total: Union[int, torch.Tensor, None] = None) -> torch.Tensor:
     """Per-(timestep, sample) teacher-forcing mask ``[T-1, B]`` (bool).
 
     The inputs of steps ``t < context_frames`` are always ground truth. In
@@ -106,7 +107,11 @@ def sample_use_gt_mask(batch: int, seq_len: int, hp: ModelHparams, train: bool,
     decide the rest: i.i.d. ``u < p`` with ``p = ground_truth_prob(step)``,
     or with ``schedule_sampling_exact`` exactly round(p*B) ground-truth
     samples per timestep, the ones with the lowest uniforms. With a step
-    tensor, ``p`` and that count stay on the device.
+    tensor, ``p`` and that count stay on the device. Under data parallel
+    these B columns are a rank's share of a global batch of ``total``:
+    ``ranks`` ``[T-1, B]`` then holds their ranks in the global rows
+    (``use_gt_ranks`` of the global uniforms), and the count is round(p *
+    ``total``) over the global batch, as the JAX mesh step draws it.
     """
     tm1 = seq_len - 1
     in_context = torch.arange(tm1, device=device)[:, None] < hp.context_frames
@@ -116,8 +121,14 @@ def sample_use_gt_mask(batch: int, seq_len: int, hp: ModelHparams, train: bool,
         raise ValueError(f"the training mask needs uniforms of shape {(tm1, batch)}")
     p = ground_truth_prob(step, hp)
     if hp.schedule_sampling_exact:
-        k = torch.round(p * batch) if torch.is_tensor(p) else round(p * batch)
-        # stable ranks, as jnp.argsort(jnp.argsort(u)) gives them
-        ranks = torch.argsort(torch.argsort(uniforms, dim=1, stable=True), dim=1, stable=True)
+        if ranks is None:
+            ranks, total = use_gt_ranks(uniforms), batch
+        k = torch.round(p * total) if torch.is_tensor(p) else round(p * total)
         return in_context | (ranks < k)
     return in_context | (uniforms < p)
+
+
+def use_gt_ranks(uniforms: torch.Tensor) -> torch.Tensor:
+    """The rank of each of ``uniforms`` ``[T-1, B]`` in its row, stable, as
+    ``jnp.argsort(jnp.argsort(u))`` gives them."""
+    return torch.argsort(torch.argsort(uniforms, dim=1, stable=True), dim=1, stable=True)

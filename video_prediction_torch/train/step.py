@@ -138,19 +138,25 @@ def _rank_noise(ts: TrainState, images: torch.Tensor, noise: Optional[Dict[str, 
                 group: dist.ProcessGroup, spatial: Optional[SpatialMesh] = None) -> Dict[str, Any]:
     """This rank's slice of the step noise: ``noise`` as drawn for the global
     batch, or drawn so from ``ts.rng`` when None (``images`` ``[B, T, ...]``,
-    this rank's B rows), by the data coordinate."""
+    this rank's B rows), by the data coordinate. Under
+    ``schedule_sampling_exact`` the slice also holds ``use_gt_rank``, the
+    ranks of its ``use_gt_u`` columns in the global rows, and
+    ``use_gt_batch``, the global batch: every rank ranks the same uniforms,
+    so the mask is the global batch's (round(p * B) samples a timestep over
+    the ranks together, as the JAX mesh step draws it) without a collective,
+    and ``p`` is taken at the step, inside a ``MultiStep``'s graph too."""
     rank, size = _data_axis(group, spatial)
     if noise is None:
         noise = ts.model.draw_noise(images.shape[0] * size, images.shape[1], ts.rng, images.device)
+    if ts.model.hparams.schedule_sampling_exact:
+        noise = dict(noise, use_gt_rank=schedules.use_gt_ranks(noise["use_gt_u"]),
+                     use_gt_batch=noise["use_gt_u"].shape[1])
     return shard_noise(noise, rank, size)
 
 
-def _check_data_parallel(model, group: Optional[dist.ProcessGroup], spatial: Optional[SpatialMesh] = None) -> None:
+def _check_data_parallel(group: Optional[dist.ProcessGroup], spatial: Optional[SpatialMesh] = None) -> None:
     if spatial is not None and group is None:
         raise ValueError("spatial partitioning needs the process group that its spatial groups divide")
-    if group is not None and _data_axis(group, spatial)[1] > 1 and model.hparams.schedule_sampling_exact:
-        raise ValueError("schedule_sampling_exact picks round(p * B) samples of the whole batch; a rank sees only "
-                         "its rows, so data-parallel training does not take it")
 
 
 def make_train_step(model, steps_per_call: int = 1, group: Optional[dist.ProcessGroup] = None,
@@ -171,7 +177,7 @@ def make_train_step(model, steps_per_call: int = 1, group: Optional[dist.Process
     batch of B x the data size samples."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be at least 1, got {steps_per_call}")
-    _check_data_parallel(model, group, spatial)
+    _check_data_parallel(group, spatial)
     if steps_per_call > 1:
         return MultiStep(steps_per_call, group, spatial)
 
