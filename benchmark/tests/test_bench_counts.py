@@ -1,0 +1,89 @@
+"""``benchmark/counts.py``: the conv and GEMM FLOPs against
+``torch.utils.flop_counter.FlopCounterMode`` on the port's modules at a small
+size, and the K1-K3 bytes against the port's ``kernels/roofline.py`` at the
+shapes of every cell."""
+
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from benchmark import common, counts, program
+from video_prediction_torch.kernels import roofline
+
+SPEC = common.benchmark_spec()
+SMALL = {"ngf": 8, "nef": 16, "ndf": 8, "nz": 4}
+
+
+def _counted(fn, *args) -> int:
+    with FlopCounterMode(display=False) as mode:
+        fn(*args)
+    return mode.get_total_flops()
+
+
+@pytest.fixture(scope="module")
+def small():
+    cfg = common.load_json(common.ROOT / "benchmark" / "configs" / "savp_bair64.json")
+    hp = program.hparams(cfg, dict(SMALL, sequence_length=4))
+    model, _ = program.build_model(cfg, hp, (32, 32, 3), 7, "cpu")
+    return hp, model
+
+
+def test_generator_flops(small):
+    hp, model = small
+    b, t, h, w, c = 2, 4, 32, 32, 3
+    images = torch.rand(b, t, h, w, c)
+    use_gt = torch.ones(t - 1, b, dtype=torch.bool)
+    zs = torch.randn(b, t - 1, hp.nz)
+    with torch.no_grad():
+        got = _counted(model.generator, images, use_gt, zs)
+    # the plain compositing (K3's CPU version) is an einsum, which the counter
+    # sees: 2 x K candidates x C a pixel, not model FLOPs
+    k3 = 2 * b * (t - 1) * h * w * counts.n_candidates(hp.to_dict()) * c
+    assert got - k3 == counts.rollout_flops(hp.to_dict(), b, t, h, w, c)
+
+
+def test_posterior_and_discriminator_flops(small):
+    hp, model = small
+    b, t, h, w, c = 2, 4, 32, 32, 3
+    images = torch.rand(b, t, h, w, c)
+    with torch.no_grad():
+        assert _counted(model.posterior, images) == counts.posterior_flops(hp.to_dict(), b * (t - 1), h, w, c)
+        clip = min(hp.clip_length, t - 1)
+        got = _counted(model.discriminator["video"], images[:, :clip])
+        # the power iterations' products are no model FLOPs
+        power = sum(_counted(m.normalized_weight) for m in model.discriminator["video"].modules() if hasattr(m, "u"))
+    assert got - power == counts.video_disc_flops(hp.to_dict(), b, clip, h, w, c)
+
+
+def test_vgg_flops():
+    from video_prediction_torch.models.vgg import VGG16Features
+
+    with torch.no_grad():
+        assert _counted(VGG16Features(), torch.rand(2, 32, 32, 3)) == counts.vgg_flops(2, 32, 32)
+
+
+def test_train_step_is_three_forwards(small):
+    hp = small[0].to_dict()
+    b, t, h, w, c = 2, 4, 32, 32, 3
+    forward = (counts.rollout_flops(hp, 2 * b, t, h, w, c) + counts.posterior_flops(hp, b * (t - 1), h, w, c)
+               + 2 * counts.video_disc_flops(hp, 3 * b, min(hp["clip_length"], t - 1), h, w, c))
+    assert counts.train_step_flops(hp, b, t, h, w, c) == 3 * forward
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+def test_kernel_bytes_match_the_ports_roofline(cell):
+    _, cfg, traffic = common.resolve(SPEC, cell)
+    hp = cfg["hparams"]
+    h, w, c = cfg["image_shape"]
+    batch = {"train": 2 * traffic.get("batch_size", 0),
+             "generate": traffic.get("clips_per_request", 0) * traffic.get("samples_per_clip", 0),
+             "evaluate": traffic.get("batch_size", 0) * traffic.get("samples_per_rollout", 0)}[traffic["kind"]]
+    k = counts.n_candidates(hp)
+    fwd = counts.kernel_bytes(hp, batch, h, w, c, False)
+    assert fwd["K1"] == roofline.cdna_forward(batch, h, w, c)[0]
+    assert fwd["K2"] == roofline.ln_gate_forward(roofline.ln_gate_step(batch))[0]
+    assert fwd["K3"] == roofline.composite_forward(batch, k, h, w, c)[0]
+    bwd = counts.kernel_bytes(hp, batch, h, w, c, True)
+    assert bwd["K1"] == roofline.cdna_backward(batch, h, w, c)[0]
+    assert bwd["K2"] == roofline.ln_gate_backward(roofline.ln_gate_step(batch))[0]
+    assert bwd["K3"] == roofline.composite_backward(batch, k, h, w, c)[0]

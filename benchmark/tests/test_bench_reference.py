@@ -1,0 +1,119 @@
+"""The frozen plain reference (``benchmark/reference/``) against the port's
+plain path on the CPU at a tiny width, on the benchmark's seeded weights:
+the rollout, the posterior, the video discriminator, the losses, three train
+steps through the port's ``MultiStep``, and the metrics. Also: the reference
+imports nothing of the program and nothing of JAX."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import common, program
+from benchmark.kinds import train as train_kind
+from benchmark.reference import metrics as refm
+from benchmark.reference import savp as ref
+
+TINY = {"ngf": 4, "nef": 8, "ndf": 4, "nz": 4, "clip_length": 3, "sequence_length": 5}
+REFERENCE_DIR = Path(__file__).resolve().parents[1] / "reference"
+NOT_IMPORTED = set(common.FORBIDDEN) | {"video_prediction_torch", "benchmark"}
+
+
+@pytest.mark.parametrize("path", sorted(REFERENCE_DIR.glob("*.py")), ids=lambda p: p.name)
+def test_reference_imports_nothing_of_the_program(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".", 1)[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path.name}: relative import"
+            names.add(node.module.split(".", 1)[0])
+    assert not names & NOT_IMPORTED, names & NOT_IMPORTED
+
+
+@pytest.fixture(scope="module")
+def built():
+    torch.manual_seed(0)
+    cfg = common.load_json(common.ROOT / "benchmark" / "configs" / "savp_bair64.json")
+    hp = program.hparams(cfg, TINY)
+    model, weights = program.build_model(cfg, hp, (32, 32, 3), 2024, "cpu")
+    ref.check_supported(hp.to_dict())
+    return cfg, hp, model, weights
+
+
+def _clips(n, t, seed=3):
+    return torch.from_numpy(common.make_clips(n, t, 32, 32, 3, torch.Generator().manual_seed(seed), "cpu"))
+
+
+def test_eval_rollout(built):
+    _, hp, model, weights = built
+    images = _clips(3, hp.sequence_length)
+    zs = torch.randn(3, hp.sequence_length - 1, hp.nz, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = model({"images": images}, train=False, zs_prior=zs)["gen_images"]
+        want = ref.eval_rollout(weights, hp.to_dict(), images.float() / 255.0, zs)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=1e-5)
+
+
+def test_posterior_and_discriminator(built):
+    _, hp, model, weights = built
+    images = _clips(2, hp.sequence_length).float() / 255.0
+    with torch.no_grad():
+        for got, want in zip(model.posterior(images), ref.posterior(weights, images)):
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+        us = {k: v for k, v in weights.items() if k.endswith(".u")}
+        logits, feats, new_u = model.discriminator["video"](images[:, : hp.clip_length])
+        r_logits, r_feats, r_u = ref.video_discriminator(weights, us, "video", images[:, : hp.clip_length])
+    torch.testing.assert_close(logits, r_logits, atol=1e-6, rtol=1e-5)
+    for a, b in zip(feats, r_feats):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    for k in new_u:
+        torch.testing.assert_close(new_u[k], r_u[k], atol=1e-6, rtol=1e-5)
+
+
+def test_losses(built):
+    _, hp, model, weights = built
+    images = _clips(2, hp.sequence_length)
+    noise = train_kind.draw_noise(hp, 2, hp.sequence_length, torch.Generator().manual_seed(4), "cpu")
+    total, aux = model.compute_losses({"images": images}, 0, noise=noise)
+    params = {k: v for k, v in weights.items() if not k.endswith(".u")}
+    us = {k: v for k, v in weights.items() if k.endswith(".u")}
+    r_total, r_g, r_d, _, _ = ref.train_losses(params, us, hp.to_dict(), images, noise, 0)
+    for got, want in ((total, r_total), (aux["g_loss"], r_g), (aux["d_loss"], r_d)):
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_train_steps_through_multistep():
+    """The harness's train cell at a tiny size: the port's ``MultiStep`` on
+    the CPU against the reference's steps, leaf by leaf."""
+    from benchmark import rehearse
+
+    out = rehearse.rehearse("savp_bair64.train_b16_k4")
+    c = out["cell"]
+    got, want = c.outputs, out["want"]
+    np.testing.assert_allclose(np.array(got["losses"]), np.array(want["losses"]), rtol=1e-5)
+    med = float(np.median(list(want["grad_norms"].values())))
+    for k, g in want["grad_norms"].items():
+        assert abs(got["grad_norms"][k] - g) <= 1e-4 * max(g, med), k
+    assert set(got["change_norms"]) == set(want["change_norms"])
+    torch.testing.assert_close(got["first_frames"], want["first_frames"], atol=2e-6, rtol=1e-5)
+
+
+def test_metrics_against_the_ports():
+    from video_prediction_torch import metrics as M
+    from video_prediction_torch.models.vgg import VGGMetric
+
+    gen = torch.Generator().manual_seed(5)
+    a, b = torch.rand(2, 3, 32, 32, 3, generator=gen), torch.rand(2, 3, 32, 32, 3, generator=gen)
+    torch.testing.assert_close(M.peak_signal_to_noise_ratio(a, b), refm.psnr(a, b), atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(M.structural_similarity(a, b), refm.ssim(a, b), atol=1e-6, rtol=1e-5)
+    vgg, weights = program.vgg_metric(9, "cpu")
+    assert isinstance(vgg, VGGMetric)
+    torch.testing.assert_close(vgg(a, b), refm.vgg_cosine(weights, a, b), atol=1e-5, rtol=1e-5)
+    chunks = [{"psnr": torch.rand(2, 3, 4, generator=gen)} for _ in range(3)]
+    red = refm.best_and_mean(chunks)
+    allv = torch.cat([c["psnr"] for c in chunks], dim=1)
+    torch.testing.assert_close(red["psnr_max"], allv.max(1).values)
+    torch.testing.assert_close(red["psnr_avg"], allv.mean(1))
