@@ -1,0 +1,6 @@
+"""Device time of a train step's backward (the recompute inside it), from the phase events captured in the program's CUDA graph: the last replay's mean over its steps (ms)."""
+from benchmark import spans
+
+
+def read(data):
+    return spans.phase_mean_ms("backward")

@@ -2855,7 +2855,9 @@ DP_CLI_STEPS = (8, 12)  # torchrun: --max_steps 8 (two calls of SPC), then --res
 GRAD_BYTES = 4  # the all-reduce carries the fp32 gradients
 DP_REDUCE_CALLS = 5  # all_reduce_mean_ calls in the window that times one alone
 DOT_NODE = re.compile(r'^"graph_\d+_node_\d+"\[', re.M)  # a node of cudaGraphDebugDotPrint's output
-DOT_KIND = re.compile(r'label="\{\s*(\w+)')  # KERNEL, MEMCPY, MEMSET, ...
+# KERNEL, MEMCPY, MEMSET, ... after "{"; EVENT_RECORD on the line after the node's ID
+DOT_KIND = re.compile(r'label="(?:\{|[^"\n]*\n)\s*(\w+)')
+PHASE_MARKS = 4  # event-record nodes a graphed step: start, losses, backward, update (train/step.py#_update)
 DOT_KERNEL = re.compile(r'\| \{ID \| [^|]*\| (\S+?)\\<\\<\\<')  # the kernel's mangled name before <<<
 
 
@@ -3193,7 +3195,9 @@ def dp_graph_phase(dev, ident: str, per_step: dict) -> dict:
     equal bit for bit; the launches a call; the all-reduce inside the graph
     (its nodes, from ``MultiStep.dump_graph``, are the graph's without a
     group plus SPC times those of one ``all_reduce_mean_`` of the same
-    tensors captured alone; that reduce is also timed alone); a profiled
+    tensors captured alone and one event-record node, the step's
+    ``allreduce`` phase mark, beside the PHASE_MARKS of each step of both
+    graphs; that reduce is also timed alone); a profiled
     replay of each, whose extra device records are printed; then ms a step
     of both graphs in turns and each one's busy share."""
     from collections import Counter
@@ -3243,11 +3247,15 @@ def dp_graph_phase(dev, ident: str, per_step: dict) -> dict:
         for name, run in (("graph", plain), ("nccl1", nccl)):
             run["step"].dump_graph(os.path.join(path, f"{name}.dot"))
             nodes[name] = graph_nodes(os.path.join(path, f"{name}.dot"))
+        check(nodes["graph"]["EVENT_RECORD"] == SPC * PHASE_MARKS,
+              f"(a): the plain graph holds {nodes['graph']['EVENT_RECORD']} event-record nodes, not {SPC} steps x "
+              f"{PHASE_MARKS} phase marks")
         extra, missing = nodes["nccl1"] - nodes["graph"], nodes["graph"] - nodes["nccl1"]
-        want = Counter({name: SPC * n for name, n in alone.items()})
+        want = Counter({name: SPC * n for name, n in alone.items()}) + Counter({"EVENT_RECORD": SPC})
         check(bool(alone) and not missing and extra == want,
               f"(a): the NCCL graph's nodes beyond the plain graph's {short_nodes(extra)} (and short of them "
-              f"{short_nodes(missing)}) are not {SPC} x one all_reduce_mean_'s {short_nodes(alone)}")
+              f"{short_nodes(missing)}) are not {SPC} x one all_reduce_mean_'s {short_nodes(alone)} and {SPC} "
+              f"allreduce phase marks")
         records = profiles["nccl1"]["names"] - profiles["graph"]["names"]
         print(f"data parallel (a): MultiStep({SPC}) under a 1-rank NCCL group equals the graph without one bit for "
               f"bit ({SPC_CALLS} calls: losses, {len(plain['params'])} leaves, {len(plain['buffers'])} u); its "

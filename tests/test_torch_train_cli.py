@@ -287,16 +287,25 @@ def test_checkpoint_warm_starts_matching_params(tmp_path):
 
 def test_profile_steps_writes_a_trace_and_keeps_the_losses(runs, capsys):
     """``--profile_steps 1,2`` records the second and third steps under
-    ``torch.profiler`` and writes the trace to ``output_dir/profile/``; the
-    run's losses equal those of the same run without it."""
+    ``torch.profiler`` and writes the trace to ``output_dir/profile/``, with
+    the port's spans (``utils/trace.py``) as a process of their own; the
+    run's losses equal those of the same run without it. With
+    ``--steps_per_call 2`` the ``multistep.*`` spans are in the file."""
     root, _, _, whole = runs
     profiled = _train(root / "profiled", 3, extra=["--profile_steps", "1,2"])
     assert profiled["step"] == 3 and profiled["scalars"] == whole["scalars"]
     trace = root / "profiled" / "profile" / "trace_1-2.json"
     assert f"profile of steps 1-2: {trace}" in capsys.readouterr().out
     with open(trace) as f:
-        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
     assert any("conv" in n for n in names)  # the steps' operators are in it
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert sum(e["name"] == "model.rollout" for e in spans) >= 2 and any(e["name"] == "savp.step" for e in spans)
+    _train(root / "profiled_spc", 2, extra=["--profile_steps", "0,1", "--steps_per_call", "2", "--no_tensorboard"])
+    with open(root / "profiled_spc" / "profile" / "trace_0-1.json") as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "program_span"]
+    assert {"multistep.call", "multistep.noise", "feeder.wait"} <= {e["name"] for e in spans}
 
 
 @pytest.mark.parametrize("spec", ["2,1", "-1,2", "3"])

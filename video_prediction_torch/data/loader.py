@@ -31,6 +31,10 @@ thread makes that device current before it pins and copies. Spatial
 partitioning (``rows=(coord, k)``): it cuts each host batch's images to the
 ``coord``-th of k slices of their height (``parallel/mesh.py#image_rows``)
 before the copy, so only this rank's rows are pinned and sent.
+
+Spans (``utils/trace.py``): ``feeder.wait``, the consumer's wait in
+``next()``; ``feeder.produce``, on the feeder's thread, one a batch from
+the host iterator's ``next`` (the stacking) to the copy queued.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from video_prediction_torch.parallel.mesh import image_rows
+from video_prediction_torch.utils import trace
 
 _END = object()
 PREFETCH = 2  # batches queued ahead of the consumer, as in the JAX package
@@ -109,11 +114,14 @@ class DeviceFeeder:
         try:
             if self._cuda:  # a new thread starts on cuda:0, which is another rank's GPU
                 torch.cuda.set_device(self._device)
-            slot = 0
-            for batch in self._it:
-                if self._stop.is_set():
-                    return
-                if not self._put(self._to_device(batch, slot)):
+            slot, it = 0, iter(self._it)
+            while not self._stop.is_set():
+                with trace.span("feeder.produce"):
+                    batch = next(it, _END)
+                    if batch is _END:
+                        break
+                    item = self._to_device(batch, slot)
+                if not self._put(item):
                     return
                 if self._cuda:
                     slot = (slot + 1) % len(self._slots)
@@ -129,7 +137,8 @@ class DeviceFeeder:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        item = self._q.get()
+        with trace.span("feeder.wait"):
+            item = self._q.get()
         if item is _END:
             self._q.put(_END)  # later calls end too
             if self._err is not None:

@@ -37,6 +37,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from video_prediction_torch.utils import trace
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -112,10 +114,13 @@ class BestOfN:
     """Running reductions over stochastic samples, on the device: per metric
     the max and the sum per ``[B, T - context]``, and the rollout with the
     best mean PSNR per example (the first one to reach it, as the JAX CLI's
-    strict ``>`` keeps it)."""
+    strict ``>`` keeps it). Spans (``utils/trace.py``): ``bestofn.update``,
+    with a ``metric.<name>`` child a metric function, each timed on the
+    device too."""
 
     def __init__(self, fns: Dict[str, Callable], target: torch.Tensor, context_frames: int, keep_best: bool):
         self.fns, self.target, self.ctx, self.keep_best = fns, target, context_frames, keep_best
+        self.span_names, self.device = {m: "metric." + m for m in fns}, target.device
         self.best: Dict[str, torch.Tensor] = {}
         self.sum: Dict[str, torch.Tensor] = {}
         self.n = 0
@@ -124,25 +129,29 @@ class BestOfN:
 
     def update(self, chunk: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Fold in ``chunk [B, take, T-1, H, W, C]``; returns its metrics, each ``[B, take, Tp]``."""
-        pred = chunk[:, :, self.ctx - 1:]
-        target = self.target[:, None].expand_as(pred)
-        vals = {m: fn(target, pred) for m, fn in self.fns.items()}
-        for m, v in vals.items():
-            top, total = v.max(dim=1).values, v.sum(dim=1)
-            self.best[m] = top if m not in self.best else torch.maximum(self.best[m], top)
-            self.sum[m] = total if m not in self.sum else self.sum[m] + total
-        self.n += chunk.shape[1]
-        if self.keep_best:
-            score = vals["psnr"].mean(dim=-1)  # [B, take]
-            top, idx = score.max(dim=1)  # the first maximum within the chunk
-            gen = chunk[torch.arange(chunk.shape[0], device=chunk.device), idx]
-            if self.best_gen is None:
-                self.best_gen, self.best_score = gen, top
-            else:
-                better = top > self.best_score
-                self.best_gen = torch.where(better[:, None, None, None, None], gen, self.best_gen)
-                self.best_score = torch.maximum(self.best_score, top)
-        return vals
+        with trace.span("bestofn.update"):
+            pred = chunk[:, :, self.ctx - 1:]
+            target = self.target[:, None].expand_as(pred)
+            vals = {}
+            for m, fn in self.fns.items():
+                with trace.span(self.span_names[m], self.device):
+                    vals[m] = fn(target, pred)
+            for m, v in vals.items():
+                top, total = v.max(dim=1).values, v.sum(dim=1)
+                self.best[m] = top if m not in self.best else torch.maximum(self.best[m], top)
+                self.sum[m] = total if m not in self.sum else self.sum[m] + total
+            self.n += chunk.shape[1]
+            if self.keep_best:
+                score = vals["psnr"].mean(dim=-1)  # [B, take]
+                top, idx = score.max(dim=1)  # the first maximum within the chunk
+                gen = chunk[torch.arange(chunk.shape[0], device=chunk.device), idx]
+                if self.best_gen is None:
+                    self.best_gen, self.best_score = gen, top
+                else:
+                    better = top > self.best_score
+                    self.best_gen = torch.where(better[:, None, None, None, None], gen, self.best_gen)
+                    self.best_score = torch.maximum(self.best_score, top)
+            return vals
 
     def mean(self) -> Dict[str, torch.Tensor]:
         return {m: s / self.n for m, s in self.sum.items()}

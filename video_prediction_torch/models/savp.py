@@ -140,6 +140,7 @@ from video_prediction_torch.ops.rnn import ConvGRUCell, ConvLSTMCell
 from video_prediction_torch.ops.warp import apply_affine_kernels, image_warp
 from video_prediction_torch.parallel import spatial as SP
 from video_prediction_torch.parallel.mesh import current_spatial, spatial_context, whole
+from video_prediction_torch.utils import trace
 
 REMAT_POLICIES = ("full", "names")
 
@@ -512,7 +513,10 @@ class SAVPGenerator(nn.Module):
     ``_leaves`` order) broadcast over the batch (JAX ``savp.py:440-455``).
     Under grad, where ``recomputes(hparams)``, each timestep's cell is
     recomputed in the backward pass by ``remat_policy`` (the module
-    docstring); an unknown policy raises when ``remat`` is on.
+    docstring); an unknown policy raises when ``remat`` is on. Spans
+    (``utils/trace.py``): ``model.rollout``, one a forward, and a
+    ``savp.step`` child a timestep (its recompute, in the backward, is in
+    none).
     """
 
     def __init__(self, hparams: ModelHparams, image_shape: Sequence[int] = (64, 64, 3), action_dim: int = 0,
@@ -566,38 +570,40 @@ class SAVPGenerator(nn.Module):
                 prior_eps = torch.zeros(b, t - 1, hp.nz, device=images.device)
             if zs is not None and use_prior_z is None:
                 use_prior_z = torch.zeros(b, dtype=torch.bool, device=images.device)  # the given zs win
-        first_image = images[:, 0]
-        state = (rnn_states, first_image, [first_image] * hp.last_frames, None if states is None else states[:, 0])
-        outs = []
-        for step in range(t - 1):
-            x = {"image": images[:, step], "use_gt": use_gt[step], "first_image": first_image}
-            if hp.context_images_background:
-                x["context_images"] = images[:, : hp.context_frames]
-            if zs is not None and hp.nz > 0:
-                x["z"] = zs[:, step]
-            if actions is not None:
-                x["action"] = actions[:, step]
-            if states is not None:
-                x["state"] = states[:, step]
-            if self.cell.learn_prior:
-                x["prior_eps"] = prior_eps[:, step]
-                if zs is not None:
-                    x["use_prior_z"] = use_prior_z
-            if not recompute:
-                state, out = self.cell(state, x, output_aux=output_aux)
-            elif hp.remat_policy == "full":
-                state, out = _checkpoint(self.cell, state, x, output_aux=output_aux)
-            else:
-                state, out = self.cell(state, x, output_aux=output_aux, segment=_checkpoint)
-            outs.append(out)
-        result = {"gen_images": torch.stack([o["gen_image"] for o in outs], dim=1)}
-        if "gen_state" in outs[0]:
-            result["gen_states"] = torch.stack([o["gen_state"] for o in outs], dim=1)
-        for k in ("prior_mu", "prior_logvar", "z_used"):
-            if k in outs[0]:
-                result[k] = torch.stack([o[k] for o in outs], dim=1)
-        if output_aux:
-            for k in ("masks", "kernels", "flows"):
+        with trace.span("model.rollout"):
+            first_image = images[:, 0]
+            state = (rnn_states, first_image, [first_image] * hp.last_frames, None if states is None else states[:, 0])
+            outs = []
+            for step in range(t - 1):
+                with trace.span("savp.step"):
+                    x = {"image": images[:, step], "use_gt": use_gt[step], "first_image": first_image}
+                    if hp.context_images_background:
+                        x["context_images"] = images[:, : hp.context_frames]
+                    if zs is not None and hp.nz > 0:
+                        x["z"] = zs[:, step]
+                    if actions is not None:
+                        x["action"] = actions[:, step]
+                    if states is not None:
+                        x["state"] = states[:, step]
+                    if self.cell.learn_prior:
+                        x["prior_eps"] = prior_eps[:, step]
+                        if zs is not None:
+                            x["use_prior_z"] = use_prior_z
+                    if not recompute:
+                        state, out = self.cell(state, x, output_aux=output_aux)
+                    elif hp.remat_policy == "full":
+                        state, out = _checkpoint(self.cell, state, x, output_aux=output_aux)
+                    else:
+                        state, out = self.cell(state, x, output_aux=output_aux, segment=_checkpoint)
+                    outs.append(out)
+            result = {"gen_images": torch.stack([o["gen_image"] for o in outs], dim=1)}
+            if "gen_state" in outs[0]:
+                result["gen_states"] = torch.stack([o["gen_state"] for o in outs], dim=1)
+            for k in ("prior_mu", "prior_logvar", "z_used"):
                 if k in outs[0]:
                     result[k] = torch.stack([o[k] for o in outs], dim=1)
-        return result
+            if output_aux:
+                for k in ("masks", "kernels", "flows"):
+                    if k in outs[0]:
+                        result[k] = torch.stack([o[k] for o in outs], dim=1)
+            return result

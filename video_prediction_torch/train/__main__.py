@@ -59,8 +59,11 @@ the one taken when ``stop`` are; whole calls, so with K > 1 from the call
 that holds ``start`` through the one that holds ``stop``) under ``torch.profiler`` (host and, on a
 GPU, device activity), synchronizes the device before it stops, as
 ``scripts/train.py:265-267`` does, and writes the trace to
-``output_dir/profile/trace_<start>-<stop>.json``; the losses are those of a
-run without it.
+``output_dir/profile/trace_<start>-<stop>.json``, with the port's spans
+(``utils/trace.py``) as a process of their own, ``program spans``, on the
+trace's clock; the line that names the file gives the device ms of the
+last step's phases (losses, backward, update) on a GPU. The losses are
+those of a run without it.
 
 Data parallel, one process per GPU (the counterpart of ``scripts/train.py``'s
 multi-host parts, ``parallel/``)::
@@ -105,9 +108,11 @@ import argparse
 import math
 import os
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from video_prediction_torch.utils import trace
 
 
 def parse_args(argv=None):
@@ -301,17 +306,18 @@ def _main(args, device: torch.device) -> Dict[str, object]:
     # stacked [K, B, ...] for K steps a call
     train_iter = DeviceFeeder(_prepend(batch, host_iter), device, stack=spc, rows=rows)
     profiler: Optional[torch.profiler.profile] = None
+    clock: List[Tuple[int, int]] = []  # the profile's clock markers (utils/trace.py#mark_clock)
     finished = False
     try:
         batch = next(train_iter)
         while step < hp.max_steps:
             if primary and profiler is None and step <= prof_start < step + spc:
-                profiler = _start_profiler(device)
+                profiler, clock = _start_profiler(device)
             scalars = train_step(ts, batch)
             batch = next(train_iter)  # taken while the steps run on the device
             prev, step = step, ts.step
             if profiler is not None and prev <= prof_stop < step:
-                _stop_profiler(profiler, device, args.output_dir, prof_start, prof_stop)
+                _stop_profiler(profiler, clock, device, args.output_dir, prof_start, prof_stop)
                 profiler = None
             if crossed(args.summary_freq):
                 # the schedules at the call's first step, as the JAX CLI takes them
@@ -359,7 +365,7 @@ def _main(args, device: torch.device) -> Dict[str, object]:
         finished = True
     finally:
         if profiler is not None:  # the run ended inside the window
-            _stop_profiler(profiler, device, args.output_dir, prof_start, ts.step - 1)
+            _stop_profiler(profiler, clock, device, args.output_dir, prof_start, ts.step - 1)
         train_iter.close()
         if writer is not None:
             writer.close()
@@ -372,20 +378,23 @@ def _main(args, device: torch.device) -> Dict[str, object]:
             "warm_started": warm_started, "all_finite": all_finite}
 
 
-def _start_profiler(device: torch.device) -> torch.profiler.profile:
+def _start_profiler(device: torch.device) -> Tuple[torch.profiler.profile, List[Tuple[int, int]]]:
+    """A started profiler, and its clock markers."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     profiler = torch.profiler.profile(activities=activities)
     profiler.start()
-    return profiler
+    return profiler, trace.mark_clock()
 
 
-def _stop_profiler(profiler: torch.profiler.profile, device: torch.device, output_dir: str, start: int,
-                   stop: int) -> None:
+def _stop_profiler(profiler: torch.profiler.profile, clock: List[Tuple[int, int]], device: torch.device,
+                   output_dir: str, start: int, stop: int) -> None:
     """Stop ``profiler`` once the device has run what was queued (a CUDA
     call returns at enqueue: stopping earlier cuts the window's last
-    kernels) and write its trace under ``output_dir/profile/``."""
+    kernels) and write its trace under ``output_dir/profile/``, the spans
+    recorded since ``clock`` in it; print its path and the last step's
+    phases."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     profiler.stop()
@@ -393,7 +402,11 @@ def _stop_profiler(profiler: torch.profiler.profile, device: torch.device, outpu
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace_{start}-{stop}.json")
     profiler.export_chrome_trace(path)
-    print(f"profile of steps {start}-{stop}: {path}", flush=True)
+    trace.write_chrome_track(path, clock)
+    phases = trace.phase_ms()
+    last = "" if not phases else " (last step, device ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phases[-1].items()) + ")"
+    print(f"profile of steps {start}-{stop}: {path}{last}", flush=True)
 
 
 def _quiet(*args, **kwargs) -> None:

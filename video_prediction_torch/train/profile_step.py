@@ -32,7 +32,10 @@ line, one JSON object of per-step figures:
 - ``device_ms``: the summed durations of the device events by group:
   ``conv_gemm`` (cuDNN and cuBLAS kernels and their layout transforms),
   ``K1``, ``K2``, ``K3`` (the port's kernels, forward and backward), and
-  ``other``; ``launches``: device events per step.
+  ``other``; ``launches``: device events per step;
+- ``phase_ms``: the last profiled step's phases in device ms, from the
+  step's own events (``losses``, ``backward``, ``update``;
+  ``utils/trace.py#StepPhases``), None on the CPU.
 
 The window is checked against the kernel wrappers' launch counters: each
 launch of a wrapper gives ``KERNELS_PER_LAUNCH`` device events of its
@@ -181,6 +184,7 @@ def main(argv=None) -> Dict[str, object]:
     from video_prediction_torch.train.state import create_train_state
     from video_prediction_torch.train.step import make_train_step
     from video_prediction_torch.utils.device import device_or_raise
+    from video_prediction_torch.utils.trace import phase_ms
 
     model_cls = get_model_class(args.model)
     if not model_cls.trainable:
@@ -248,6 +252,7 @@ def main(argv=None) -> Dict[str, object]:
         "step_ms": step_ms, "window_ms": window_ms, "busy_ms": busy_ms,
         "busy_share": busy_ms / window_ms,
         "device_ms": by_group, "launches": len(device_events) / args.steps,
+        "phase_ms": (phase_ms() or [None])[-1],
         "windows": windows, "shortfall": shortfall or None,
         "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None,
         "finite": all(bool(torch.isfinite(v)) for v in scalars.values()), "trace": trace,

@@ -67,7 +67,6 @@ captured into ``MultiStep``'s graph under NCCL like the gradients'.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -77,25 +76,33 @@ from video_prediction_torch import kernels as K
 from video_prediction_torch.parallel.mesh import SpatialMesh, all_reduce_mean_, shard_noise, spatial_context
 from video_prediction_torch.train import schedules
 from video_prediction_torch.train.state import TrainState
+from video_prediction_torch.utils import trace
 
 Scalars = Dict[str, torch.Tensor]
 
 
 def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict[str, Any]],
             step: int | torch.Tensor, group: Optional[dist.ProcessGroup] = None,
-            spatial: Optional[SpatialMesh] = None) -> Scalars:
+            spatial: Optional[SpatialMesh] = None, phases=trace.NO_PHASES) -> Scalars:
     """One train step at ``step`` (an int, or a 0-d tensor on the batch's
     device) on ``batch`` with ``noise`` (drawn from ``ts.rng`` when None):
     the backward pass, the mean over ``group``'s ranks of the gradients and
     scalars (under ``spatial``: the sum over the spatial group, the mean
     over the data group), both Adam updates and the spectral ``u``. Returns
-    the step's 0-d loss tensors; ``ts.step`` is left to the caller."""
+    the step's 0-d loss tensors; ``ts.step`` is left to the caller.
+    ``phases`` (``utils/trace.py#StepPhases``) records a device event at the
+    step's start and after each phase: ``losses``, ``backward`` (the
+    recompute inside it), ``allreduce`` where there is a group, ``update``
+    (both Adams and the ``u`` copy)."""
+    phases.mark("start")
     with spatial_context(spatial):
         total, aux = ts.model.compute_losses(batch, step, noise=noise, generator=ts.rng)
+    phases.mark("losses")
     optimizers = [opt for opt in (ts.opt_g, ts.opt_d) if opt is not None]
     for opt in optimizers:
         opt.zero_grad(set_to_none=True)
     total.backward()
+    phases.mark("backward")
     grads = []
     for opt in optimizers:
         for param_group in opt.param_groups:
@@ -111,6 +118,7 @@ def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict
     }
     if group is not None:  # every rank the same layout: the zero gradients above first
         all_reduce_mean_(grads + list(scalars.values()), group, spatial.data_size if spatial else None)
+        phases.mark("allreduce")
     lr = schedules.learning_rate(step, ts.model.hparams)  # optax reads the count before it increments
     for opt in optimizers:
         for param_group in opt.param_groups:
@@ -124,6 +132,7 @@ def _update(ts: TrainState, batch: Dict[str, torch.Tensor], noise: Optional[Dict
             disc = ts.model.discriminator[key]
             for layer, u in layers.items():
                 getattr(disc, layer).u.copy_(u)
+    phases.mark("update")
     return scalars
 
 
@@ -185,7 +194,7 @@ def make_train_step(model, steps_per_call: int = 1, group: Optional[dist.Process
                    noise: Optional[Dict[str, Any]] = None) -> Scalars:
         if group is not None:
             noise = _rank_noise(ts, batch["images"], noise, group, spatial)
-        scalars = _update(ts, batch, noise, ts.step, group, spatial)
+        scalars = _update(ts, batch, noise, ts.step, group, spatial, trace.phases_for(batch["images"].device))
         ts.step += 1
         return scalars
 
@@ -205,7 +214,13 @@ class MultiStep:
     ``graph_launches`` the kernel launches of one replay (wrapper -> dtype
     -> launches). ``group``: data parallel, as ``make_train_step``'s.
     ``keep_graph``, set before the capture, keeps the captured
-    ``cudaGraph_t`` so that ``dump_graph`` can list its nodes."""
+    ``cudaGraph_t`` so that ``dump_graph`` can list its nodes. The capture
+    takes each step's phase events (``_update``) into the graph.
+
+    Spans (``utils/trace.py``): ``multistep.call`` with its children
+    ``multistep.noise``, ``multistep.copy_in`` and ``multistep.replay``;
+    the set-up spans ``multistep.eager`` and ``multistep.capture``, whose
+    duration ``capture_s`` is."""
 
     def __init__(self, steps_per_call: int, group: Optional[dist.ProcessGroup] = None,
                  spatial: Optional[SpatialMesh] = None):
@@ -222,16 +237,18 @@ class MultiStep:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._static: Optional[Tuple[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]], torch.Tensor]] = None
         self._out: Optional[torch.Tensor] = None  # the graph's scalars_by_step
+        self._phases = trace.NO_PHASES  # the graph's phase events
 
     def steps(self, ts: TrainState, batches: Dict[str, torch.Tensor], noises: List[Dict[str, Any]],
-              step: torch.Tensor) -> torch.Tensor:
+              step: torch.Tensor, phases=trace.NO_PHASES) -> torch.Tensor:
         """The K steps: step k on slot k of ``batches`` and ``noises`` at
-        ``step``, which it advances by one after each. Returns their scalars
-        stacked ``[K, len(keys)]`` and sets ``keys``."""
+        ``step``, which it advances by one after each, each with its
+        ``phases`` events. Returns their scalars stacked ``[K, len(keys)]``
+        and sets ``keys``."""
         rows = []
         for k in range(self.k):
             scalars = _update(ts, {key: v[k] for key, v in batches.items()}, noises[k], step, self.group,
-                              self.spatial)
+                              self.spatial, phases)
             step.add_(1)
             rows.append(torch.stack([v.float() for v in scalars.values()]))
         self.keys = list(scalars)
@@ -244,21 +261,23 @@ class MultiStep:
             raise ValueError(f"steps_per_call={self.k} takes batches stacked [{self.k}, B, ...], got {bad}")
         if noises is not None and len(noises) != self.k:
             raise ValueError(f"steps_per_call={self.k} takes {self.k} noise dicts, got {len(noises)}")
-        images = batches["images"]
-        if self.group is not None:  # the global batch's noise, this rank's slice
-            noises = [_rank_noise(ts, images[k], None if noises is None else noises[k], self.group, self.spatial)
-                      for k in range(self.k)]
-        elif noises is None:
-            noises = [ts.model.draw_noise(images.shape[1], images.shape[2], ts.rng, images.device)
-                      for _ in range(self.k)]
-        if images.device.type == "cuda":
-            table = self._cuda_call(ts, batches, noises)
-        else:
-            table = self.steps(ts, batches, noises, torch.tensor(ts.step, device=images.device))
-        ts.step += self.k
-        self.calls += 1
-        self.scalars_by_step = table
-        return {key: table[-1, i] for i, key in enumerate(self.keys)}
+        with trace.span("multistep.call"):
+            images = batches["images"]
+            with trace.span("multistep.noise"):
+                if self.group is not None:  # the global batch's noise, this rank's slice
+                    noises = [_rank_noise(ts, images[k], None if noises is None else noises[k], self.group,
+                                          self.spatial) for k in range(self.k)]
+                elif noises is None:
+                    noises = [ts.model.draw_noise(images.shape[1], images.shape[2], ts.rng, images.device)
+                              for _ in range(self.k)]
+            if images.device.type == "cuda":
+                table = self._cuda_call(ts, batches, noises)
+            else:
+                table = self.steps(ts, batches, noises, torch.tensor(ts.step, device=images.device))
+            ts.step += self.k
+            self.calls += 1
+            self.scalars_by_step = table
+            return {key: table[-1, i] for i, key in enumerate(self.keys)}
 
     def check_capturable(self) -> None:
         """Raise unless the group's collectives capture into a CUDA graph:
@@ -294,21 +313,25 @@ class MultiStep:
         got = {key: tuple(v.shape) for key, v in batches.items()}
         if got != shapes:
             raise ValueError(f"a CUDA graph replays fixed shapes {shapes}, got {got}")
-        for key, v in batches.items():
-            static_batches[key].copy_(v)
-        for slot, noise in zip(static_noises, noises):
-            for key, v in noise.items():
-                if torch.is_tensor(v):
-                    slot[key].copy_(v)
-                else:
-                    slot[key].fill_(v)
-        step.fill_(ts.step)
+        with trace.span("multistep.copy_in"):
+            for key, v in batches.items():
+                static_batches[key].copy_(v)
+            for slot, noise in zip(static_noises, noises):
+                for key, v in noise.items():
+                    if torch.is_tensor(v):
+                        slot[key].copy_(v)
+                    else:
+                        slot[key].fill_(v)
+            step.fill_(ts.step)
         if self.calls == 0:
-            return self._eager(ts, static_batches, static_noises, step)
+            with trace.setup_span("multistep.eager"):
+                return self._eager(ts, static_batches, static_noises, step)
         if self._graph is None:
             self._capture(ts, static_batches, static_noises, step)
-        self._graph.replay()
-        K.add_launches(self.graph_launches)
+        with trace.span("multistep.replay"):
+            self._graph.replay()
+            K.add_launches(self.graph_launches)
+        trace.use_phases(self._phases)
         return self._out.clone()
 
     def _eager(self, ts, batches, noises, step) -> torch.Tensor:
@@ -317,7 +340,7 @@ class MultiStep:
         side = torch.cuda.Stream(step.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            table = self.steps(ts, batches, noises, step)
+            table = self.steps(ts, batches, noises, step, trace.phases_for(step.device))
         current.wait_stream(side)
         table.record_stream(current)
         return table
@@ -333,13 +356,15 @@ class MultiStep:
     def _capture(self, ts, batches, noises, step) -> None:
         before = K.launch_dtypes()
         graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
-        t0 = time.perf_counter()
-        # thread_local: the data feeder's thread goes on copying batches on its own stream
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._out = self.steps(ts, batches, noises, step)
-        if self.keep_graph:
-            graph.instantiate()  # capture_end instantiates only a graph it does not keep
-        self.capture_s = time.perf_counter() - t0
+        phases = trace.StepPhases()
+        with trace.setup_span("multistep.capture") as span:
+            # thread_local: the data feeder's thread goes on copying batches on its own stream
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._out = self.steps(ts, batches, noises, step, phases)
+            if self.keep_graph:
+                graph.instantiate()  # capture_end instantiates only a graph it does not keep
+        self.capture_s = span.seconds
+        self._phases = phases
         self.graph_launches = _launch_delta(before, K.launch_dtypes())
         K.add_launches(self.graph_launches, -1)  # the capture launched nothing
         self._graph = graph
