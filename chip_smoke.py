@@ -49,7 +49,9 @@ and ``nvidia-smi``. Phases, each fatal on failure:
     directory: 16 examples, best of 8 samples in one rollout of 64, VGG and
     LPIPS from seeded ``.npz`` weights; check the metric files, the gallery
     and the launch counts per rollout; then the ``ground_truth`` (PSNR inf,
-    SSIM 1) and ``repeat`` baselines without a checkpoint;
+    SSIM 1) and ``repeat`` baselines without a checkpoint; then VGG and LPIPS
+    through ``BestOfN``, the target featurised once for two chunks, against
+    each metric on the target expanded to every sample, TF32 on and off;
 12. ``sv2p`` at full width from a run directory with seeded weights:
     ``evaluate`` with best of 2 and its launch counts, and its GPU rollout
     against its CPU rollout with TF32 off;
@@ -1113,7 +1115,40 @@ def evaluate_phase(vgg_path: str, lin_path: str) -> dict:
             check(bool((np.abs(ssim - 1.0) <= 1e-6).all()), "ground_truth SSIM is not 1")
         else:
             check(bool(np.isfinite(psnr).all() and np.isfinite(ssim).all()), "repeat gave non-finite metrics")
+    split_metrics_check(torch.device("cuda", 0), vgg_path, lin_path)
     return launches
+
+
+def split_metrics_check(dev, vgg_path: str, lin_path: str) -> None:
+    """Phase 11, the CLI's perceptual metrics through ``BestOfN``: two chunks
+    of 8 clips x 8 samples, whose target ``prepare`` featurises once, each
+    chunk's ``vgg_csim`` and ``lpips`` against the metric called on the
+    target expanded to every sample, with cuDNN's default TF32 (as the CLI
+    runs) and with it off."""
+    from video_prediction_torch.evaluate import BestOfN, metric_fns
+
+    g = torch.Generator().manual_seed(11)
+    frames = torch.rand(8, 11, 64, 64, 3, generator=g)  # context 2: 10 scored frames
+    target = frames[:, 1:].to(dev)
+    chunks = [(frames[:, None] + 0.1 * torch.randn(8, 8, 11, 64, 64, 3, generator=g)).clamp(0.0, 1.0).to(dev)
+              for _ in range(2)]
+    fns = {m: fn for m, fn in metric_fns(dev, vgg_path, lin_path).items() if m in ("vgg_csim", "lpips")}
+    with torch.inference_mode():
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            red = BestOfN(fns, target, 2, keep_best=False)
+            check(red.split == set(fns), f"BestOfN splits {red.split}, want {set(fns)}")
+            errs = {m: 0.0 for m in fns}
+            for chunk in chunks:
+                vals, pred = red.update(chunk), chunk[:, :, 1:]
+                for m, fn in fns.items():
+                    want = fn(target[:, None].expand_as(pred), pred)
+                    errs[m] = max(errs[m], float((vals[m] - want).abs().max()))
+            print(f"BestOfN's prepared target (TF32 {'on' if tf32 else 'off'}) against the metric on the expanded "
+                  f"target: max_abs_err {errs} (tol {METRIC_TOL['perceptual']})")
+            for m, err in errs.items():
+                check(err <= METRIC_TOL["perceptual"], f"{m} through BestOfN's split differs by {err}")
+    set_tf32_default()
 
 
 def sv2p_phase(dev) -> None:

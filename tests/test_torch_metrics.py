@@ -121,6 +121,27 @@ def test_vgg_and_lpips_metrics_match_jax(weights):
         np.testing.assert_allclose(d, np.asarray(jl(a, b)), atol=PERCEPTUAL_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("metric", ["vgg", "lpips_learned", "lpips_default"])
+def test_split_metrics_match_jax_on_the_expanded_target(weights, metric):
+    """``score(prepare(target), pred)`` with 3 samples a target, the path
+    ``evaluate.BestOfN`` runs, against the JAX package's metric on the target
+    expanded to every sample: VGG, and LPIPS with learned linear weights
+    (negative entries clipped) and with the 1/C default."""
+    _, vgg_path, lin_path = weights
+    g = np.random.RandomState(3)
+    target = g.rand(2, 2, 32, 32, 3).astype(np.float32)
+    pred = np.clip(target[:, None] + 0.1 * g.randn(2, 3, 2, 32, 32, 3), 0.0, 1.0).astype(np.float32)
+    if metric == "vgg":
+        tm, jm = TVGG(vgg_path), JVGG(vgg_path)
+    else:
+        lin = lin_path if metric == "lpips_learned" else None
+        tm, jm = TLPIPS(vgg_path, lin, allow_random=lin is None), JLPIPS(vgg_path, lin, allow_random=lin is None)
+    got = tm.score(tm.prepare(torch.from_numpy(target)), torch.from_numpy(pred)).numpy()
+    assert got.shape == (2, 3, 2)
+    want = np.asarray(jm(np.broadcast_to(target[:, None], pred.shape), pred))
+    np.testing.assert_allclose(got, want, atol=PERCEPTUAL_ATOL, rtol=0)
+
+
 def test_npz_kernels_are_transposed_to_oihw(weights):
     jvgg, vgg_path, _ = weights
     state = load_params_npz(vgg_path)

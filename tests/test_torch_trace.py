@@ -246,6 +246,25 @@ def test_bestofn_update_records_a_span_a_metric():
     assert len(records) == 6
 
 
+def test_bestofn_prepares_a_split_metric_once_in_the_first_update():
+    """A metric with ``prepare`` records one ``metric.<name>.target`` a
+    ``BestOfN``, a child of the first update's ``metric.<name>``."""
+    from video_prediction_torch.models.vgg import VGGMetric
+
+    g = torch.Generator().manual_seed(0)
+    target, chunk = torch.rand(2, 2, 32, 32, 3, generator=g), torch.rand(2, 2, 3, 32, 32, 3, generator=g)
+    red = BestOfN({"vgg_csim": VGGMetric(allow_random=True)}, target, context_frames=2, keep_best=False)
+    with torch.inference_mode(), cpu_profile():
+        for _ in range(3):
+            red.update(chunk)
+    records = trace.spans()
+    metric = named(records, "metric.vgg_csim")
+    (prepare,) = named(records, "metric.vgg_csim.target")
+    assert len(metric) == 3 and prepare["parent"] == metric[0]["id"]
+    assert prepare["depth"] == metric[0]["depth"] + 1 and "device_ms" not in prepare
+    assert len(records) == 7
+
+
 def test_counters_read_the_launch_counters():
     """``counters()`` is ``kernels.launch_counts()``, read through."""
     K.reset_launch_counts()

@@ -23,7 +23,9 @@ its max is taken on the negated distance and the sign restored on write.
 Unlike the JAX CLI, which pulls every rollout to the host, the metrics of a
 whole chunk are computed in one call on the device, where the running max and
 sum stay; the host receives them, and the best rollout, once per batch. The
-model and every metric run on ``--device``; a CUDA device that is not there
+VGG and LPIPS metrics featurise the batch's target frames once, not once a
+sample (``BestOfN``); the values are those of a call per sample. The model
+and every metric run on ``--device``; a CUDA device that is not there
 raises.
 """
 
@@ -90,8 +92,24 @@ def metric_fns(device: torch.device, vgg_weights_path: str = "", lpips_weights_p
         from video_prediction_torch.models.lpips import LPIPSMetric
 
         lpips = LPIPSMetric(vgg_weights_path=vgg_weights_path, lin_weights_path=lpips_weights_path, device=device)
-        fns["lpips"] = lambda target, pred: -lpips(target, pred)
+        fns["lpips"] = Negated(lpips)
     return fns
+
+
+class Negated:
+    """``-metric``, with its ``prepare``/``score`` split (``BestOfN``)."""
+
+    def __init__(self, metric):
+        self.metric = metric
+
+    def __call__(self, target: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+        return -self.metric(target, pred)
+
+    def prepare(self, target: torch.Tensor):
+        return self.metric.prepare(target)
+
+    def score(self, prepared, pred: torch.Tensor) -> torch.Tensor:
+        return -self.metric.score(prepared, pred)
 
 
 def sample_chunks(model, batch: Dict[str, torch.Tensor], n_samples: int, samples_per_rollout: int,
@@ -114,13 +132,24 @@ class BestOfN:
     """Running reductions over stochastic samples, on the device: per metric
     the max and the sum per ``[B, T - context]``, and the rollout with the
     best mean PSNR per example (the first one to reach it, as the JAX CLI's
-    strict ``>`` keeps it). Spans (``utils/trace.py``): ``bestofn.update``,
-    with a ``metric.<name>`` child a metric function, each timed on the
-    device too."""
+    strict ``>`` keeps it).
+
+    A metric is a function ``(target, pred) -> [...]``, given the target
+    expanded to every sample, or an object with a ``prepare``/``score``
+    split (``models/vgg.py#VGGMetric``, ``models/lpips.py#LPIPSMetric``):
+    then the first update computes ``prepare(target)`` once, for every
+    chunk of this batch, and each update calls ``score(prepared, pred)``,
+    so that the target's frames are featurised once a batch, not once a
+    sample. Spans (``utils/trace.py``): ``bestofn.update``, with a
+    ``metric.<name>`` child a metric, and inside the first update's a
+    ``metric.<name>.target`` around ``prepare``; each timed on the device
+    too."""
 
     def __init__(self, fns: Dict[str, Callable], target: torch.Tensor, context_frames: int, keep_best: bool):
         self.fns, self.target, self.ctx, self.keep_best = fns, target, context_frames, keep_best
         self.span_names, self.device = {m: "metric." + m for m in fns}, target.device
+        self.split = {m for m, fn in fns.items() if hasattr(fn, "prepare")}
+        self.prepared: Dict[str, object] = {}
         self.best: Dict[str, torch.Tensor] = {}
         self.sum: Dict[str, torch.Tensor] = {}
         self.n = 0
@@ -135,7 +164,13 @@ class BestOfN:
             vals = {}
             for m, fn in self.fns.items():
                 with trace.span(self.span_names[m], self.device):
-                    vals[m] = fn(target, pred)
+                    if m not in self.split:
+                        vals[m] = fn(target, pred)
+                        continue
+                    if m not in self.prepared:
+                        with trace.span(self.span_names[m] + ".target", self.device):
+                            self.prepared[m] = fn.prepare(self.target)
+                    vals[m] = fn.score(self.prepared[m], pred)
             for m, v in vals.items():
                 top, total = v.max(dim=1).values, v.sum(dim=1)
                 self.best[m] = top if m not in self.best else torch.maximum(self.best[m], top)

@@ -82,13 +82,18 @@ def structural_similarity(
     return (lum * cs).mean(dim=(1, 2, 3)).reshape(lead)
 
 
-def cosine_similarity(x: torch.Tensor, y: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+def unit_normalize(x: torch.Tensor, dim: int, eps: float) -> torch.Tensor:
+    """``x`` scaled by ``rsqrt(sum of squares along dim + eps)``."""
+    return x * torch.rsqrt(x.square().sum(dim=dim, keepdim=True) + eps)
+
+
+COSINE_EPS = 1e-12
+
+
+def cosine_similarity(x: torch.Tensor, y: torch.Tensor, dim: int = -1, eps: float = COSINE_EPS) -> torch.Tensor:
     """Cosine similarity along ``dim`` (the VGG feature similarity): each side
     scaled by ``rsqrt(sum of squares + eps)``."""
-    x, y = x.float(), y.float()
-    xn = x * torch.rsqrt(x.square().sum(dim=dim, keepdim=True) + eps)
-    yn = y * torch.rsqrt(y.square().sum(dim=dim, keepdim=True) + eps)
-    return (xn * yn).sum(dim=dim)
+    return (unit_normalize(x.float(), dim, eps) * unit_normalize(y.float(), dim, eps)).sum(dim=dim)
 
 
 METRIC_FNS = {

@@ -17,23 +17,28 @@ by ``1/C``.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from video_prediction_torch.models.vgg import build_features
+from video_prediction_torch.metrics import unit_normalize
+from video_prediction_torch.models.vgg import build_features, prepare_taps
 
 _TAP_CHANNELS = [64, 128, 256, 512, 512]
-
-
-def _unit_normalize(x: torch.Tensor, dim: int = 1, eps: float = 1e-10) -> torch.Tensor:
-    return x * torch.rsqrt(x.square().sum(dim=dim, keepdim=True) + eps)
+_EPS = 1e-10
 
 
 class LPIPSMetric:
     """``__call__(a, b)`` on ``[..., H, W, C]`` gives the LPIPS distance
-    ``[...]`` (lower is closer). Runs on ``device``; inputs must lie there."""
+    ``[...]`` (lower is closer). Runs on ``device``; inputs must lie there.
+
+    Split as ``VGGMetric`` is, for one target against many samples:
+    ``prepare(target)`` keeps the target's unit-normalised taps,
+    ``score(prepared, pred [B, k, ...])`` featurises the predictions only
+    and gives ``[B, k, ...]``; ``evaluate.BestOfN`` prepares a batch's
+    target once, and ``__call__`` is the split at one target and one
+    sample."""
 
     def __init__(self, vgg_weights_path: Optional[str] = None, lin_weights_path: Optional[str] = None,
                  allow_random: bool = False, device: torch.device | str = "cpu"):
@@ -46,16 +51,21 @@ class LPIPSMetric:
             self.untrained = True
         else:
             raise FileNotFoundError("LPIPS linear weights (.npz with lin{i}/weight) not found.")
-        # clipped at 0 once here; [C] -> [1, C, 1, 1] against NCHW taps
-        self.lins = [lin.clamp(min=0.0).reshape(1, -1, 1, 1).to(device) for lin in lins]
+        # clipped at 0 once here; [C] -> [C, 1, 1] against [..., C, h, w] taps
+        self.lins = [lin.clamp(min=0.0).reshape(-1, 1, 1).to(device) for lin in lins]
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        lead = a.shape[:-3]
-        h, w, c = a.shape[-3:]
-        fa = self.module(a.reshape(-1, h, w, c))
-        fb = self.module(b.reshape(-1, h, w, c))
+        return self.score(self.prepare(a[None]), b[None, None])[0, 0]
+
+    def prepare(self, target: torch.Tensor) -> List[torch.Tensor]:
+        """``target [B, ..., H, W, C]`` -> its 5 unit-normalised taps, each ``[B, ..., C, h, w]``."""
+        return prepare_taps(self.module, target, _EPS)
+
+    def score(self, prepared: List[torch.Tensor], pred: torch.Tensor) -> torch.Tensor:
+        """``pred [B, k, ..., H, W, C]``, ``k`` samples of the target that
+        ``prepared`` holds -> the distance ``[B, k, ...]``."""
         total = 0.0
-        for ta, tb, lin in zip(fa, fb, self.lins):
-            diff = (_unit_normalize(ta) - _unit_normalize(tb)).square()  # [N, C, h, w]
-            total = total + (diff * lin).sum(dim=1).mean(dim=(-2, -1))
-        return total.reshape(lead)
+        for tt, tp, lin in zip(prepared, prepare_taps(self.module, pred, _EPS), self.lins):
+            diff = (tt.unsqueeze(1) - tp).square()  # [B, k, ..., C, h, w]
+            total = total + (diff * lin).sum(dim=-3).mean(dim=(-2, -1))
+        return total

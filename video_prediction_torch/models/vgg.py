@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from video_prediction_torch.metrics import cosine_similarity
+from video_prediction_torch.metrics import COSINE_EPS, unit_normalize
 
 # (block, convs in the block, channels)
 _CFG = [(1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512)]
@@ -96,20 +96,43 @@ def build_features(weights_path: Optional[str], allow_random: bool, device, what
     return module.to(device).eval(), untrained
 
 
+def prepare_taps(module: VGG16Features, images: torch.Tensor, eps: float) -> List[torch.Tensor]:
+    """The 5 taps of ``images [..., H, W, C]``, each in fp32, unit-normalised
+    over its channels and ``[..., C, h, w]``."""
+    lead = images.shape[:-3]
+    taps = module(images.reshape(-1, *images.shape[-3:]))
+    return [unit_normalize(t.float(), 1, eps).reshape(*lead, *t.shape[1:]) for t in taps]
+
+
 class VGGMetric:
     """VGG cosine similarity between image batches: ``__call__(a, b)`` on
     ``[..., H, W, C]`` gives ``[...]``, the mean over the 5 taps of the
     channel cosine at each position averaged over the positions. Runs on
-    ``device``; inputs must lie there."""
+    ``device``; inputs must lie there.
+
+    The metric splits for one target scored against many samples:
+    ``prepare(target)`` runs the trunk on the target's frames and keeps
+    their unit-normalised taps, and ``score(prepared, pred)`` runs it on the
+    predictions only and takes the channel dot product against the target's
+    taps broadcast over the sample axis. ``evaluate.BestOfN`` prepares a
+    batch's target once; ``__call__``, which the ``vgg_cdist`` training loss
+    differentiates, is the split at one target and one sample."""
 
     def __init__(self, weights_path: Optional[str] = None, allow_random: bool = False,
                  device: torch.device | str = "cpu"):
         self.module, self.untrained = build_features(weights_path, allow_random, device, "VGGMetric")
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        lead = a.shape[:-3]
-        h, w, c = a.shape[-3:]
-        fa = self.module(a.reshape(-1, h, w, c))
-        fb = self.module(b.reshape(-1, h, w, c))
-        sims = [cosine_similarity(ta, tb, dim=1).mean(dim=(-2, -1)) for ta, tb in zip(fa, fb)]
-        return torch.stack(sims).mean(dim=0).reshape(lead)
+        return self.score(self.prepare(a[None]), b[None, None])[0, 0]
+
+    def prepare(self, target: torch.Tensor) -> List[torch.Tensor]:
+        """``target [B, ..., H, W, C]`` -> its 5 taps, unit-normalised over
+        the channels, each ``[B, ..., C, h, w]``."""
+        return prepare_taps(self.module, target, COSINE_EPS)
+
+    def score(self, prepared: List[torch.Tensor], pred: torch.Tensor) -> torch.Tensor:
+        """``pred [B, k, ..., H, W, C]``, ``k`` samples of the target that
+        ``prepared`` holds -> the cosine similarity ``[B, k, ...]``."""
+        sims = [(tt.unsqueeze(1) * tp).sum(dim=-3).mean(dim=(-2, -1))
+                for tt, tp in zip(prepared, prepare_taps(self.module, pred, COSINE_EPS))]
+        return torch.stack(sims).mean(dim=0)
