@@ -5,8 +5,8 @@ one process:
 
 For each seed: a run of the cell (set-up, a short window at the cell's own
 load, the check) gives the program's numbers; on the first ``--control``
-seeds the control, the program with its bfloat16 compute switched on
-(``CONTROL``), is checked the same way; on the first
+seeds the control, the program one precision below its configuration's
+(``control``), is checked the same way; on the first
 ``--faults`` seeds each fault of ``benchmark/faults.py`` that the cell can
 have (on the card its replay faults too) is planted under the program and
 its run checked. One JSON line a
@@ -16,18 +16,69 @@ reading, on standard output.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
+from typing import Dict, NamedTuple
 
 import torch
 
-from benchmark import common, faults, run
+from benchmark import common, faults, program, run
 
-# the control: the program's own lower-precision path switched on. The
-# configurations state fp32 (with cuDNN's TF32); the port's bf16 compute
-# (convs, norms' outputs, recurrent states in bfloat16, the gate maths in
-# fp32) is the step below it
-CONTROL = {"compute_dtype": "bfloat16"}
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0  # the largest finite float8_e4m3fn
+
+
+class Control(NamedTuple):
+    """The program one precision below its configuration's: hparams that
+    switch on its own lower-precision path, and a context that plants one
+    under it."""
+
+    overrides: Dict
+    plant: contextlib.AbstractContextManager
+
+
+def control(cfg: Dict) -> Control:
+    """The control of configuration ``cfg``. An fp32 configuration (with
+    cuDNN's TF32): the port's own bf16 compute (convs, norms' outputs,
+    recurrent states in bfloat16, the gate maths in fp32). A bf16
+    configuration: as configured, with every conv of the generator (the
+    ConvLSTMs' gate convs among them) rounding its output to float8 e4m3
+    (``fp8_convs``)."""
+    if cfg["precision"]["dtype"] == "float32":
+        return Control({"compute_dtype": "bfloat16"}, contextlib.nullcontext())
+    if cfg["precision"]["dtype"] == "bfloat16":
+        return Control({}, fp8_convs())
+    raise ValueError(f"no control for a configuration in {cfg['precision']['dtype']}")
+
+
+def fp8_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to float8 e4m3 (3 mantissa bits against bf16's 7; beyond
+    its range clipped to it) in the forward pass; the gradient passes
+    through unchanged, as fp8 training keeps its gradients wider."""
+    rounded = t.clamp(-FP8_MAX, FP8_MAX).to(FP8).to(t.dtype)
+    return t + (rounded - t).detach()
+
+
+@contextlib.contextmanager
+def fp8_convs():
+    """Every model built (``program.build_model``) while this is on gets a
+    forward hook on each conv of its generator that rounds the conv's output
+    to float8 e4m3 (``fp8_round``). The port is not changed."""
+    from video_prediction_torch.ops.layers import Conv2D
+
+    def make(original):
+        def build(*args, **kwargs):
+            model, weights = original(*args, **kwargs)
+            for module in model.generator.modules():
+                if isinstance(module, Conv2D):
+                    module.register_forward_hook(lambda mod, inputs, out: fp8_round(out))
+            return model, weights
+
+        return build
+
+    with faults.patched(program, "build_model", make):
+        yield
 
 
 def main(argv=None) -> int:
@@ -43,7 +94,7 @@ def main(argv=None) -> int:
     if torch.device(args.device).type == "cpu" and not args.tiny:
         raise SystemExit("the cells' own sizes run on the card; on the CPU pass --tiny")
     spec = common.benchmark_spec()
-    _, _, traffic = common.resolve(spec, args.workload)
+    _, cfg, traffic = common.resolve(spec, args.workload)
     kind = traffic["kind"]
     sizes = {}
     if args.tiny:
@@ -55,16 +106,20 @@ def main(argv=None) -> int:
         out = run.run_cell(spec, args.workload, seed, args.seconds, False, args.device, **sizes)
         c = out["cell"]
         numbers = {k: v["value"] for k, v in out["checks"].items()}
-        print(json.dumps({"seed": seed, "mode": "program", "numbers": numbers, "units": out["info"]["units"]}),
-              flush=True)
+        info = out["info"]
+        print(json.dumps({"seed": seed, "mode": "program", "numbers": numbers, "units": info["units"],
+                          "peak_bytes": info["peak_bytes"], "reference_s": info["reference_s"],
+                          "reference_peak_bytes": info["reference_peak_bytes"]}), flush=True)
         if hasattr(c, "detail"):
             print(json.dumps({"seed": seed, "detail": c.detail(c.outputs, out["want"])}), flush=True)
         del out, c
         if i < args.control:
-            control = dict(sizes, overrides=dict(sizes.get("overrides", {}), **CONTROL))
-            out = run.run_cell(spec, args.workload, seed, args.seconds, False, args.device, **control)
+            ctl = control(cfg)
+            with ctl.plant:
+                out = run.run_cell(spec, args.workload, seed, args.seconds, False, args.device,
+                                   **dict(sizes, overrides=dict(sizes.get("overrides", {}), **ctl.overrides)))
             numbers = {k: v["value"] for k, v in out["checks"].items()}
-            print(json.dumps({"seed": seed, "mode": "control_bf16", "numbers": numbers}), flush=True)
+            print(json.dumps({"seed": seed, "mode": "control", "numbers": numbers}), flush=True)
             if hasattr(out["cell"], "detail"):
                 print(json.dumps({"seed": seed, "detail_control": out["cell"].detail(out["cell"].outputs, out["want"])}),
                       flush=True)

@@ -13,9 +13,12 @@ rollouts of the samples it keeps and the metrics of those samples (VGG16 on
 each predicted frame and once on each target frame, the SSIM filter).
 
 Bytes: a frozen copy of the formulas of the port's ``kernels/roofline.py``:
-each input read once, each output written once, fp32; the bound is the bytes
-over the H100 SXM's 3.35e12 B/s (every one of these kernels lies far below
-the card's operations-per-byte line).
+each input read once, each output written once, each tensor in the dtype
+the kernel runs in (``k2_itemsize``): K2's rows in bf16 where the
+configuration computes or gates in bf16, its LayerNorm parameters and all
+of K1 and K3 in fp32 (they take fp32 images, kernels and logits under bf16
+compute too); the bound is the bytes over the H100 SXM's 3.35e12 B/s (every
+one of these kernels lies far below the card's operations-per-byte line).
 """
 
 from __future__ import annotations
@@ -170,16 +173,24 @@ def composite_backward(b, k, h, w, c, itemsize=4) -> int:
     return 2 * (p * k * c * itemsize + p * k * itemsize) + p * c * itemsize
 
 
+def k2_itemsize(hp: Dict) -> int:
+    """Bytes of an element of K2's rows (z, c and their outputs): bf16 gates
+    take bf16; fp32 gates take the dtype that holds the gate conv's output
+    and the cell state, bf16 under bf16 compute."""
+    return 2 if "bfloat16" in (hp["gate_dtype"], hp["compute_dtype"]) else 4
+
+
 def kernel_bytes(hp: Dict, batch: int, h: int, w: int, c: int, backward: bool) -> Dict[str, int]:
     """Bytes of one generator step's K1, K2 and K3 launches at ``batch``
     samples, forward (or backward)."""
     kh = hp["kernel_size"][0]
     n, k = hp["num_transformed_images"], n_candidates(hp)
     rows = [(batch * r, f) for r, f, _ in lstm_widths(hp, h, w)]
+    k2 = k2_itemsize(hp)
     if backward:
-        return {"K1": cdna_backward(batch, h, w, c, kh, n), "K2": ln_gate_backward(rows),
+        return {"K1": cdna_backward(batch, h, w, c, kh, n), "K2": ln_gate_backward(rows, k2),
                 "K3": composite_backward(batch, k, h, w, c)}
-    return {"K1": cdna_forward(batch, h, w, c, kh, n), "K2": ln_gate_forward(rows),
+    return {"K1": cdna_forward(batch, h, w, c, kh, n), "K2": ln_gate_forward(rows, k2),
             "K3": composite_forward(batch, k, h, w, c)}
 
 

@@ -26,13 +26,21 @@ here, and ``check_supported`` refuses the rest:
   log-variance heads;
 - the video discriminator: six spectrally normalized 3-D convs (leaky ReLU
   0.1, each map a feature) and a spectrally normalized dense layer on the
-  NTHWC-flattened last map; one power iteration a call, differentiated
+  NTHWC-flattened last map; one power iteration a step, differentiated
   through, from the stored ``u``;
 - the training step: the prior and the posterior rollouts as one doubled
   batch, scheduled sampling (inverse sigmoid), the L1, KL (linear anneal)
   and LSGAN terms of both discriminators, the posterior discriminator's
-  feature matching, one backward pass, Adam on both sides, then the
-  advanced ``u``.
+  feature matching, one gradient of the whole objective, Adam on both
+  sides, then the advanced ``u``. The gradient is summed over blocks of at
+  most ``BLOCK`` samples, so that a large batch fits: each block's backward
+  pass takes its share of the objective (every batch mean over the whole
+  batch), and the spectrally normalized weights, computed once a step, are
+  differentiated once, on the summed gradient.
+
+Whatever ``compute_dtype`` and ``gate_dtype`` a configuration states, the
+reference computes in fp32: a lower precision is the program's choice, not
+mathematics the reference is missing.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ SN_EPS = 1e-12
 FORGET_BIAS = 1.0
 ADAM_EPS = 1e-8
 GEN = "generator.cell."
+BLOCK = 16  # samples a backward pass of the training step
+DISCRIMINATORS = ("video", "video_vae")
+DTYPES = ("float32", "bfloat16")  # the compute and gate dtypes a configuration may state
 # the video discriminator's layers: (features / ndf, kernel (T, H, W), strides)
 VIDEO_DISC = [
     (1, (1, 3, 3), (1, 1, 1)),
@@ -63,9 +74,8 @@ SUPPORTED = {
     "transformation": "cdna", "kernel_normalization": "softmax", "last_frames": 1,
     "prev_image_background": True, "first_image_background": True, "context_images_background": False,
     "generate_scratch_image": True, "dependent_mask": True, "where_add": "all", "use_states": False,
-    "learn_prior": False, "latent_time_invariant": False, "lstm_gate_conv": "split", "gate_dtype": "float32",
-    "compute_dtype": "float32", "gan_loss_type": "LSGAN", "schedule_sampling": "inverse_sigmoid",
-    "schedule_sampling_exact": False, "kl_anneal": "linear",
+    "learn_prior": False, "latent_time_invariant": False, "lstm_gate_conv": "split", "gan_loss_type": "LSGAN",
+    "schedule_sampling": "inverse_sigmoid", "schedule_sampling_exact": False, "kl_anneal": "linear",
 }
 ZERO_WEIGHTS = ("l2_weight", "vgg_cdist_weight", "state_weight", "tv_weight", "z_l1_weight", "image_sn_gan_weight",
                 "image_sn_vae_gan_weight", "acvideo_sn_gan_weight", "acvideo_sn_vae_gan_weight",
@@ -75,6 +85,7 @@ ZERO_WEIGHTS = ("l2_weight", "vgg_cdist_weight", "state_weight", "tv_weight", "z
 def check_supported(hp: Dict) -> None:
     bad = {k: hp[k] for k, v in SUPPORTED.items() if hp[k] != v}
     bad.update({k: hp[k] for k in ZERO_WEIGHTS if hp[k]})
+    bad.update({k: hp[k] for k in ("compute_dtype", "gate_dtype") if hp[k] not in DTYPES})
     if bad or hp["nz"] <= 0:
         raise ValueError(f"the reference does not compute these settings: {bad or {'nz': hp['nz']}}")
 
@@ -247,23 +258,30 @@ def spectral_weight(w: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, tor
     return w / sigma.to(w.dtype), u_new.detach()
 
 
-def video_discriminator(P: Dict, U: Dict, name: str, clips: torch.Tensor, detach: bool = False):
-    """``clips [B,T,H,W,C]`` -> ``(logits [B,1], features, advanced u)``;
-    ``detach``: the discriminator's own weights carry no gradient."""
+def normalized_weights(P: Dict, U: Dict, name: str) -> Tuple[Dict, Dict]:
+    """``(weights, advanced u)`` of discriminator ``name``, each by layer: its
+    spectrally normalized weights (``spectral_weight``) from the stored ``u``."""
+    pre = f"discriminator.{name}."
+    layers = [f"sn_conv3d{i}" for i in range(len(VIDEO_DISC))] + ["sn_fc"]
+    pairs = {layer: spectral_weight(P[f"{pre}{layer}.weight"], U[f"{pre}{layer}.u"]) for layer in layers}
+    return {k: w for k, (w, _) in pairs.items()}, {k: u for k, (_, u) in pairs.items()}
+
+
+def apply_discriminator(P: Dict, W: Dict, name: str, clips: torch.Tensor, detach: bool = False):
+    """``clips [B,T,H,W,C]`` -> ``(logits [B,1], features)`` of discriminator
+    ``name`` with its normalized weights ``W``; ``detach``: its weights and
+    biases carry no gradient."""
     pre = f"discriminator.{name}."
 
-    def weight(key):
-        p = P[pre + key]
+    def cut(p):
         return p.detach() if detach else p
 
-    x, feats, new_u = clips, [], {}
+    x, feats = clips, []
     for i, (_, _, strides) in enumerate(VIDEO_DISC):
-        w, new_u[f"sn_conv3d{i}"] = spectral_weight(weight(f"sn_conv3d{i}.weight"), U[f"{pre}sn_conv3d{i}.u"])
-        x = F.leaky_relu(conv3d(x, w, weight(f"sn_conv3d{i}.bias"), strides), 0.1)
+        x = F.leaky_relu(conv3d(x, cut(W[f"sn_conv3d{i}"]), cut(P[f"{pre}sn_conv3d{i}.bias"]), strides), 0.1)
         feats.append(x)
-    w, new_u["sn_fc"] = spectral_weight(weight("sn_fc.weight"), U[pre + "sn_fc.u"])
-    logits = F.linear(x.reshape(x.shape[0], -1), w, weight("sn_fc.bias"))
-    return logits, feats, new_u
+    logits = F.linear(x.reshape(x.shape[0], -1), cut(W["sn_fc"]), cut(P[pre + "sn_fc.bias"]))
+    return logits, feats
 
 
 # ---------------------------------------------------------------- losses --
@@ -287,12 +305,15 @@ def learning_rate(step: int, hp: Dict) -> float:
     return hp["lr"] + (hp["end_lr"] - hp["lr"]) * min(max((step - s0) / (s1 - s0), 0.0), 1.0)
 
 
-def train_losses(P: Dict, U: Dict, hp: Dict, images_u8: torch.Tensor, noise: Dict, step: int):
-    """The objective of one step: ``(total, g_loss, d_loss, advanced u by
-    discriminator, the doubled rollout's frames)``. ``noise``: ``use_gt_u [T-1,B]``, ``eps_q`` and ``z_p``
-    ``[B,T-1,nz]``, ``clip_start`` (0-d)."""
+def block_losses(P: Dict, W: Dict, hp: Dict, images_u8: torch.Tensor, noise: Dict, step: int, batch: int):
+    """A block's share of one step's objective: ``(total, g_loss, d_loss, the
+    doubled rollout's frames)``, each batch mean taken over the ``batch``
+    samples of the whole step. ``W``: each discriminator's normalized
+    weights, by name; ``noise``: the block's rows of ``use_gt_u [T-1,B]``,
+    ``eps_q`` and ``z_p`` ``[B,T-1,nz]``, and ``clip_start`` (0-d)."""
     images = images_u8.float() / 255.0
     b, t = images.shape[:2]
+    share = b / batch
     ctx = hp["context_frames"]
     in_context = torch.arange(t - 1, device=images.device)[:, None] < ctx
     use_gt = in_context | (noise["use_gt_u"] < ground_truth_prob(step, hp).to(images.device))
@@ -302,10 +323,10 @@ def train_losses(P: Dict, U: Dict, hp: Dict, images_u8: torch.Tensor, noise: Dic
                    torch.cat([noise["z_p"], z_q]))
     gen, recon = gen2[:b], gen2[b:]
     target = images[:, 1:]
-    g = {"l1": hp["l1_weight"] * (recon - target).abs().mean()}
+    g = {"l1": hp["l1_weight"] * (recon - target).abs().mean() * share}
     kl = 0.5 * (mu.square() + logvar.exp() - 1.0 - logvar)
-    g["kl"] = hp["kl_weight"] * kl_anneal(step, hp) * kl.sum(-1).mean()
-    d, new_u = {}, {}
+    g["kl"] = hp["kl_weight"] * kl_anneal(step, hp) * kl.sum(-1).mean() * share
+    d = {}
     clip_len = min(hp["clip_length"], t - 1)
     start = int(noise["clip_start"].clamp(0, t - 1 - clip_len))
     real = target[:, start : start + clip_len]
@@ -313,40 +334,90 @@ def train_losses(P: Dict, U: Dict, hp: Dict, images_u8: torch.Tensor, noise: Dic
                                            ("video_vae", recon, hp["video_sn_vae_gan_weight"],
                                             hp["vae_gan_feature_l2_weight"])):
         fake = fake[:, start : start + clip_len]
-        logits, feats, new_u[key] = video_discriminator(P, U, key, torch.cat([real, fake.detach()]))
+        logits, feats = apply_discriminator(P, W[key], key, torch.cat([real, fake.detach()]))
         lr_, lf_ = logits.float().chunk(2)
-        d[key + "_real"] = weight * (lr_ - 1.0).square().mean()
-        d[key + "_fake"] = weight * lf_.square().mean()
-        logits_g, feats_g, _ = video_discriminator(P, U, key, fake, detach=True)
-        g[key] = weight * (logits_g.float() - 1.0).square().mean()
+        d[key + "_real"] = weight * (lr_ - 1.0).square().mean() * share
+        d[key + "_fake"] = weight * lf_.square().mean() * share
+        logits_g, feats_g = apply_discriminator(P, W[key], key, fake, detach=True)
+        g[key] = weight * (logits_g.float() - 1.0).square().mean() * share
         if feat_weight:
             diffs = [(fr.chunk(2)[0].detach().float() - fg.float()).square().mean() for fr, fg in zip(feats, feats_g)]
-            g[key + "_feat"] = feat_weight * torch.stack(diffs).mean()
+            g[key + "_feat"] = feat_weight * torch.stack(diffs).mean() * share
     g_loss, d_loss = sum(g.values()), sum(d.values())
-    return g_loss + d_loss, g_loss, d_loss, new_u, gen2.detach()
+    return g_loss + d_loss, g_loss, d_loss, gen2.detach()
+
+
+def train_losses(P: Dict, U: Dict, hp: Dict, images_u8: torch.Tensor, noise: Dict, step: int):
+    """The objective of one step over the whole batch: ``(total, g_loss,
+    d_loss, advanced u by discriminator, the doubled rollout's frames)``."""
+    W, new_u = {}, {}
+    for key in DISCRIMINATORS:
+        W[key], new_u[key] = normalized_weights(P, U, key)
+    total, g_loss, d_loss, frames = block_losses(P, W, hp, images_u8, noise, step, images_u8.shape[0])
+    return total, g_loss, d_loss, new_u, frames
+
+
+def noise_rows(noise: Dict, rows: slice) -> Dict:
+    """The rows of one step's noise that belong to the samples ``rows``."""
+    return {k: v if v.ndim == 0 else v[:, rows] if k == "use_gt_u" else v[rows] for k, v in noise.items()}
+
+
+def step_gradients(params: Dict, U: Dict, hp: Dict, images_u8: torch.Tensor, noise: Dict, step: int,
+                   block: int = BLOCK):
+    """One step's gradient of the whole batch's objective, into each
+    parameter's ``.grad``, summed over blocks of ``block`` samples: ``(g_loss,
+    d_loss, advanced u by discriminator, the doubled rollout's frames)``. The
+    power iteration runs once, on the whole step's weights; each block's
+    backward pass stops at the normalized weights, and their summed gradient
+    goes through the power iteration once. A batch of one block takes the
+    whole batch's objective (``train_losses``) and one backward pass."""
+    batch = images_u8.shape[0]
+    if batch <= block:
+        total, g_loss, d_loss, new_u, frames = train_losses(params, U, hp, images_u8, noise, step)
+        total.backward()
+        return float(g_loss.detach()), float(d_loss.detach()), new_u, frames
+    W, new_u = {}, {}
+    for key in DISCRIMINATORS:
+        W[key], new_u[key] = normalized_weights(params, U, key)
+    leaves = {key: {k: w.detach().requires_grad_(True) for k, w in ws.items()} for key, ws in W.items()}
+    g_loss = d_loss = 0.0
+    prior, post = [], []
+    for lo in range(0, batch, block):
+        rows = slice(lo, min(lo + block, batch))
+        total, g, d, frames = block_losses(params, leaves, hp, images_u8[rows], noise_rows(noise, rows), step, batch)
+        total.backward()
+        g_loss, d_loss = g_loss + float(g.detach()), d_loss + float(d.detach())
+        n = rows.stop - rows.start
+        prior.append(frames[:n])
+        post.append(frames[n:])
+        del total, g, d, frames
+    normalized = [w for key in W for w in W[key].values()]
+    torch.autograd.backward(normalized, [leaves[key][k].grad for key in W for k in W[key]])
+    return g_loss, d_loss, new_u, torch.cat(prior + post)
 
 
 def train_steps(P0: Dict, U0: Dict, hp: Dict, batches: List[torch.Tensor], noises: List[Dict],
-                first_step: int = 0) -> Dict:
+                first_step: int = 0, block: int = BLOCK) -> Dict:
     """``len(batches)`` training steps from the weights ``P0`` and the ``u``
-    vectors ``U0``: each step's ``g_loss`` and ``d_loss``, each leaf's
-    first gradient norm (``grad_norms``), the share of its first gradient's
-    elements under ten times Adam's epsilon (``tiny_grad_share``), where
-    Adam's update is no longer near its sign, and the norm of each leaf's
-    change over the steps (``change_norms``), by name, and the first step's
-    doubled rollout (``first_frames``, the prior's then the posterior's)."""
+    vectors ``U0``, each step's gradient summed over blocks of ``block``
+    samples (``step_gradients``): each step's ``g_loss`` and ``d_loss``,
+    each leaf's first gradient norm (``grad_norms``), the share of its first
+    gradient's elements under ten times Adam's epsilon (``tiny_grad_share``),
+    where Adam's update is no longer near its sign, and the norm of each
+    leaf's change over the steps (``change_norms``), by name, the first
+    step's doubled rollout (``first_frames``, the prior's then the
+    posterior's) and the ``u`` vectors after each step (``u_by_step``)."""
     params = {k: v.detach().clone().float().requires_grad_(True) for k, v in P0.items()}
     U = {k: v.detach().clone().float() for k, v in U0.items()}
     state = {k: (torch.zeros_like(v), torch.zeros_like(v)) for k, v in params.items()}
     b1, b2 = hp["beta1"], hp["beta2"]
-    losses, grad_norms = [], None
+    losses, grad_norms, u_by_step = [], None, []
     for i, (images, noise) in enumerate(zip(batches, noises)):
         step = first_step + i
         for p in params.values():
             p.grad = None
-        total, g_loss, d_loss, new_u, frames = train_losses(params, U, hp, images, noise, step)
-        total.backward()
-        losses.append((float(g_loss.detach()), float(d_loss.detach())))
+        g_loss, d_loss, new_u, frames = step_gradients(params, U, hp, images, noise, step, block)
+        losses.append((g_loss, d_loss))
         with torch.no_grad():
             if grad_norms is None:
                 first_frames = frames.float()
@@ -364,8 +435,9 @@ def train_steps(P0: Dict, U0: Dict, hp: Dict, batches: List[torch.Tensor], noise
             for key, layers in new_u.items():
                 for layer, u in layers.items():
                     U[f"discriminator.{key}.{layer}.u"] = u
-        del total, g_loss, d_loss
+        u_by_step.append(dict(U))
+        del frames
     with torch.no_grad():
         change_norms = {k: float((p - P0[k].float()).norm()) for k, p in params.items()}
     return {"losses": losses, "grad_norms": grad_norms, "tiny_grad_share": tiny_grad_share,
-            "change_norms": change_norms, "first_frames": first_frames}
+            "change_norms": change_norms, "first_frames": first_frames, "u_by_step": u_by_step}

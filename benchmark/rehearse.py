@@ -5,7 +5,9 @@ harness's own functions (``run.run_cell``) with the port's plain paths:
 
 It prints one JSON line: each cell's checks and whether it came out
 correct, and the loaded modules whose top-level name no run may load.
-The sizes are the configurations' own shapes cut down (``TINY``); the
+The sizes are the configurations' own shapes cut down (``TINY``), computed
+in fp32 (``PLAIN``: the CPU rehearses the harness, not a precision; a bf16
+configuration's gaps at these widths say nothing of the card's); the
 limits are the cells' (fp32 against fp32 reads far below them).
 """
 
@@ -20,6 +22,7 @@ import torch
 from benchmark import common, run
 
 TINY = {"ngf": 4, "nef": 8, "ndf": 4, "nz": 4, "clip_length": 3, "image_shape": (32, 32, 3)}
+PLAIN = {"compute_dtype": "float32", "gate_dtype": "float32"}
 TINY_SEQUENCE = {"train": {"context_frames": 2, "sequence_length": 5},
                  "generate": {"context_frames": 2, "sequence_length": 5},
                  "evaluate": {"context_frames": 2, "sequence_length": 5, "long_sequence_length": 7}}
@@ -34,8 +37,8 @@ def rehearse(workload: str, seed: int = 12345, seconds: float = 0.5, trace: bool
     spec = common.benchmark_spec()
     _, _, traffic = common.resolve(spec, workload)
     kind = traffic["kind"]
-    return run.run_cell(spec, workload, seed, seconds, trace, "cpu", overrides=dict(TINY, **TINY_SEQUENCE[kind]),
-                        traffic_overrides=TINY_TRAFFIC[kind])
+    return run.run_cell(spec, workload, seed, seconds, trace, "cpu",
+                        overrides=dict(TINY, **TINY_SEQUENCE[kind], **PLAIN), traffic_overrides=TINY_TRAFFIC[kind])
 
 
 def main(argv=None) -> int:

@@ -24,6 +24,7 @@ import json
 import math
 import os
 import sys
+import time
 from typing import Dict, Optional
 
 # caches of anything the run compiles stay inside the checkout, at fixed paths
@@ -135,7 +136,12 @@ def run_cell(spec: Dict, workload: str, seed: int, seconds: float, trace_on: boo
     info = {"units": window["units"], "window_s": window["seconds"], "unit_ms": unit_ms, "peak_bytes": peak,
             "setup_s": setup_s}
     c.free()
+    if ctx.cuda:
+        torch.cuda.reset_peak_memory_stats(ctx.device)
+    t0 = time.perf_counter()
     want = c.reference()
+    info["reference_s"] = time.perf_counter() - t0
+    info["reference_peak_bytes"] = torch.cuda.max_memory_allocated(ctx.device) if ctx.cuda else 0
     numbers = c.compare(c.outputs, want)
     limits = limits_of(workload)
     checks = {k: {"value": v, "limit": limits.get(k)} for k, v in numbers.items()}
@@ -163,6 +169,8 @@ def describe(info: Dict, checks: Dict) -> None:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", file=sys.stderr)
     print(f"peak allocated: {info['peak_bytes'] / 2**30:.3f} GiB", file=sys.stderr)
+    print(f"reference: {info['reference_s']:.3f} s, peak allocated after the program was freed "
+          f"{info['reference_peak_bytes'] / 2**30:.3f} GiB", file=sys.stderr)
     for k, v in checks.items():
         print(f"check {k}: {v['value']!r} (limit {v['limit']!r})", file=sys.stderr)
 

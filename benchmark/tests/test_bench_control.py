@@ -1,7 +1,8 @@
 """The control of ``correct`` on the card, at each cell's own size: the
-program with its bfloat16 compute switched on (``calibrate.CONTROL``, the
-step below the configurations' fp32) must fail the cell's limits, where the
-program as configured passes them; and each fault that breaks only a
+program one precision below its configuration's (``calibrate.control``: its
+bfloat16 compute under an fp32 configuration, its generator's convs rounded
+to float8 under a bf16 one) must fail the cell's limits, where the program
+as configured passes them; and each fault that breaks only a
 replayed CUDA graph (``faults.CUDA_FAULTS``) must fail them. Needs a CUDA
 device; on the card:
 
@@ -28,7 +29,9 @@ def cuda():
 def test_control_fails_where_the_program_passes(cuda, cell):
     out = run.run_cell(SPEC, cell, 4242424242, 1.0, False, cuda)
     assert out["result"]["correct"], out["checks"]
-    control = run.run_cell(SPEC, cell, 4242424242, 1.0, False, cuda, overrides=calibrate.CONTROL)
+    ctl = calibrate.control(common.resolve(SPEC, cell)[1])
+    with ctl.plant:
+        control = run.run_cell(SPEC, cell, 4242424242, 1.0, False, cuda, overrides=ctl.overrides)
     assert not control["result"]["correct"], control["checks"]
 
 

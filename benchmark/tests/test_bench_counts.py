@@ -1,7 +1,8 @@
 """``benchmark/counts.py``: the conv and GEMM FLOPs against
 ``torch.utils.flop_counter.FlopCounterMode`` on the port's modules at a small
-size, and the K1-K3 bytes against the port's ``kernels/roofline.py`` at the
-shapes of every cell."""
+size, the K1-K3 bytes against the port's ``kernels/roofline.py`` at the
+shapes and dtypes of every cell and on the kernel table's bf16 rows, and the
+counts of the fp32 cells as they were before K2 was counted at its dtype."""
 
 import pytest
 import torch
@@ -70,20 +71,67 @@ def test_train_step_is_three_forwards(small):
     assert counts.train_step_flops(hp, b, t, h, w, c) == 3 * forward
 
 
+def unit_batch(traffic) -> int:
+    """The samples of one K1-K3 launch in a cell of ``traffic``."""
+    return {"train": 2 * traffic.get("batch_size", 0),
+            "generate": traffic.get("clips_per_request", 0) * traffic.get("samples_per_clip", 0),
+            "evaluate": traffic.get("batch_size", 0) * traffic.get("samples_per_rollout", 0)}[traffic["kind"]]
+
+
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_kernel_bytes_match_the_ports_roofline(cell):
     _, cfg, traffic = common.resolve(SPEC, cell)
     hp = cfg["hparams"]
     h, w, c = cfg["image_shape"]
-    batch = {"train": 2 * traffic.get("batch_size", 0),
-             "generate": traffic.get("clips_per_request", 0) * traffic.get("samples_per_clip", 0),
-             "evaluate": traffic.get("batch_size", 0) * traffic.get("samples_per_rollout", 0)}[traffic["kind"]]
+    batch = unit_batch(traffic)
     k = counts.n_candidates(hp)
+    # K2 takes bf16 rows under bf16 gates or bf16 compute (ops/rnn.py); K1 and K3 fp32 images and logits
+    k2 = 2 if "bfloat16" in (hp["gate_dtype"], hp["compute_dtype"]) else 4
     fwd = counts.kernel_bytes(hp, batch, h, w, c, False)
     assert fwd["K1"] == roofline.cdna_forward(batch, h, w, c)[0]
-    assert fwd["K2"] == roofline.ln_gate_forward(roofline.ln_gate_step(batch))[0]
+    assert fwd["K2"] == roofline.ln_gate_forward(roofline.ln_gate_step(batch), itemsize=k2)[0]
     assert fwd["K3"] == roofline.composite_forward(batch, k, h, w, c)[0]
     bwd = counts.kernel_bytes(hp, batch, h, w, c, True)
     assert bwd["K1"] == roofline.cdna_backward(batch, h, w, c)[0]
-    assert bwd["K2"] == roofline.ln_gate_backward(roofline.ln_gate_step(batch))[0]
+    assert bwd["K2"] == roofline.ln_gate_backward(roofline.ln_gate_step(batch), itemsize=k2)[0]
     assert bwd["K3"] == roofline.composite_backward(batch, k, h, w, c)[0]
+
+
+@pytest.mark.parametrize("backward,batch,megabytes", [(False, 64, 308.31), (False, 128, 616.59), (True, 128, 1057.02)])
+def test_k2_bf16_bytes_are_the_kernel_tables(backward, batch, megabytes):
+    """The kernel table's K2 bf16 rows (``PERF.md``), from the port's
+    ``kernels/roofline.py`` with its bf16 itemsize."""
+    cfg = common.load_json(common.ROOT / "benchmark" / "configs" / "savp_bair64_bf16.json")
+    hp = cfg["hparams"]
+    got = counts.kernel_bytes(hp, batch, *cfg["image_shape"], backward)["K2"]
+    ports = (roofline.ln_gate_backward if backward else roofline.ln_gate_forward)(roofline.ln_gate_step(batch),
+                                                                                   itemsize=2)[0]
+    assert got == ports and round(got / 1e6, 2) == megabytes
+
+
+# each fp32 cell's launch batch, K1-K3 bytes of a generator step forward and
+# backward, and FLOPs of a unit, as counted before K2 was counted at its dtype
+FP32_COUNTS = {
+    "savp_bair64.train_b16_k4": (32, (7877120, 308308224, 16252928), (9462784, 528536064, 30932992),
+                                 15998384013312),
+    "savp_kth64.eval_long_b8_n100": (64, (15754240, 616589568, 32505856), (18925568, 1057018368, 61865984),
+                                     500903452807680),
+    "savp_bair64.generate_b8x8": (64, (15754240, 616589568, 32505856), (18925568, 1057018368, 61865984),
+                                  9926272221184),
+    "savp_kth64.train_b16_k4": (32, (7877120, 308308224, 16252928), (9462784, 528536064, 30932992), 26883419209728),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(FP32_COUNTS))
+def test_fp32_cells_count_as_before(cell):
+    _, cfg, traffic = common.resolve(SPEC, cell)
+    hp, (h, w, c), t = cfg["hparams"], cfg["image_shape"], cfg["hparams"]["sequence_length"]
+    batch, fwd, bwd, flops = FP32_COUNTS[cell]
+    assert unit_batch(traffic) == batch
+    assert tuple(counts.kernel_bytes(hp, batch, h, w, c, False).values()) == fwd
+    assert tuple(counts.kernel_bytes(hp, batch, h, w, c, True).values()) == bwd
+    unit = {"train": lambda: counts.train_step_flops(hp, traffic["batch_size"], t, h, w, c),
+            "generate": lambda: counts.rollout_flops(hp, batch, t, h, w, c),
+            "evaluate": lambda: counts.eval_batch_flops(hp, traffic["batch_size"], traffic["num_samples"],
+                                                        cfg["long_sequence_length"], h, w, c, traffic["metrics"])}
+    assert unit[traffic["kind"]]() == flops

@@ -2,7 +2,9 @@
 plain path on the CPU at a tiny width, on the benchmark's seeded weights:
 the rollout, the posterior, the video discriminator, the losses, three train
 steps through the port's ``MultiStep``, and the metrics. Also: the reference
-imports nothing of the program and nothing of JAX."""
+imports nothing of the program and nothing of JAX; its train steps in
+sample blocks equal those of the whole batch; it takes a bf16
+configuration and refuses the dtypes it does not know."""
 
 import ast
 from pathlib import Path
@@ -65,7 +67,8 @@ def test_posterior_and_discriminator(built):
             torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
         us = {k: v for k, v in weights.items() if k.endswith(".u")}
         logits, feats, new_u = model.discriminator["video"](images[:, : hp.clip_length])
-        r_logits, r_feats, r_u = ref.video_discriminator(weights, us, "video", images[:, : hp.clip_length])
+        r_w, r_u = ref.normalized_weights(weights, us, "video")
+        r_logits, r_feats = ref.apply_discriminator(weights, r_w, "video", images[:, : hp.clip_length])
     torch.testing.assert_close(logits, r_logits, atol=1e-6, rtol=1e-5)
     for a, b in zip(feats, r_feats):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
@@ -117,3 +120,66 @@ def test_metrics_against_the_ports():
     allv = torch.cat([c["psnr"] for c in chunks], dim=1)
     torch.testing.assert_close(red["psnr_max"], allv.max(1).values)
     torch.testing.assert_close(red["psnr_avg"], allv.mean(1))
+
+
+@pytest.fixture(scope="module")
+def steps_of_eight(built):
+    """Three reference train steps at batch 8 from the seeded weights, as
+    one block (the whole batch's objective, one backward pass)."""
+    _, hp, _, weights = built
+    b, k, t = 8, 3, hp.sequence_length
+    clips = _clips(b * k, t).reshape(k, b, t, 32, 32, 3)
+    gen = torch.Generator().manual_seed(4)
+    noises = [train_kind.draw_noise(hp, b, t, gen, "cpu") for _ in range(k)]
+    params = {n: v for n, v in weights.items() if not n.endswith(".u")}
+    us = {n: v for n, v in weights.items() if n.endswith(".u")}
+    args = (params, us, hp.to_dict(), list(clips), noises)
+    return args, ref.train_steps(*args, block=b)
+
+
+@pytest.mark.parametrize("block", [2, 3])
+def test_blocked_train_steps_equal_one_block(steps_of_eight, block):
+    """Blocks of 2 (and of 3: an uneven last block) against one block of 8:
+    each step's losses, each leaf's first gradient and change, the first
+    frames and the ``u`` vectors after each step, within fp32 round-off. The
+    order of the sums differs, so the gradients differ by ~1e-7; Adam turns
+    that into more only where a leaf's gradient has elements near its
+    epsilon (``tiny_grad_share``), where its update is no longer near the
+    gradient's sign."""
+    args, whole = steps_of_eight
+    got = ref.train_steps(*args, block=block)
+    np.testing.assert_allclose(np.array(got["losses"]), np.array(whole["losses"]), rtol=1e-6)
+    torch.testing.assert_close(got["first_frames"], whole["first_frames"], atol=1e-6, rtol=0)
+    for u_got, u_whole in zip(got["u_by_step"], whole["u_by_step"], strict=True):
+        for name, u in u_whole.items():
+            torch.testing.assert_close(u_got[name], u, atol=1e-6, rtol=0)
+    gaps = train_kind.Cell.leaf_gaps(got, whole)
+    assert max(gaps["grad"].values()) <= 1e-5
+    assert set(gaps["change"]) == {n for n, g in whole["grad_norms"].items()
+                                   if g >= 1e-3 * np.median(list(whole["grad_norms"].values()))}
+    for name, gap in gaps["change"].items():
+        assert gap <= (1e-2 if whole["tiny_grad_share"][name] >= 0.01 else 1e-4), (name, gap)
+
+
+def test_blocks_take_shares_of_the_whole_batch(steps_of_eight):
+    """A mean over a block, not over the batch, would weigh each block's
+    samples as a whole batch: the blocked losses would read four times the
+    whole batch's."""
+    args, whole = steps_of_eight
+    params, us, hp, clips, noises = args
+    W = {key: ref.normalized_weights(params, us, key)[0] for key in ref.DISCRIMINATORS}
+    g_losses = [ref.block_losses(params, W, hp, clips[0][lo : lo + 2], ref.noise_rows(noises[0], slice(lo, lo + 2)),
+                                 0, 8)[1] for lo in range(0, 8, 2)]
+    assert float(sum(g_losses)) == pytest.approx(whole["losses"][0][0], rel=1e-6)
+
+
+@pytest.mark.parametrize("dtypes,ok", [(("float32", "float32"), True), (("bfloat16", "bfloat16"), True),
+                                       (("bfloat16", "float32"), True), (("float16", "float32"), False),
+                                       (("float32", "float16"), False)])
+def test_supported_dtypes(built, dtypes, ok):
+    hp = dict(built[1].to_dict(), compute_dtype=dtypes[0], gate_dtype=dtypes[1])
+    if ok:
+        ref.check_supported(hp)
+    else:
+        with pytest.raises(ValueError):
+            ref.check_supported(hp)
