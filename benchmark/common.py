@@ -91,6 +91,12 @@ def load_reader(name: str) -> Callable:
 
 
 # ------------------------------------------------------------------ seeds --
+# the streams of a run's seed: 0 weights, 1 clips, 2 noise, 3 the train
+# state's generator, 5 VGG16's weights, 6-8 the kinds' choices; actions and
+# states take one that no other draw uses
+CONDITIONING_STREAM = 9
+
+
 def sub_seed(seed: int, *stream: int) -> int:
     """A 63-bit seed of its own for each stream of one run's seed."""
     return int(np.random.SeedSequence([seed % 2**64, *stream]).generate_state(1, np.uint64)[0] >> 1)
@@ -128,6 +134,41 @@ def make_clips(n: int, t: int, h: int, w: int, c: int, gen: torch.Generator, dev
             img += wave[..., None] * amp[sl, None, None, None, k, :]
         out[sl] = (img.clamp(0, 1) * 255 + 0.5).to(torch.uint8).cpu()
     return out.numpy()
+
+
+def make_conditioning(n: int, t: int, action_dim: int, state_dim: int, gen: torch.Generator,
+                      device) -> Dict[str, np.ndarray]:
+    """float32 ``actions [n,t,action_dim]``, uniform in [-1, 1] (the
+    commands), and ``states [n,t,state_dim]``, a random walk from a uniform
+    start in [-1, 1] with Gaussian steps of std 0.05 (a drifting end-effector
+    position), each made on ``device`` in one call; nothing of a dim of 0 is
+    drawn."""
+    out = {}
+    if action_dim:
+        out["actions"] = (2 * torch.rand((n, t, action_dim), generator=gen, device=device) - 1).cpu().numpy()
+    if state_dim:
+        start = 2 * torch.rand((n, 1, state_dim), generator=gen, device=device) - 1
+        steps = 0.05 * torch.randn((n, t - 1, state_dim), generator=gen, device=device)
+        out["states"] = torch.cat([start, start + steps.cumsum(1)], dim=1).cpu().numpy()
+    return out
+
+
+def make_inputs(n: int, t: int, shape, cfg: Dict, seed: int, device) -> Dict[str, np.ndarray]:
+    """``n`` distinct clips of ``t`` frames as the program's loaders yield
+    them: uint8 ``images`` (``make_clips``, stream 1) and, where the
+    configuration states an ``action_dim`` or a ``state_dim`` above 0,
+    ``actions`` and ``states`` (``make_conditioning``, ``CONDITIONING_STREAM``).
+    """
+    out = {"images": make_clips(n, t, *shape, generator(seed, 1, device), device)}
+    dims = cfg.get("action_dim", 0), cfg.get("state_dim", 0)
+    if any(dims):
+        out.update(make_conditioning(n, t, *dims, generator(seed, CONDITIONING_STREAM, device), device))
+    return out
+
+
+def rows_of(inputs: Dict[str, np.ndarray], rows) -> Dict[str, np.ndarray]:
+    """The clips ``rows`` (an index or a slice) of every key of ``inputs``."""
+    return {k: v[rows] for k, v in inputs.items()}
 
 
 def weight_rule(name: str, shape) -> Tuple[str, float]:

@@ -11,7 +11,11 @@ reductions and best rollout are fetched to the host.
 The check takes one completed batch, drawn from the seed, and computes its
 every chunk again with the plain reference (rollout and metrics) from the
 same weights, clips and prior draws (the generator's state at the batch's
-start): each chunk's metrics and the batch's best and mean.
+start): each chunk's metrics and the batch's best and mean. Where the
+configuration has actions and states, each clip carries its own
+(``common.make_inputs``). The rollout's FLOPs and reference come from
+``benchmark/models/<model>.py`` (``ctx.parts``), the metrics' from
+``benchmark/counts.py`` and ``benchmark/reference/metrics.py``.
 """
 
 from __future__ import annotations
@@ -24,12 +28,12 @@ import torch
 
 from benchmark import common, counts, program
 from benchmark.reference import metrics as refm
-from benchmark.reference import savp as ref
 
 
 class Cell:
     def __init__(self, ctx):
         self.ctx, cfg, traffic = ctx, ctx.cfg, ctx.traffic
+        self.parts = ctx.parts
         self.b, self.n = traffic["batch_size"], traffic["num_samples"]
         self.spr = traffic["samples_per_rollout"]
         self.hp = program.hparams(cfg, ctx.overrides)
@@ -55,7 +59,7 @@ class Cell:
             fns["vgg_csim"], self.vgg_weights = program.vgg_metric(ctx.seed, dev)
         self.fns = {m: fns[m] for m in self.metrics}
         pool = ctx.traffic["pool_batches"] * self.b
-        self.pool = common.make_clips(pool, self.t, *self.shape, common.generator(ctx.seed, 1, dev), dev)
+        self.pool = common.make_inputs(pool, self.t, self.shape, ctx.cfg, ctx.seed, dev)
         self.host = program.host_batches(self.pool, self.b)
         self.rng = common.generator(ctx.seed, 2, dev)
         self.next_batch = 0
@@ -101,14 +105,15 @@ class Cell:
         return {"eval_frames_per_s": window["units"] * self.frames_per_unit() / window["seconds"]}
 
     def flops_per_unit(self) -> float:
-        return counts.eval_batch_flops(self.hp.to_dict(), self.b, self.n, self.t, *self.shape, self.metrics)
+        rollouts = self.parts.rollout_flops(self.hp.to_dict(), self.b * self.n, self.t, *self.shape)
+        return rollouts + counts.metrics_flops(self.b, self.n, self.t - self.ctx_frames, *self.shape, self.metrics)
 
     def kernel_work(self) -> Dict:
         hp, (h, w, c) = self.hp.to_dict(), self.shape
         chunks = -(-self.n // self.spr)
         steps = chunks * (self.t - 1)
-        nbytes = counts.kernel_bytes(hp, self.b * self.spr, h, w, c, False)
-        events = counts.kernel_events(hp, h, w, False)
+        nbytes = self.parts.kernel_bytes(hp, self.b * self.spr, h, w, c, False)
+        events = self.parts.kernel_events(hp, h, w, False)
         return {"bytes": {g: v * steps for g, v in nbytes.items()}, "events": {g: v * steps for g, v in events.items()}}
 
     def free(self) -> None:
@@ -124,17 +129,19 @@ class Cell:
         """The chosen batch again: its chunks' metrics, its best and mean."""
         hp, dev = self.hp.to_dict(), self.ctx.device
         i = self.chosen["index"]
-        clips = torch.from_numpy(self.pool[i * self.b : (i + 1) * self.b]).to(dev).float().div(255.0)
-        target = clips[:, self.ctx_frames:]
-        tiled = clips.repeat_interleave(self.spr, dim=0)
+        rows = common.rows_of(self.pool, slice(i * self.b, (i + 1) * self.b))
+        clips = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+        clips["images"] = clips["images"].float().div(255.0)
+        target = clips["images"][:, self.ctx_frames:]
+        tiled = {k: v.repeat_interleave(self.spr, dim=0) for k, v in clips.items()}
         gen = torch.Generator(device=dev)
         gen.set_state(self.chosen["state"])
         chunks, done = [], 0
         while done < self.n:
             take = min(self.spr, self.n - done)
-            zs = torch.randn((tiled.shape[0], self.t - 1, hp["nz"]), generator=gen, device=dev)
+            zs = torch.randn((tiled["images"].shape[0], self.t - 1, hp["nz"]), generator=gen, device=dev)
             with common.exact_fp32(), torch.no_grad():
-                frames = ref.eval_rollout(self.weights, hp, tiled, zs).float()
+                frames = self.parts.eval_rollout(self.weights, hp, tiled, zs).float()
                 pred = frames.reshape(self.b, self.spr, *frames.shape[1:])[:, :take, self.ctx_frames - 1:]
                 vals = refm.chunk_metrics(self.vgg_weights, target, pred, self.metrics)
             chunks.append({m: vals[m].float().cpu() for m in self.metrics})

@@ -11,7 +11,9 @@ until its frames are on the host.
 The check keeps a seeded sample of the completed requests (reservoir
 sampling) with their frames and the generator's state at their issue, and
 rolls each out again with the plain reference from the same weights, clips
-and prior draws.
+and prior draws. Where the configuration has actions and states, each clip
+carries its own (``common.make_inputs``). The reference comes from
+``benchmark/models/<model>.py`` (``ctx.parts``).
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import common, counts, program
-from benchmark.reference import savp as ref
+from benchmark import common, program
 
 
 def to_uint8(frames: torch.Tensor) -> torch.Tensor:
@@ -40,6 +41,7 @@ def frame_gaps(got_u8: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
 class Cell:
     def __init__(self, ctx):
         self.ctx, cfg, traffic = ctx, ctx.cfg, ctx.traffic
+        self.parts = ctx.parts
         self.clips, self.samples = traffic["clips_per_request"], traffic["samples_per_clip"]
         self.hp = program.hparams(cfg, ctx.overrides)
         self.t, self.ctx_frames = self.hp.sequence_length, self.hp.context_frames
@@ -53,8 +55,7 @@ class Cell:
         ctx, dev = self.ctx, self.ctx.device
         self.model, self.weights = program.build_model(ctx.cfg, self.hp, self.shape, ctx.seed, dev)
         self.model.eval()
-        self.pool = common.make_clips(ctx.traffic["pool_clips"], self.t, *self.shape,
-                                      common.generator(ctx.seed, 1, dev), dev)
+        self.pool = common.make_inputs(ctx.traffic["pool_clips"], self.t, self.shape, ctx.cfg, ctx.seed, dev)
         self.choice = np.random.default_rng(common.sub_seed(ctx.seed, 6))
         self.keep = np.random.default_rng(common.sub_seed(ctx.seed, 7))
         self.rng = common.generator(ctx.seed, 2, dev)
@@ -63,9 +64,9 @@ class Cell:
 
     def request(self, record: bool = True) -> None:
         sp = self.spans
-        idx = np.sort(self.choice.choice(len(self.pool), self.clips, replace=False))
+        idx = np.sort(self.choice.choice(len(self.pool["images"]), self.clips, replace=False))
         t0 = time.perf_counter()
-        batch = sp("to_device", program.batch_to_device, {"images": self.pool[idx]}, self.ctx.device)
+        batch = sp("to_device", program.batch_to_device, common.rows_of(self.pool, idx), self.ctx.device)
         tiled = {k: v.repeat_interleave(self.samples, dim=0) for k, v in batch.items()}
         state = self.rng.get_state()
         with torch.inference_mode():
@@ -97,13 +98,13 @@ class Cell:
                 "gen_request_ms_p95": common.quantile(lat, 0.95)}
 
     def flops_per_unit(self) -> float:
-        return counts.rollout_flops(self.hp.to_dict(), self.clips * self.samples, self.t, *self.shape)
+        return self.parts.rollout_flops(self.hp.to_dict(), self.clips * self.samples, self.t, *self.shape)
 
     def kernel_work(self) -> Dict:
         hp, (h, w, c) = self.hp.to_dict(), self.shape
         steps = self.t - 1
-        nbytes = counts.kernel_bytes(hp, self.clips * self.samples, h, w, c, False)
-        events = counts.kernel_events(hp, h, w, False)
+        nbytes = self.parts.kernel_bytes(hp, self.clips * self.samples, h, w, c, False)
+        events = self.parts.kernel_events(hp, h, w, False)
         return {"bytes": {g: v * steps for g, v in nbytes.items()}, "events": {g: v * steps for g, v in events.items()}}
 
     def free(self) -> None:
@@ -116,12 +117,13 @@ class Cell:
         hp, dev, out = self.hp.to_dict(), self.ctx.device, []
         gen = torch.Generator(device=dev)
         for e in self.kept:
-            images = torch.from_numpy(self.pool[e["idx"]]).to(dev).float().div(255.0)
-            images = images.repeat_interleave(self.samples, dim=0)
+            batch = {k: torch.from_numpy(v).to(dev).repeat_interleave(self.samples, dim=0)
+                     for k, v in common.rows_of(self.pool, e["idx"]).items()}
+            batch["images"] = batch["images"].float().div(255.0)
             gen.set_state(e["state"])
-            zs = torch.randn((images.shape[0], self.t - 1, hp["nz"]), generator=gen, device=dev)
+            zs = torch.randn((batch["images"].shape[0], self.t - 1, hp["nz"]), generator=gen, device=dev)
             with common.exact_fp32(), torch.no_grad():
-                frames = ref.eval_rollout(self.weights, hp, images, zs)
+                frames = self.parts.eval_rollout(self.weights, hp, batch, zs)
             out.append(frames[:, self.ctx_frames - 1:].float())
         return out
 

@@ -6,7 +6,9 @@ clips made from the seed.
 
 Set-up builds the train state, runs the first call (K eager steps, on the
 benchmark's own noise, with the first gradients and the first step's
-rollout read on the way) and the second (the capture). The window replays
+rollout read on the way) and the second (the capture). The pool's clips
+carry the configuration's actions and states where it has them
+(``common.make_inputs``). The window replays
 calls, at most ``IN_FLIGHT`` queued on the device, and ends with the last
 call's loss fetched to the host. After it, the check's call: the same
 train state set back in place to the seeded start, then one more call of
@@ -14,6 +16,9 @@ the window's own (on CUDA a replay of its graph) on the pool's first clips
 with the benchmark's noise, whose K steps' losses and each leaf's change
 are read. The plain reference follows those K steps from the same
 weights, clips and noise.
+
+The model's own parts, its reference and its work counts, come from
+``benchmark/models/<model>.py`` (``ctx.parts``); nothing here names a model.
 """
 
 from __future__ import annotations
@@ -25,8 +30,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import common, counts, program
-from benchmark.reference import savp as ref
+from benchmark import common, program
 
 IN_FLIGHT = 2
 
@@ -45,6 +49,7 @@ def draw_noise(hp, batch: int, seq_len: int, gen: torch.Generator, device) -> Di
 class Cell:
     def __init__(self, ctx):
         self.ctx, cfg, traffic = ctx, ctx.cfg, ctx.traffic
+        self.parts = ctx.parts
         self.k, self.b = traffic["steps_per_call"], traffic["batch_size"]
         self.hp = program.hparams(cfg, dict(ctx.overrides, batch_size=self.b))
         self.t = self.hp.sequence_length
@@ -64,7 +69,7 @@ class Cell:
         self.ts = TrainState(self.model, opt_g, opt_d, 0, common.generator(ctx.seed, 3, dev))
         self.step = make_train_step(self.model, steps_per_call=self.k)
         n_pool = self.ctx.traffic["pool_calls"] * self.k * self.b
-        self.pool = common.make_clips(n_pool, self.t, *self.shape, common.generator(ctx.seed, 1, dev), dev)
+        self.pool = common.make_inputs(n_pool, self.t, self.shape, ctx.cfg, ctx.seed, dev)
         self.feeder = DeviceFeeder(program.host_batches(self.pool, self.b), dev, stack=self.k)
         gen = common.generator(ctx.seed, 2, dev)
         self.noises = [draw_noise(self.hp, self.b, self.t, gen, dev) for _ in range(self.k)]
@@ -127,7 +132,7 @@ class Cell:
 
     # ------------------------------------------------------------- work --
     def flops_per_unit(self) -> float:
-        return self.k * counts.train_step_flops(self.hp.to_dict(), self.b, self.t, *self.shape)
+        return self.k * self.parts.train_step_flops(self.hp.to_dict(), self.b, self.t, *self.shape)
 
     def kernel_work(self) -> Dict:
         """Bytes and device events of K1-K3 in one call: per step the doubled
@@ -138,8 +143,9 @@ class Cell:
         steps = self.k * (self.t - 1)
         nbytes, events = collections.Counter(), collections.Counter()
         for backward, times in ((False, forwards), (True, 1)):
-            nbytes.update({g: v * times * steps for g, v in counts.kernel_bytes(hp, 2 * self.b, h, w, c, backward).items()})
-            events.update({g: v * times * steps for g, v in counts.kernel_events(hp, h, w, backward).items()})
+            nbytes.update({g: v * times * steps
+                           for g, v in self.parts.kernel_bytes(hp, 2 * self.b, h, w, c, backward).items()})
+            events.update({g: v * times * steps for g, v in self.parts.kernel_events(hp, h, w, backward).items()})
         return {"bytes": dict(nbytes), "events": dict(events)}
 
     # ------------------------------------------------------------ check --
@@ -180,12 +186,13 @@ class Cell:
         self.ctx.empty_cache()
 
     def reference(self) -> Dict:
-        images = torch.from_numpy(self.pool[: self.k * self.b]).to(self.ctx.device).reshape(
-            self.k, self.b, self.t, *self.shape)
-        params = {k: v for k, v in self.weights.items() if not k.endswith(".u")}
-        us = {k: v for k, v in self.weights.items() if k.endswith(".u")}
+        """The reference's K steps on the check call's batches: the pool's
+        first K x B clips, B a step, every key."""
+        calls = {k: torch.from_numpy(v[: self.k * self.b]).to(self.ctx.device).reshape(self.k, self.b, *v.shape[1:])
+                 for k, v in self.pool.items()}
+        batches = [{k: v[i] for k, v in calls.items()} for i in range(self.k)]
         with common.exact_fp32():
-            return ref.train_steps(params, us, self.hp.to_dict(), list(images), self.noises)
+            return self.parts.train_steps(self.weights, self.hp.to_dict(), batches, self.noises)
 
     @staticmethod
     def leaf_gaps(out: Dict, want: Dict) -> Dict[str, Dict[str, float]]:
@@ -204,8 +211,11 @@ class Cell:
 
     @staticmethod
     def step_gaps(out: Dict, want: Dict):
-        """Each step's relative gaps of ``g_loss`` and ``d_loss``."""
-        return [[abs(p - r) / abs(r) for p, r in zip(ps, rs)] for ps, rs in zip(out["losses"], want["losses"])]
+        """Each step's relative gaps of ``g_loss`` and ``d_loss``; the
+        absolute gap where the reference's loss is 0 (a model with no
+        discriminator)."""
+        return [[abs(p - r) / abs(r) if r else abs(p - r) for p, r in zip(ps, rs)]
+                for ps, rs in zip(out["losses"], want["losses"])]
 
     @classmethod
     def compare(cls, out: Dict, want: Dict) -> Dict[str, float]:

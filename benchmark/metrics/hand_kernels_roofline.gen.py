@@ -1,4 +1,4 @@
-"""K1-K3 (CDNA, LayerNorm gates, compositing) in the profiled window: their least time, the bytes of ``benchmark/counts.py`` over the HBM rate, over their device time (%)."""
+"""K1-K3 (CDNA, LayerNorm gates, compositing) in the profiled window: their least time, the bytes counted by the model's ``benchmark/models/<model>.py`` (formulas of ``benchmark/counts.py``) over the HBM rate, over their device time (%)."""
 from benchmark import common
 
 

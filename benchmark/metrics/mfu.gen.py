@@ -1,4 +1,4 @@
-"""Counted model FLOPs (``benchmark/counts.py``) of the window's units over its time, as a share of the configuration's peak (%)."""
+"""Counted model FLOPs (``benchmark/models/<model>.py``, ``benchmark/counts.py``) of the window's units over its time, as a share of the configuration's peak (%)."""
 from benchmark import common
 
 

@@ -25,12 +25,14 @@ def hparams(cfg: Dict, overrides: Dict = None):
 
 
 def build_model(cfg: Dict, hp, image_shape, seed: int, device) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
-    """The configuration's model on ``device`` with weights drawn from
-    ``seed`` (``common.make_weights``); returns it and those weights by name
+    """The configuration's model, at its ``action_dim`` and ``state_dim``
+    (0 where it states none), on ``device`` with weights drawn from ``seed``
+    (``common.make_weights``); returns it and those weights by name
     (parameters and spectral ``u`` vectors), which the reference is given."""
     from video_prediction_torch.models import get_model_class
 
-    model = get_model_class(cfg["model"])(hp, image_shape=tuple(image_shape), action_dim=0, state_dim=0)
+    model = get_model_class(cfg["model"])(hp, image_shape=tuple(image_shape), action_dim=cfg.get("action_dim", 0),
+                                          state_dim=cfg.get("state_dim", 0))
     model.to(device)
     state = model.state_dict()
     weights = common.make_weights({k: tuple(v.shape) for k, v in state.items()}, common.generator(seed, 0, device),
@@ -56,13 +58,15 @@ def vgg_metric(seed: int, device):
     return metric, weights
 
 
-def host_batches(pool, batch: int):
-    """An endless iterator of ``{"images": [batch, T, H, W, C]}`` host batches
-    cycling through ``pool``."""
-    n = len(pool) // batch
+def host_batches(pool: Dict, batch: int):
+    """An endless iterator of host batches of ``batch`` clips cycling through
+    ``pool`` (``common.make_inputs``), under the keys the port's loaders
+    use: ``images [batch, T, H, W, C]``, and ``actions`` and ``states``
+    where the pool has them."""
+    n = len(pool["images"]) // batch
     i = 0
     while True:
-        yield {"images": pool[(i % n) * batch : (i % n + 1) * batch]}
+        yield common.rows_of(pool, slice((i % n) * batch, (i % n + 1) * batch))
         i += 1
 
 

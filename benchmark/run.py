@@ -6,7 +6,8 @@ from the root of a checkout. It finds the cell, its configuration and its
 traffic mix by name (``BENCHMARK.json``, ``benchmark/configs/``,
 ``benchmark/traffic/``), builds the cell's kind (``benchmark/kinds/<kind>.py``),
 sets it up from the seed, runs whole units of work for ``--seconds``,
-checks the outputs against the plain reference (``benchmark/reference/``)
+checks the outputs against the plain reference of the configuration's model
+(``benchmark/models/<model>.py``; a model without one exits before set-up)
 within the cell's limits (``benchmark/limits/<cell>.json``), and prints one
 JSON line. With ``--trace 0`` it reports the cell's end-to-end metrics; with
 ``--trace 1`` its per-layer metrics (``benchmark/metrics/<metric>.py``), read
@@ -35,17 +36,19 @@ os.environ.setdefault("USE_FLAX", "0")
 
 import torch  # noqa: E402
 
-from benchmark import common  # noqa: E402
+from benchmark import common, models  # noqa: E402
 
 PROFILE_WINDOWS = 5  # a profiled window that lost device records is profiled again, up to this many
 
 
 class Context:
-    """What a cell's kind is given: its files, the seed, the device, and the
-    device's clock."""
+    """What a cell's kind is given: its files, its model's own parts (the
+    plain reference and the work counts, ``benchmark/models/<model>.py``),
+    the seed, the device, and the device's clock."""
 
     def __init__(self, cell: Dict, cfg: Dict, traffic: Dict, seed: int, device, overrides: Optional[Dict] = None):
         self.cell, self.cfg, self.traffic, self.seed = cell, cfg, traffic, seed
+        self.parts = models.find(cfg)
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         if self.cuda and self.device.index is None:
@@ -184,6 +187,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     spec = common.benchmark_spec()
     cell, cfg, _ = common.resolve(spec, args.workload)
+    models.find(cfg)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         print(f"{args.workload} needs {cell['chips']} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)

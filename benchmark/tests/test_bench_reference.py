@@ -4,16 +4,20 @@ the rollout, the posterior, the video discriminator, the losses, three train
 steps through the port's ``MultiStep``, and the metrics. Also: the reference
 imports nothing of the program and nothing of JAX; its train steps in
 sample blocks equal those of the whole batch; it takes a bf16
-configuration and refuses the dtypes it does not know."""
+configuration and refuses the dtypes it does not know; and, called through
+``benchmark/models/savp.py``, it gives at the rehearsal's sizes the very
+bits it gave before it was found by the model's name."""
 
 import ast
+import hashlib
+import json
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark import common, program
+from benchmark import common, models, program, rehearse
 from benchmark.kinds import train as train_kind
 from benchmark.reference import metrics as refm
 from benchmark.reference import savp as ref
@@ -183,3 +187,47 @@ def test_supported_dtypes(built, dtypes, ok):
     else:
         with pytest.raises(ValueError):
             ref.check_supported(hp)
+
+
+# the reference's outputs below, at one CPU thread (more threads sum the
+# gradients in another order), before SAVP's parts were found by the model's
+# name: the losses, and SHA-256 digests of every output
+FROZEN = {"train_losses": [[12.588494300842285, 0.20043425261974335], [8.735883712768555, 0.19912970066070557]],
+          "train_steps": "e16d0db017a4378ff9763625570649a30605a154511bdeb15a32a65275882fe0",
+          "eval_rollout": "dc2320e67212b6b1745dab8e5c97c8977a9f2fb0e7a82a7253a209cbcd7aac60"}
+
+
+def _digest(*parts) -> str:
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p.detach().contiguous().cpu().numpy().tobytes() if torch.is_tensor(p)
+                 else json.dumps(p, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def test_savp_reference_gives_the_same_bits():
+    """Two train steps and a prior rollout at the rehearsal's sizes, through
+    the model's parts (``models.find``), from the seeded weights and clips."""
+    cfg = common.load_json(common.ROOT / "benchmark" / "configs" / "savp_bair64.json")
+    parts = models.find(cfg)
+    hp = program.hparams(cfg, dict(rehearse.TINY, **rehearse.TINY_SEQUENCE["train"], **rehearse.PLAIN, batch_size=2))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, weights = program.build_model(cfg, hp, (32, 32, 3), 2**31 + 11, "cpu")
+        k, b, t = 2, 2, hp.sequence_length
+        clips = common.make_clips(k * b, t, 32, 32, 3, common.generator(5, 1, "cpu"), "cpu")
+        gen = common.generator(5, 2, "cpu")
+        noises = [train_kind.draw_noise(hp, b, t, gen, "cpu") for _ in range(k)]
+        batches = [{"images": v} for v in torch.from_numpy(clips).reshape(k, b, t, 32, 32, 3)]
+        r = parts.train_steps(weights, hp.to_dict(), batches, noises)
+        zs = torch.randn((3, t - 1, hp.nz), generator=common.generator(5, 3, "cpu"))
+        images = common.make_clips(3, t, 32, 32, 3, common.generator(5, 4, "cpu"), "cpu")
+        with torch.no_grad():
+            frames = parts.eval_rollout(weights, hp.to_dict(), {"images": torch.from_numpy(images).float() / 255.0}, zs)
+    finally:
+        torch.set_num_threads(threads)
+    assert [list(s) for s in r["losses"]] == FROZEN["train_losses"]
+    assert _digest(r["losses"], r["grad_norms"], r["tiny_grad_share"], r["change_norms"], r["first_frames"],
+                   *[u[n] for u in r["u_by_step"] for n in sorted(u)]) == FROZEN["train_steps"]
+    assert _digest(frames) == FROZEN["eval_rollout"]

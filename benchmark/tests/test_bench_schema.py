@@ -97,24 +97,78 @@ def test_cell_resolves(cell):
         assert key in cfg
 
 
-@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
-def test_configuration_is_its_source(config):
+def assert_is_its_source(cfg):
     """The frozen hparams dict is the model's defaults, then its zoo file,
-    then the dataset's sequence structure, as the port's CLIs merge them;
-    the image shape and the long sequence are the dataset's."""
+    then the dataset's sequence structure under the configuration's dataset
+    hparams (``dataset_hparams``, none where it states none), as the port's
+    CLIs merge them. The image shape is the dataset's frames as the port's
+    reader shapes them (``data/base.py``: cropped to ``crop_size``, then
+    scaled to ``scale_size``); the long sequence is the dataset's; the action
+    and state dims (0 where a configuration states none) are the dataset's
+    where its hparams read them (``use_state``), states only where the model
+    uses them, as the port's first batch fixes them (``models/base.py#input_dims``)."""
+    import numpy as np
+
     from video_prediction_torch.configs.hparams import resolve_model_hparams
     from video_prediction_torch.data import get_dataset_class
+    from video_prediction_torch.data.native_loader import bilinear_resize_uint8, center_crop_or_pad
     from video_prediction_torch.models import get_model_class
 
-    cfg = common.load_json(ROOT / next(c["file"] for c in SPEC["configs"] if c["name"] == config))
     dataset = get_dataset_class(cfg["dataset"])
-    seq = dataset.default_hparams
+    seq = dataset.default_hparams.replace(**cfg.get("dataset_hparams", {}))
     hp = resolve_model_hparams(get_model_class(cfg["model"]).default_hparams(), str(ROOT / cfg["zoo_file"]),
                                extra={"context_frames": seq.context_frames, "sequence_length": seq.sequence_length,
                                       "batch_size": cfg["hparams"]["batch_size"]})
     assert json.loads(json.dumps(hp.to_dict())) == cfg["hparams"]
-    assert tuple(cfg["image_shape"]) == tuple(dataset.IMAGE_SHAPE)
+    frames = np.zeros((1, *dataset.IMAGE_SHAPE), np.uint8)
+    if seq.crop_size:
+        frames = center_crop_or_pad(frames, seq.crop_size)
+    if seq.scale_size and frames.shape[1:3] != (seq.scale_size, seq.scale_size):
+        frames = bilinear_resize_uint8(frames, seq.scale_size, seq.scale_size)
+    assert tuple(cfg["image_shape"]) == frames.shape[1:]
     assert cfg["long_sequence_length"] == seq.long_sequence_length
+    actions = dataset.ACTION_DIM if dataset.ACTION_KEY and seq.use_state else 0
+    states = dataset.STATE_DIM if dataset.STATE_KEY and seq.use_state and hp.use_states else 0
+    assert (cfg.get("action_dim", 0), cfg.get("state_dim", 0)) == (actions, states)
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_configuration_is_its_source(config):
+    assert_is_its_source(common.load_json(ROOT / next(c["file"] for c in SPEC["configs"] if c["name"] == config)))
+
+
+def test_configuration_stating_dataset_hparams_resolves(kth128, spec_with):
+    """A configuration at 128 px (crop 120, scale 128) is its source, and a
+    cell of it resolves to its file, its traffic and its model's parts."""
+    from benchmark import models
+    from benchmark.models import savp
+
+    path, cfg = kth128
+    assert_is_its_source(cfg)
+    spec, cell = spec_with(path, cfg)
+    _, got, traffic = common.resolve(spec, cell)
+    assert got == cfg and traffic["kind"] == "train"
+    assert models.find(got) is savp
+
+
+def test_conditioned_configuration_is_its_source(sna_l2):
+    """An action-conditioned configuration states its dataset's dims."""
+    cfg = sna_l2[1]
+    assert_is_its_source(cfg)
+    for change in ({"action_dim": 0}, {"state_dim": 2}, {"dataset_hparams": {}}):
+        with pytest.raises(AssertionError):
+            assert_is_its_source(dict(cfg, **change))
+
+
+@pytest.mark.parametrize("change", [{"image_shape": [64, 64, 3]},
+                                    {"dataset_hparams": {"crop_size": 120, "scale_size": 96}},
+                                    {"dataset_hparams": {}}, {"action_dim": 4}])
+def test_shape_or_dims_unlike_the_source_fail(kth128, change):
+    """The 128 px configuration with a shape its stated ``scale_size`` does
+    not give, or with dims its dataset does not read, is not its source."""
+    cfg = dict(kth128[1], **change)
+    with pytest.raises(AssertionError):
+        assert_is_its_source(cfg)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in SPEC["per_layer"]])
